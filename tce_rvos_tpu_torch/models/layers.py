@@ -1,0 +1,135 @@
+"""Shared building blocks (counterpart of ``tce_rvos_tpu/models/layers.py``).
+
+Sequence tensors are batch-first ``[B, S, C]``; masks are True on padding.
+Epsilons follow the JAX package, not torch's defaults: LayerNorm 1e-6 in
+the transformer, FFN and FPN, GroupNorm 1e-6, FeatureResizer 1e-12.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+LN_EPS = 1e-6
+
+
+def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    if name == "relu":
+        return F.relu
+    if name == "gelu":
+        return F.gelu
+    if name == "glu":
+        return F.glu
+    raise ValueError(f"activation should be relu/gelu/glu, not {name}")
+
+
+def layer_norm(d_model: int, eps: float = LN_EPS) -> nn.LayerNorm:
+    return nn.LayerNorm(d_model, eps=eps)
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm over NCHW with float32 statistics and affine, cast back to
+    the input's dtype (the JAX GroupNorm computes in float32 whatever the
+    operand's dtype)."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6):
+        super().__init__(num_groups, num_channels, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(x.dtype)
+
+
+class MLP(nn.Module):
+    """ReLU MLP (``layers.{i}``), the controller and bbox heads."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, output_dim: int, num_layers: int):
+        super().__init__()
+        dims_in = [input_dim] + [hidden_dim] * (num_layers - 1)
+        dims_out = [hidden_dim] * (num_layers - 1) + [output_dim]
+        self.layers = nn.ModuleList(nn.Linear(i, o) for i, o in zip(dims_in, dims_out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = F.relu(x)
+        return x
+
+
+class FeatureResizer(nn.Module):
+    """Linear + LayerNorm(eps 1e-12): text width -> d_model (dropout is
+    inactive at inference)."""
+
+    def __init__(self, input_dim: int, output_dim: int):
+        super().__init__()
+        self.fc = nn.Linear(input_dim, output_dim)
+        self.layer_norm = nn.LayerNorm(output_dim, eps=1e-12)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layer_norm(self.fc(x))
+
+
+class MultiheadAttention(nn.Module):
+    """``torch.nn.MultiheadAttention`` parameters (packed ``in_proj_weight``
+    / ``in_proj_bias``, ``out_proj``), batch-first, inference only.
+    ``key_padding_mask`` [B, Sk] is True where a key is ignored; masked
+    logits take the dtype's most negative finite value, as in the JAX
+    package (a fully masked row stays finite)."""
+
+    def __init__(self, d_model: int, num_heads: int):
+        super().__init__()
+        self.d_model = d_model
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
+        self.out_proj = nn.Linear(d_model, d_model)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def forward(
+        self,
+        query: torch.Tensor,
+        key: torch.Tensor,
+        value: torch.Tensor,
+        key_padding_mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        c, h = self.d_model, self.num_heads
+        hd = c // h
+        wq, wk, wv = self.in_proj_weight.chunk(3)
+        bq, bk, bv = self.in_proj_bias.chunk(3)
+        b, sq, _ = query.shape
+        sk = key.shape[1]
+        q = F.linear(query, wq, bq).reshape(b, sq, h, hd).transpose(1, 2)
+        k = F.linear(key, wk, bk).reshape(b, sk, h, hd).transpose(1, 2)
+        v = F.linear(value, wv, bv).reshape(b, sk, h, hd).transpose(1, 2)
+        logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+        if key_padding_mask is not None:
+            logits = logits.masked_fill(
+                key_padding_mask[:, None, None, :], torch.finfo(logits.dtype).min
+            )
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, sq, c)
+        return self.out_proj(out)
+
+
+def ffn(
+    x: torch.Tensor,
+    linear1: nn.Linear,
+    linear2: nn.Linear,
+    norm: nn.LayerNorm,
+    activation: str = "relu",
+) -> torch.Tensor:
+    """Post-norm FFN with residual: norm(x + W2 act(W1 x)). The layers live
+    on the calling block under the reference's names (``linear1``,
+    ``linear2`` and ``norm2`` in the encoder, ``norm3`` in the decoder)."""
+    return norm(x + linear2(get_activation(activation)(linear1(x))))
+
+
+def with_pos(tensor: torch.Tensor, pos: Optional[torch.Tensor]) -> torch.Tensor:
+    """Add a (float32) position encoding in the feature's dtype."""
+    return tensor if pos is None else tensor + pos.to(tensor.dtype)
