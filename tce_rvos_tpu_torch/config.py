@@ -11,8 +11,8 @@ What the port supports of the rest is fixed, not configurable: a ResNet-50
 backbone without DC5, the V-L blocks of the FPN, relative coordinates in
 the dynamic mask head, mask losses, and one class logit (``--binary``). The
 options not ported yet (the other backbones, DC5, ``vis_loss``,
-``contrastive``, ``msda_3d``, ``f_token < 0``, the non-binary class counts)
-come with their code and a parity test against the JAX package.
+``contrastive``, ``f_token < 0``, the non-binary class counts) come with
+their code and a parity test against the JAX package.
 """
 
 from __future__ import annotations
@@ -61,6 +61,7 @@ class ModelConfig:
     # TCE variants
     qtrans: bool = False                  # IQT
     f_token: int = 0                      # FTF: > 0 learnable frame tokens
+    msda_3d: bool = False                 # temporal MSDA in encoder and decoder
 
     compute_dtype: str = "float32"        # "bfloat16" for the fast path
 

@@ -84,7 +84,7 @@ class ReferFormer(nn.Module):
             num_feature_levels=cfg.num_feature_levels, dec_n_points=cfg.dec_n_points,
             enc_n_points=cfg.enc_n_points, q_trans=cfg.qtrans, f_token=cfg.f_token,
             with_box_refine=cfg.with_box_refine, dropout=cfg.dropout,
-            use_checkpoint=cfg.use_checkpoint)
+            use_checkpoint=cfg.use_checkpoint, msda_3d=cfg.msda_3d)
         n_heads = cfg.dec_layers if cfg.with_box_refine else 1
         self.class_embed = nn.ModuleList(nn.Linear(c, NUM_CLASSES) for _ in range(n_heads))
         self.bbox_embed = nn.ModuleList(MLP(c, c, 4, 3) for _ in range(n_heads))

@@ -11,6 +11,13 @@ FTF token attention and IQT attention are scoped to each batch element's
 clip (t frames), as in the JAX package: with expressions stacked on the
 batch axis, expressions never attend to each other.
 
+``msda_3d`` (``--msda_3d``) makes the encoder's self-attention and the
+decoder's cross-attention temporal (``MSDeformAttn(is_3d=True)``, the 3D
+MSDA op); FTF's token attention stays 2D. As in the JAX package, the 3D op
+takes the call's whole batch axis as time, so with clips or expressions
+stacked on it a temporal tap can reach into the neighbouring clip: the port
+copies this, it does not scope it.
+
 Dropout follows the JAX package: ``dropout`` on every residual branch, in
 the FFNs and on the attention probabilities of the FTF and IQT attention
 (none inside MSDA). ``use_checkpoint`` recomputes each encoder and decoder
@@ -19,8 +26,7 @@ with the RNG state kept so dropout draws the same masks). Unlike the JAX
 policy, which saves each MSDA output, the MSDA forward kernel runs again in
 the recomputation: 12 extra forward launches per flagship step.
 
-Not ported yet: ``LastLayerAsToken`` (f_token < 0) and the temporal
-``is_3d`` MSDA (``--msda_3d``).
+Not ported yet: ``LastLayerAsToken`` (f_token < 0).
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from tce_rvos_tpu_torch.models.layers import (
     layer_norm,
     with_pos,
 )
-from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn
+from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn, ms_deform_attn_3d
 from tce_rvos_tpu_torch.utils.boxes import inverse_sigmoid
 
 SpatialShapes = Tuple[Tuple[int, int], ...]
@@ -56,18 +62,29 @@ def offset_bias(n_heads: int, n_levels: int, n_points: int) -> torch.Tensor:
     return grid.reshape(-1).float()
 
 
+def offset_bias_3d(n_heads: int, n_levels: int, n_points: int) -> torch.Tensor:
+    """The directional bias with a zero temporal coordinate per point."""
+    b2 = offset_bias(n_heads, n_levels, n_points).reshape(n_heads, n_levels, n_points, 2)
+    return torch.cat([b2, torch.zeros_like(b2[..., :1])], -1).reshape(-1)
+
+
 class MSDeformAttn(nn.Module):
     """Multi-scale deformable attention module (reference parameter layout:
     value [N, S, M, D], loc/attn [N, Q, M, L, P, ...]). The core op is
     ``ops/msda_cuda.py::ms_deform_attn``: the CUDA kernel on the card, the
-    plain version on the CPU."""
+    plain version on the CPU. With ``is_3d`` every point has a third
+    (frame) offset and the op is ``ms_deform_attn_3d``: the temporal
+    reference is the query's own frame along the batch axis, ``(n + 0.5) /
+    N``, so zero temporal offsets give the 2D result."""
 
     def __init__(self, d_model: int = 256, n_levels: int = 4, n_heads: int = 8,
-                 n_points: int = 4):
+                 n_points: int = 4, is_3d: bool = False):
         super().__init__()
         self.d_model, self.n_levels, self.n_heads, self.n_points = (
             d_model, n_levels, n_heads, n_points)
-        self.sampling_offsets = nn.Linear(d_model, n_heads * n_levels * n_points * 2)
+        self.is_3d = is_3d
+        self.coords = 3 if is_3d else 2
+        self.sampling_offsets = nn.Linear(d_model, n_heads * n_levels * n_points * self.coords)
         self.attention_weights = nn.Linear(d_model, n_heads * n_levels * n_points)
         self.value_proj = nn.Linear(d_model, d_model)
         self.output_proj = nn.Linear(d_model, d_model)
@@ -76,8 +93,8 @@ class MSDeformAttn(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         with torch.no_grad():
             self.sampling_offsets.weight.zero_()
-            self.sampling_offsets.bias.copy_(
-                offset_bias(self.n_heads, self.n_levels, self.n_points))
+            bias = offset_bias_3d if self.is_3d else offset_bias
+            self.sampling_offsets.bias.copy_(bias(self.n_heads, self.n_levels, self.n_points))
             self.attention_weights.weight.zero_()
             self.attention_weights.bias.zero_()
             for lin in (self.value_proj, self.output_proj):
@@ -99,22 +116,34 @@ class MSDeformAttn(nn.Module):
         if padding_mask is not None:
             value = value.masked_fill(padding_mask[..., None], 0.0)
         value = value.reshape(n, s, m, self.d_model // m)
-        offsets = self.sampling_offsets(query).reshape(n, q_len, m, l, p, 2)
+        offsets = self.sampling_offsets(query).reshape(n, q_len, m, l, p, self.coords)
         attn = self.attention_weights(query).reshape(n, q_len, m, l * p)
         attn = torch.softmax(attn, -1).reshape(n, q_len, m, l, p)
         ref = reference_points[:, :, None]  # broadcast over heads
+        off_xy = offsets[..., :2]
         if reference_points.shape[-1] == 2:
             normalizer = torch.tensor([[w, h] for h, w in spatial_shapes],
                                       dtype=offsets.dtype, device=offsets.device)
-            loc = ref[:, :, :, :, None, :] + offsets / normalizer[None, None, None, :, None, :]
+            loc = ref[:, :, :, :, None, :] + off_xy / normalizer[None, None, None, :, None, :]
         elif reference_points.shape[-1] == 4:
-            loc = ref[:, :, :, :, None, :2] + offsets / p * ref[:, :, :, :, None, 2:] * 0.5
+            loc = ref[:, :, :, :, None, :2] + off_xy / p * ref[:, :, :, :, None, 2:] * 0.5
         else:
             raise ValueError("reference_points last dim must be 2 or 4")
+        if self.is_3d:
+            # the query's own frame along the batch-as-time axis: f_im =
+            # loc_f * N - 0.5 lands exactly on frame n at zero offset. f32,
+            # as the (f32) reference points make the spatial coordinates
+            ref_f = (torch.arange(n, dtype=loc.dtype, device=loc.device) + 0.5) / n
+            loc_f = ref_f[:, None, None, None, None] + offsets[..., 2] / n
+            loc = torch.cat([loc, loc_f[..., None]], -1)
         # coordinates and weights stay float32 into the kernel
         loc = loc.float().contiguous()
         attn = attn.float().contiguous()
-        out = ms_deform_attn(value, spatial_shapes, loc, attn)
+        if self.is_3d:
+            out = ms_deform_attn_3d(value, spatial_shapes, loc, attn)
+            loc = loc[..., :2]  # what the consumers read (the top-30 export)
+        else:
+            out = ms_deform_attn(value, spatial_shapes, loc, attn)
         return self.output_proj(out), loc, attn
 
 
@@ -198,7 +227,7 @@ class FrameTokenLayer(nn.Module):
 
 class EncoderLayer(nn.Module):
     def __init__(self, d_model=256, d_ffn=1024, dropout=0.1, activation="relu", n_levels=4,
-                 n_heads=8, n_points=4, f_token=0):
+                 n_heads=8, n_points=4, f_token=0, msda_3d=False):
         super().__init__()
         if f_token < 0:
             raise NotImplementedError("f_token < 0 (LastLayerAsToken) is not ported yet")
@@ -207,7 +236,7 @@ class EncoderLayer(nn.Module):
             FrameTokenLayer(d_model, d_ffn, dropout, activation, n_heads, n_levels, n_points)
             if f_token > 0 else None
         )
-        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
+        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, is_3d=msda_3d)
         self.norm1 = layer_norm(d_model)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
@@ -232,13 +261,13 @@ class DecoderLayer(nn.Module):
     query slot's t frames instead of over the query slots of one frame."""
 
     def __init__(self, d_model=256, d_ffn=1024, dropout=0.1, activation="relu", n_levels=4,
-                 n_heads=8, n_points=4, is_query_atten=False):
+                 n_heads=8, n_points=4, is_query_atten=False, msda_3d=False):
         super().__init__()
         self.activation = activation
         self.is_query_atten = is_query_atten
         self.self_attn = MultiheadAttention(d_model, n_heads, dropout)
         self.norm2 = layer_norm(d_model)
-        self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
+        self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, is_3d=msda_3d)
         self.norm1 = layer_norm(d_model)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
@@ -285,7 +314,7 @@ class DeformableTransformer(nn.Module):
     def __init__(self, d_model=256, nhead=8, num_encoder_layers=4, num_decoder_layers=4,
                  dim_feedforward=2048, dropout=0.1, activation="relu", num_feature_levels=4,
                  dec_n_points=4, enc_n_points=4, q_trans=False, f_token=0,
-                 with_box_refine=False, use_checkpoint=False):
+                 with_box_refine=False, use_checkpoint=False, msda_3d=False):
         super().__init__()
         self.d_model = d_model
         self.f_token = f_token
@@ -295,7 +324,7 @@ class DeformableTransformer(nn.Module):
         self.level_embed = nn.Parameter(torch.zeros(num_feature_levels, d_model))
         self.encoder = _Stack([
             EncoderLayer(d_model, dim_feedforward, dropout, activation, num_feature_levels,
-                         nhead, enc_n_points, f_token)
+                         nhead, enc_n_points, f_token, msda_3d)
             for _ in range(num_encoder_layers)
         ])
         if f_token > 0:
@@ -303,7 +332,7 @@ class DeformableTransformer(nn.Module):
             self.encoder.memory_pos = nn.Parameter(torch.zeros(f_token, d_model))
         self.decoder = _Stack([
             DecoderLayer(d_model, dim_feedforward, dropout, activation, num_feature_levels,
-                         nhead, dec_n_points, q_trans)
+                         nhead, dec_n_points, q_trans, msda_3d)
             for _ in range(num_decoder_layers)
         ])
         self.reference_points = nn.Linear(d_model, 2)

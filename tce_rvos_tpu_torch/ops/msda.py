@@ -1,11 +1,14 @@
-"""Multi-scale deformable attention (MSDA): the plain PyTorch version.
+"""Multi-scale deformable attention (MSDA): the plain PyTorch versions.
 
-Counterpart of ``tce_rvos_tpu/ops/msda.py::ms_deform_attn``. It is the CPU
-path of the model and the oracle that the CUDA kernels
-(``ops/msda_cuda.py``, ``csrc/msda_fwd.cu``, ``csrc/msda_bwd.cu``) are held
-against on the card: the forward by its output, the backward by autograd
-through this function. Its floor-based corners give the JAX package's
-right-derivative at integer sampling points.
+``ms_deform_attn_plain`` is the counterpart of
+``tce_rvos_tpu/ops/msda.py::ms_deform_attn`` and ``ms_deform_attn_3d_plain``
+that of its temporal variant ``ms_deform_attn_3d`` (``--msda_3d``). They are
+the CPU path of the model and the oracles that the CUDA kernels
+(``ops/msda_cuda.py``; ``csrc/msda_fwd.cu``, ``csrc/msda_bwd.cu`` and
+``csrc/msda3d_fwd.cu``, ``csrc/msda3d_bwd.cu``) are held against on the
+card: the forward by its output, the backward by autograd through the plain
+version. Their floor-based corners and frames give the JAX package's
+right-derivative at integer sampling points and integer frames.
 
 Semantics (the reference CUDA ``ms_deformable_im2col`` / grid_sample with
 ``align_corners=False``):
@@ -16,8 +19,16 @@ Semantics (the reference CUDA ``ms_deformable_im2col`` / grid_sample with
   * ``out[n, q, m*D + d] = sum_l sum_p attn[n,q,m,l,p] *
     bilinear(value_l[n, :, m, d], loc[n,q,m,l,p])``.
 
-Taps are gathered and summed in float32 whatever the value's dtype; the
-result is cast back to the value's dtype, as the kernel does.
+The 3D variant gives every point a third coordinate f: the tap sits on the
+fractional frame ``f_im = f * N - 0.5`` of the batch axis (N frames) and
+lerps the bilinear taps of frames ``floor(f_im)`` and ``floor(f_im) + 1``
+with weights ``1 - df`` and ``df``; frames outside [0, N - 1] add nothing.
+Time is the whole batch axis of the call, as in the JAX package: with clips
+or expressions stacked on it, a tap can reach into a neighbouring clip.
+
+Taps are gathered and summed in float32 for a float32 or bfloat16 value
+(float64 for a float64 one, which only the CPU takes); the result is cast
+back to the value's dtype, as the kernels do.
 """
 
 from __future__ import annotations
@@ -83,10 +94,11 @@ def ms_deform_attn_plain(
     starts = level_splits(spatial_shapes)
     if starts[-1] != s:
         raise ValueError(f"spatial_shapes cover {starts[-1]} pixels, value has {s}")
-    vf = value.float()
-    loc = sampling_locations.float()
-    attn = attention_weights.float()
-    out = torch.zeros((n, q, m, d), dtype=torch.float32, device=value.device)
+    ctype = torch.promote_types(value.dtype, torch.float32)
+    vf = value.to(ctype)
+    loc = sampling_locations.to(ctype)
+    attn = attention_weights.to(ctype)
+    out = torch.zeros((n, q, m, d), dtype=ctype, device=value.device)
     for lvl, (h, w) in enumerate(spatial_shapes):
         value_l = vf[:, starts[lvl] : starts[lvl + 1]]
         x = loc[:, :, :, lvl, :, 0] * w - 0.5
@@ -95,4 +107,45 @@ def ms_deform_attn_plain(
         for flat_idx, wgt in _bilinear_corner_terms(x, y, h, w):
             tap = _gather_heads(value_l, flat_idx)
             out = out + torch.einsum("nqmpd,nqmp->nqmd", tap, wgt * a)
+    return out.reshape(n, q, m * d).to(value.dtype)
+
+
+def ms_deform_attn_3d_plain(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """value [N, S, M, D], loc [N, Q, M, L, P, 3] (x, y, f in [0, 1]),
+    attn [N, Q, M, L, P] -> [N, Q, M*D] in the value's dtype."""
+    n, s, m, d = value.shape
+    q = sampling_locations.shape[1]
+    starts = level_splits(spatial_shapes)
+    if starts[-1] != s:
+        raise ValueError(f"spatial_shapes cover {starts[-1]} pixels, value has {s}")
+    ctype = torch.promote_types(value.dtype, torch.float32)
+    vf = value.to(ctype)
+    loc = sampling_locations.to(ctype)
+    attn = attention_weights.to(ctype)
+    f = loc[..., 2] * n - 0.5  # [N, Q, M, L, P]
+    f0 = torch.floor(f)
+    df = f - f0
+    f0i = f0.to(torch.int64)
+    heads = torch.arange(m, device=value.device)[:, None]  # against [..., M, P]
+    out = torch.zeros((n, q, m, d), dtype=ctype, device=value.device)
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        hw = h * w
+        # (frame, pixel) flattened, so that one index picks both
+        value_l = vf[:, starts[lvl] : starts[lvl + 1]].reshape(n * hw, m, d)
+        x = loc[:, :, :, lvl, :, 0] * w - 0.5
+        y = loc[:, :, :, lvl, :, 1] * h - 0.5
+        a = attn[:, :, :, lvl]
+        corners = _bilinear_corner_terms(x, y, h, w)
+        for foff, fwgt in ((0, 1.0 - df[:, :, :, lvl]), (1, df[:, :, :, lvl])):
+            fi = f0i[:, :, :, lvl] + foff
+            fwgt = torch.where((fi >= 0) & (fi < n), fwgt, torch.zeros_like(fwgt))
+            row0 = fi.clamp(0, n - 1) * hw
+            for flat_idx, wgt in corners:
+                tap = value_l[row0 + flat_idx, heads]  # [N, Q, M, P, D]
+                out = out + torch.einsum("nqmpd,nqmp->nqmd", tap, fwgt * wgt * a)
     return out.reshape(n, q, m * d).to(value.dtype)

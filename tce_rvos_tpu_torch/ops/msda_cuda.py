@@ -1,17 +1,26 @@
-"""MSDA on the card: the wrappers of the hand-written CUDA kernels
-``csrc/msda_fwd.cu`` (replaces the TPU kernels
-``tce_rvos_tpu/ops/pallas_msda.py::_sep_kernel_ah`` and ``::_flat_kernel_ah``)
-and ``csrc/msda_bwd.cu`` (replaces ``tce_rvos_tpu/ops/pallas_msda_bwd.py::
-_bwd_q_kernel_sep``, ``_bwd_v_kernel_sep``, ``_bwd_q_kernel_flat`` and
-``_bwd_v_kernel_flat``), joined by ``MSDeformAttnFunction``.
+"""MSDA on the card: the wrappers of the hand-written CUDA kernels.
 
-``ms_deform_attn(value, spatial_shapes, loc, attn)`` has the signature of
-``tce_rvos_tpu/ops/msda.py::ms_deform_attn``. CUDA tensors go through
-``MSDeformAttnFunction`` with or without grad: its forward launches the
-forward kernel, its backward the backward kernel, or they raise; nothing
-falls back. Only CPU tensors go to the plain version (``ops/msda.py``),
-which autograd differentiates. ``ms_deform_attn.launches`` counts forward
-kernel launches and ``ms_deform_attn.backward_launches`` backward ones.
+* 2D: ``csrc/msda_fwd.cu`` (replaces the TPU kernels
+  ``tce_rvos_tpu/ops/pallas_msda.py::_sep_kernel_ah`` and ``::_flat_kernel_ah``)
+  and ``csrc/msda_bwd.cu`` (replaces ``tce_rvos_tpu/ops/pallas_msda_bwd.py::
+  _bwd_q_kernel_sep``, ``_bwd_v_kernel_sep``, ``_bwd_q_kernel_flat`` and
+  ``_bwd_v_kernel_flat``), joined by ``MSDeformAttnFunction``;
+* 3D (``--msda_3d``): ``csrc/msda3d_fwd.cu`` (replaces
+  ``tce_rvos_tpu/ops/pallas_msda_3d.py::_sep_kernel_3d`` and
+  ``::_flat_kernel_3d``) and ``csrc/msda3d_bwd.cu`` (replaces
+  ``tce_rvos_tpu/ops/pallas_msda_3d_bwd.py::_bwd3d_q_sep``, ``_bwd3d_v_sep``,
+  ``_bwd3d_q_flat`` and ``_bwd3d_v_flat``), joined by
+  ``MSDeformAttn3DFunction``.
+
+``ms_deform_attn(value, spatial_shapes, loc, attn)`` and
+``ms_deform_attn_3d(...)`` have the signatures of
+``tce_rvos_tpu/ops/msda.py::ms_deform_attn`` and ``::ms_deform_attn_3d``.
+CUDA tensors go through the autograd function with or without grad: its
+forward launches the forward kernel, its backward the backward kernel, or
+they raise; nothing falls back. Only CPU tensors go to the plain versions
+(``ops/msda.py``), which autograd differentiates. ``<op>.launches`` counts
+forward kernel launches and ``<op>.backward_launches`` backward ones, for
+each of the two ops.
 """
 
 from __future__ import annotations
@@ -23,9 +32,13 @@ from typing import Sequence, Tuple
 import torch
 
 from tce_rvos_tpu_torch.ops._build import load_library
-from tce_rvos_tpu_torch.ops.msda import level_splits, ms_deform_attn_plain
+from tce_rvos_tpu_torch.ops.msda import (
+    level_splits,
+    ms_deform_attn_3d_plain,
+    ms_deform_attn_plain,
+)
 
-SOURCES = ("msda_fwd.cu", "msda_bwd.cu")
+SOURCES = ("msda_fwd.cu", "msda_bwd.cu", "msda3d_fwd.cu", "msda3d_bwd.cu")
 MAX_LEVELS = 8
 CHANNELS = 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -34,23 +47,25 @@ _SHAPE_ARGS = [_I32] * 6 + [_PTR]  # N, S, Q, M, D, P, stream
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_kernel():
-    fn = load_library("msda_fwd.cu").tce_msda_fwd
+def _fwd_kernel(is_3d: bool = False):
+    lib = load_library("msda3d_fwd.cu" if is_3d else "msda_fwd.cu")
+    fn = lib.tce_msda3d_fwd if is_3d else lib.tce_msda_fwd
     fn.argtypes = [_PTR, _I32, ctypes.POINTER(_I32), _I32, _PTR, _PTR, _PTR] + _SHAPE_ARGS
     fn.restype = _I32
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_kernel():
-    fn = load_library("msda_bwd.cu").tce_msda_bwd
+def _bwd_kernel(is_3d: bool = False):
+    lib = load_library("msda3d_bwd.cu" if is_3d else "msda_bwd.cu")
+    fn = lib.tce_msda3d_bwd if is_3d else lib.tce_msda_bwd
     fn.argtypes = ([_PTR, _I32, ctypes.POINTER(_I32), _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]
                    + _SHAPE_ARGS)
     fn.restype = _I32
     return fn
 
 
-def _check(value, spatial_shapes, loc, attn) -> None:
+def _check(value, spatial_shapes, loc, attn, coords: int = 2) -> None:
     if value.dtype not in _DTYPE_CODE:
         raise TypeError(f"value must be float32 or bfloat16, got {value.dtype}")
     for name, t in (("sampling_locations", loc), ("attention_weights", attn)):
@@ -71,8 +86,9 @@ def _check(value, spatial_shapes, loc, attn) -> None:
     if level_splits(spatial_shapes)[-1] != s:
         raise ValueError(f"spatial_shapes {spatial_shapes} do not cover S={s}")
     if loc.dim() != 6 or loc.shape[0] != n or loc.shape[2] != m \
-            or loc.shape[3] != n_levels or loc.shape[5] != 2:
-        raise ValueError(f"sampling_locations must be [N, Q, M, L, P, 2], got {tuple(loc.shape)}")
+            or loc.shape[3] != n_levels or loc.shape[5] != coords:
+        raise ValueError(f"sampling_locations must be [N, Q, M, L, P, {coords}], "
+                         f"got {tuple(loc.shape)}")
     if tuple(attn.shape) != tuple(loc.shape[:5]):
         raise ValueError(f"attention_weights must be {tuple(loc.shape[:5])}, got {tuple(attn.shape)}")
 
@@ -87,27 +103,21 @@ def _dims(value, loc):
     return n, s, loc.shape[1], m, d, loc.shape[4]
 
 
-def msda_forward(value, spatial_shapes, loc, attn) -> torch.Tensor:
-    """One launch of the forward kernel -> [N, Q, M*32] in the value's
-    dtype. Inputs as ``_check`` takes them."""
+def _forward(is_3d: bool, value, spatial_shapes, loc, attn) -> torch.Tensor:
     n, s, q, m, d, p = _dims(value, loc)
     out = torch.empty((n, q, m * d), dtype=value.dtype, device=value.device)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _fwd_kernel()(value.data_ptr(), _DTYPE_CODE[value.dtype], _level_hw(spatial_shapes),
-                           len(spatial_shapes), loc.data_ptr(), attn.data_ptr(),
-                           out.data_ptr(), n, s, q, m, d, p, stream)
+        rc = _fwd_kernel(is_3d)(value.data_ptr(), _DTYPE_CODE[value.dtype],
+                                _level_hw(spatial_shapes), len(spatial_shapes), loc.data_ptr(),
+                                attn.data_ptr(), out.data_ptr(), n, s, q, m, d, p, stream)
     if rc != 0:
-        raise RuntimeError(f"msda_fwd kernel launch failed with CUDA error {rc}")
-    ms_deform_attn.launches += 1
+        name = "msda3d_fwd" if is_3d else "msda_fwd"
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
     return out
 
 
-def msda_backward(value, spatial_shapes, loc, attn, grad_out):
-    """One launch of the backward kernel -> (d_value in the value's dtype,
-    d_loc f32, d_attn f32). ``grad_out`` [N, Q, M*32] is made contiguous and
-    must have the value's dtype. ``d_value`` is accumulated in an f32
-    buffer zeroed here, then cast, as the JAX package's backward does."""
+def _backward(is_3d: bool, value, spatial_shapes, loc, attn, grad_out):
     grad_out = grad_out.contiguous()
     if grad_out.dtype != value.dtype or grad_out.device != value.device:
         raise TypeError(f"grad_out is {grad_out.dtype} on {grad_out.device}; "
@@ -120,14 +130,55 @@ def msda_backward(value, spatial_shapes, loc, attn, grad_out):
     d_attn = torch.empty(attn.shape, dtype=torch.float32, device=value.device)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _bwd_kernel()(value.data_ptr(), _DTYPE_CODE[value.dtype], _level_hw(spatial_shapes),
-                           len(spatial_shapes), loc.data_ptr(), attn.data_ptr(),
-                           grad_out.data_ptr(), d_value.data_ptr(), d_loc.data_ptr(),
-                           d_attn.data_ptr(), n, s, q, m, d, p, stream)
+        rc = _bwd_kernel(is_3d)(value.data_ptr(), _DTYPE_CODE[value.dtype],
+                                _level_hw(spatial_shapes), len(spatial_shapes), loc.data_ptr(),
+                                attn.data_ptr(), grad_out.data_ptr(), d_value.data_ptr(),
+                                d_loc.data_ptr(), d_attn.data_ptr(), n, s, q, m, d, p, stream)
     if rc != 0:
-        raise RuntimeError(f"msda_bwd kernel launch failed with CUDA error {rc}")
-    ms_deform_attn.backward_launches += 1
+        name = "msda3d_bwd" if is_3d else "msda_bwd"
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
     return d_value.to(value.dtype), d_loc, d_attn
+
+
+def msda_forward(value, spatial_shapes, loc, attn) -> torch.Tensor:
+    """One launch of the 2D forward kernel -> [N, Q, M*32] in the value's
+    dtype. Inputs as ``_check`` takes them."""
+    out = _forward(False, value, spatial_shapes, loc, attn)
+    ms_deform_attn.launches += 1
+    return out
+
+
+def msda_backward(value, spatial_shapes, loc, attn, grad_out):
+    """One launch of the 2D backward kernel -> (d_value in the value's
+    dtype, d_loc f32, d_attn f32). ``grad_out`` [N, Q, M*32] is made
+    contiguous and must have the value's dtype. ``d_value`` is accumulated
+    in an f32 buffer zeroed here, then cast, as the JAX package's backward
+    does."""
+    grads = _backward(False, value, spatial_shapes, loc, attn, grad_out)
+    ms_deform_attn.backward_launches += 1
+    return grads
+
+
+def msda3d_forward(value, spatial_shapes, loc, attn) -> torch.Tensor:
+    """One launch of the 3D forward kernel (loc [N, Q, M, L, P, 3]) ->
+    [N, Q, M*32] in the value's dtype."""
+    out = _forward(True, value, spatial_shapes, loc, attn)
+    ms_deform_attn_3d.launches += 1
+    return out
+
+
+def msda3d_backward(value, spatial_shapes, loc, attn, grad_out):
+    """One launch of the 3D backward kernel -> (d_value in the value's
+    dtype, d_loc [N, Q, M, L, P, 3] f32, d_attn f32), as ``msda_backward``."""
+    grads = _backward(True, value, spatial_shapes, loc, attn, grad_out)
+    ms_deform_attn_3d.backward_launches += 1
+    return grads
+
+
+def _needed(ctx, d_value, d_loc, d_attn):
+    need_v, _, need_loc, need_attn = ctx.needs_input_grad
+    return (d_value if need_v else None, None, d_loc if need_loc else None,
+            d_attn if need_attn else None)
 
 
 class MSDeformAttnFunction(torch.autograd.Function):
@@ -145,10 +196,23 @@ class MSDeformAttnFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         value, loc, attn = ctx.saved_tensors
-        d_value, d_loc, d_attn = msda_backward(value, ctx.spatial_shapes, loc, attn, grad_out)
-        need_v, _, need_loc, need_attn = ctx.needs_input_grad
-        return (d_value if need_v else None, None, d_loc if need_loc else None,
-                d_attn if need_attn else None)
+        return _needed(ctx, *msda_backward(value, ctx.spatial_shapes, loc, attn, grad_out))
+
+
+class MSDeformAttn3DFunction(torch.autograd.Function):
+    """3D MSDA on CUDA tensors: the 3D forward kernel, and the 3D backward
+    kernel as its gradient; saves what ``MSDeformAttnFunction`` saves."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, loc, attn):
+        ctx.spatial_shapes = tuple(spatial_shapes)
+        ctx.save_for_backward(value, loc, attn)
+        return msda3d_forward(value, spatial_shapes, loc, attn)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, loc, attn = ctx.saved_tensors
+        return _needed(ctx, *msda3d_backward(value, ctx.spatial_shapes, loc, attn, grad_out))
 
 
 def ms_deform_attn(
@@ -169,5 +233,24 @@ def ms_deform_attn(
                                       attention_weights)
 
 
-ms_deform_attn.launches = 0
-ms_deform_attn.backward_launches = 0
+def ms_deform_attn_3d(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """value [N, S, M, 32] f32|bf16, loc [N, Q, M, L, P, 3] f32 (x, y and
+    the frame coordinate over the batch axis), attn [N, Q, M, L, P] f32 ->
+    [N, Q, M*32] in the value's dtype."""
+    if value.device.type == "cpu":
+        return ms_deform_attn_3d_plain(value, spatial_shapes, sampling_locations,
+                                       attention_weights)
+    if value.device.type != "cuda":
+        raise ValueError(f"no 3D MSDA kernel for device {value.device}")
+    _check(value, spatial_shapes, sampling_locations, attention_weights, coords=3)
+    return MSDeformAttn3DFunction.apply(value, tuple(spatial_shapes), sampling_locations,
+                                        attention_weights)
+
+
+ms_deform_attn.launches = ms_deform_attn.backward_launches = 0
+ms_deform_attn_3d.launches = ms_deform_attn_3d.backward_launches = 0

@@ -18,7 +18,6 @@
 """
 
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -30,7 +29,6 @@ from tce_rvos_tpu.config import ModelConfig as JaxModelConfig
 from tce_rvos_tpu.config import TrainConfig as JaxTrainConfig
 from tce_rvos_tpu.models import matcher as jax_matcher
 from tce_rvos_tpu.models import segmentation as jax_seg
-from tce_rvos_tpu.models.build import build_model as jax_build_model
 from tce_rvos_tpu.models.criterion import CriterionConfig as JaxCriterionConfig
 from tce_rvos_tpu.models.criterion import criterion as jax_criterion
 from tce_rvos_tpu.models.criterion import criterion_from_configs as jax_criterion_from_configs
@@ -47,8 +45,9 @@ from tce_rvos_tpu_torch.models.matcher import MatcherConfig, match
 from tce_rvos_tpu_torch.models.referformer import ReferFormer
 from tce_rvos_tpu_torch.parallel import train_step
 from tce_rvos_tpu_torch.utils import boxes
-from tce_rvos_tpu_torch.utils.convert import state_dict_from_jax, torch_key
-from torch_parity_helpers import FLAGSHIP_TINY, assert_close, model_inputs, random_variables
+from tce_rvos_tpu_torch.utils.convert import torch_key
+from torch_parity_helpers import (FLAGSHIP_TINY, assert_close, check_two_train_steps, model_inputs,
+                                  random_boxes, tiny_model, train_targets)
 
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -57,11 +56,7 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-def _boxes(rng, *shape):
-    """cxcywh boxes inside the unit square, some overlapping, some not."""
-    c = rng.rand(*shape, 2) * 0.6 + 0.2
-    wh = rng.rand(*shape, 2) * 0.35 + 0.05
-    return np.concatenate([c, wh], -1).astype(np.float32)
+_boxes = random_boxes
 
 
 # ---- box ops and losses --------------------------------------------------------
@@ -174,13 +169,9 @@ def test_criterion_from_configs_matches_jax():
 
 @pytest.fixture(scope="module")
 def tiny_flagship():
-    """The JAX tiny flagship model, seeded variables (traced, never
-    compiled) and the port's model carrying the same weights."""
-    jcfg = JaxModelConfig(**FLAGSHIP_TINY, binary=True, msda_impl="xla")
-    model = jax_build_model(jcfg)
-    inputs = model_inputs()
-    variables, flat = random_variables(model.init, **{k: jnp.asarray(v) for k, v in inputs.items()})
-    return jcfg, model, variables, flat, inputs
+    """The JAX tiny flagship model and seeded variables (traced, never
+    compiled)."""
+    return tiny_model("flagship")
 
 
 TRAIN_CFGS = {"default": {}, "freeze_text_encoder": dict(freeze_text_encoder=True),
@@ -230,130 +221,10 @@ def test_schedules_match_jax_exactly():
 
 # ---- the slice: two train steps --------------------------------------------------
 
-SLICE_TOL = 2e-3  # the model-level bar of the JAX package's parity with the reference
-
-
-def _targets(seed=0):
-    rng = np.random.RandomState(seed)
-    b, t, (h, w) = 2, 3, (64, 96)
-    valid = np.ones((b, t), np.int32)
-    valid[0, 2] = 0
-    return {"labels": np.zeros((b, t), np.int32), "boxes": _boxes(rng, b, t),
-            "masks": (rng.rand(b, t, h, w) > 0.5).astype(np.float32), "valid": valid}
-
-
-def _jax_steps(tiny_flagship, tcfg, targets, n_steps):
-    """Per step: (losses, grad norm, grads, params after), as numpy with the
-    port's names and layouts."""
-    jcfg, model, variables, _, inputs = tiny_flagship
-    params = variables["params"]
-    frozen = {k: v for k, v in variables.items() if k != "params"}
-    crit = jax_criterion_from_configs(jcfg, tcfg)
-    j_inputs = {k: jnp.asarray(v) for k, v in inputs.items()}
-    j_targets = {k: jnp.asarray(v) for k, v in targets.items()}
-
-    def loss_fn(p):
-        out = model.apply({"params": p, **frozen}, **j_inputs, deterministic=True)
-        losses = jax_criterion(crit, out, j_targets)
-        return sum(losses.values()), losses
-
-    tx = jax_ts.make_optimizer(params, tcfg, steps_per_epoch=1)
-
-    @jax.jit  # one compile for the whole step: eager optax ops compile per leaf shape
-    def jax_step(params, opt_state):
-        (_, losses), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
-        updates, opt_state = tx.update(grads, opt_state, params)
-        return (losses, optax.global_norm(grads), grads, optax.apply_updates(params, updates),
-                opt_state)
-
-    def port_layout(tree):
-        flat = traverse_util.flatten_dict(tree, sep="/")
-        return {k: v.numpy() for k, v in state_dict_from_jax(
-            {f"params/{k}": np.array(v) for k, v in flat.items()}).items()}
-
-    opt_state = jax.jit(tx.init)(params)
-    steps = []
-    for _ in range(n_steps):
-        losses, gnorm, grads, params, opt_state = jax_step(params, opt_state)
-        steps.append(({k: float(v) for k, v in losses.items()}, float(gnorm),
-                      port_layout(grads), port_layout(params)))
-    return steps
-
-
-def test_two_train_steps_match_jax(tiny_flagship):
-    """Losses and the pre-clip grad norm at 2e-3. Each parameter's (clipped)
-    gradient: its difference within 2e-3 of the tensor's gradient in L2
-    norm, and every element within 2e-4 of the largest |grad| of the whole
-    model. (Element-wise against each tensor's own largest |grad|, as the
-    losses are held, a few backbone convolutions miss by up to 1.2%: on
-    random weights some pre-ReLU activations lie within f32 rounding of
-    zero, so the two frameworks let a few different elements through, and
-    those weights' gradients cancel to under 1% of the model's largest.)
-    A gradient that is zero in exact arithmetic (the text encoder's key
-    biases: softmax ignores a constant added to a row of logits) is f32
-    noise on both sides and is held below 1e-6 of the model's largest.
-    After each step: where the JAX gradient is above 1% of its tensor's
-    largest, the parameter at rtol 1e-3, plus half of the tier's LR for
-    parameters near zero (Adam divides by the gradient's running RMS, so
-    in the second step the few backbone elements that the ReLU flips above
-    touch move by up to 0.22 of an LR step more or less); elsewhere
-    Adam's step can take either sign, and
-    the port's step must stay within the tier's LR times (1 + wd |p|), 1%
-    over for Adam's second-step ratio, plus two f32 spacings of |p| for the
-    rounding of the parameter.
-    The second step crosses the MultiStep drop (``lr_drop=(1,)``, one step
-    per epoch); it starts from the JAX parameters after the first step, with
-    the port's own optimizer state, so that it is compared from the same
-    point (Adam's first step takes either sign where a gradient is near zero,
-    and the second step's gradients would be taken at other parameters)."""
-    _, _, _, flat, inputs = tiny_flagship
-    kw = dict(lr_drop=(1,))
-    targets = _targets()
-    want = _jax_steps(tiny_flagship, JaxTrainConfig(**kw), targets, n_steps=2)
-
-    tcfg = TrainConfig(**kw)
-    cfg = ModelConfig(**FLAGSHIP_TINY)
-    port = ReferFormer(cfg)
-    port.load_state_dict(state_dict_from_jax(flat), strict=True)
-    port.eval()  # dropout off
-    state = train_step.create_train_state(port, tcfg, steps_per_epoch=1)
-    step = train_step.make_train_step(criterion_from_configs(cfg, tcfg))
-    tiers = {name: train_step.param_group(name, tcfg) for name, _ in port.named_parameters()}
-    lr0 = {"base": tcfg.lr, "backbone": tcfg.lr_backbone, "text_encoder": tcfg.lr_text_encoder,
-           "linear_proj": tcfg.lr * tcfg.lr_linear_proj_mult}
-    batch = dict(inputs, targets=targets)
-    for k, (losses, gnorm, grads, params_after) in enumerate(want):
-        before = {n: p.detach().clone() for n, p in port.named_parameters()}
-        state, metrics = step(state, batch)
-        assert metrics["lr"] == pytest.approx(tcfg.lr * 0.1 ** k, rel=1e-6)
-        assert sorted(k_ for k_ in metrics if k_.startswith("loss_")) == sorted(losses)
-        for name, v in losses.items():
-            assert_close(metrics[name], v, rtol=SLICE_TOL, atol=SLICE_TOL, name=f"step {k} {name}")
-        assert_close(metrics["grad_norm"], gnorm, rtol=SLICE_TOL, atol=0, name="grad_norm")
-        clip = min(1.0, tcfg.clip_max_norm / gnorm)
-        g_all = max(float(np.abs(g).max()) for g in grads.values()) * clip
-        for name, p in port.named_parameters():
-            g_want, g_got = grads[name] * clip, p.grad.numpy()
-            g_scale = float(np.abs(g_want).max())
-            where = f"step {k} grad {name}"
-            if g_scale < 1e-6 * g_all:  # zero in exact arithmetic
-                assert float(np.abs(g_got).max()) < 1e-6 * g_all, where
-            else:
-                assert np.linalg.norm(g_got - g_want) <= SLICE_TOL * np.linalg.norm(g_want), where
-                assert_close(g_got, g_want, rtol=0, atol=0.1 * SLICE_TOL * g_all, name=where)
-            lr = lr0[tiers[name]] * 0.1 ** k
-            strong = np.abs(grads[name]) > 0.01 * np.abs(grads[name]).max()
-            strong &= g_scale >= 1e-6 * g_all
-            new, old = p.detach().numpy(), before[name].numpy()
-            np.testing.assert_allclose(new[strong], params_after[name][strong], rtol=1e-3,
-                                       atol=0.5 * lr, err_msg=f"step {k} param {name}")
-            weak = np.abs(old[~strong])
-            bound = 1.01 * lr * (1 + tcfg.weight_decay * weak) + 2 * np.spacing(weak)
-            assert (np.abs(new - old)[~strong] <= bound).all(), f"step {k} param {name}"
-        with torch.no_grad():  # the next step starts where the JAX one does
-            for name, p in port.named_parameters():
-                p.copy_(torch.from_numpy(params_after[name]))
-    assert state.step == 2
+def test_two_train_steps_match_jax():
+    """Two steps of the tiny flagship against JAX (f32, dropout off), held
+    as ``torch_parity_helpers.check_two_train_steps`` says."""
+    check_two_train_steps("flagship")
 
 
 # ---- recomputation and the epoch loop ---------------------------------------------
@@ -372,7 +243,7 @@ def test_recomputation_gives_the_same_gradients(dtype):
     casts (the recomputation must use the bf16 copies the forward used)."""
     model = _tiny_port().eval()
     cfg, tcfg = model.cfg, TrainConfig()
-    batch = train_step.batch_to_device(dict(model_inputs(), targets=_targets()),
+    batch = train_step.batch_to_device(dict(model_inputs(), targets=train_targets()),
                                        torch.device("cpu"))
     grads, totals = [], []
     for ckpt in (False, True):
@@ -399,7 +270,7 @@ def test_train_one_epoch_updates_and_stops_on_non_finite_loss(capsys):
     state = train_step.create_train_state(model, tcfg, steps_per_epoch=2)
     step = train_step.make_train_step(criterion_from_configs(model.cfg, tcfg), "bfloat16")
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
-    batches = [dict(model_inputs(seed=i), targets=_targets(seed=i)) for i in range(2)]
+    batches = [dict(model_inputs(seed=i), targets=train_targets(seed=i)) for i in range(2)]
     state, stats = train_one_epoch(state, step, batches, epoch=0)
     assert model.training and state.step == 2
     assert np.isfinite(stats["loss"]) and stats["grad_norm"] > 0
