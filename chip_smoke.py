@@ -11,7 +11,13 @@ Phases (each one fails the run, nothing is caught and carried on from):
                the MSDA backward (autograd through the plain version) at
                the training shapes (N = 5 frames; encoder Q = 5100, FTF
                Q = 8, decoder Q = 5 with 4-d refs), f32 and bf16, with
-               out-of-range and pixel-centre taps; times and bounds;
+               out-of-range and pixel-centre taps; the 2D kernels' launch
+               plan against its Python mirror; the 2D kernels on edge
+               cases (a ragged query count, shuffled queries, far taps,
+               x or y = -1, L = 3 and P = 2); times and bounds; then the
+               2D kernels timed in turns against other builds of their
+               entry points found in build/ab/ (git-ignored), e.g. an
+               earlier version's sources (phase_ab);
   3. path    - flagship model at full width (ResNet-50 + RoBERTa-base,
                f_token 8, IQT, box refine, binary) from seeded random
                weights; InferenceEngine.run_video_batch on a 10-frame
@@ -98,6 +104,28 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, calls: int = 10, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, each replay timed with CUDA events (``cuda_ms``), divided
+    by ``calls``. The host's share of a call (argument checks, ctypes) is
+    left out, which at the small MSDA calls is most of ``cuda_ms``."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as torch asks
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, reps=reps, warmup=2) / calls
+    del graph
+    return ms
+
+
 # ---------------------------------------------------------------------------
 # phase 1: build
 # ---------------------------------------------------------------------------
@@ -124,6 +152,17 @@ def phase_build() -> None:
 # phase 2: kernel against plain
 # ---------------------------------------------------------------------------
 
+def pixel_grid(shapes=FLAGSHIP_SHAPES):
+    """The encoder's reference points: every pixel centre of every level,
+    in the order of the flattened value, as (x, y) in [0, 1]; [S, 2]."""
+    import torch
+
+    return torch.cat([torch.stack(torch.meshgrid((torch.arange(w) + 0.5) / w,
+                                                 (torch.arange(h) + 0.5) / h,
+                                                 indexing="xy"), -1).reshape(-1, 2)
+                      for h, w in shapes])
+
+
 def frame_coords(n: int, shape, gen):
     """The third coordinate of 3D MSDA taps, [n, ...] = ``shape``: the
     query's own frame ((i + 0.5) / N, as the model makes it) plus seeded
@@ -140,40 +179,40 @@ def frame_coords(n: int, shape, gen):
     return f
 
 
-def msda_inputs(kind: str, n: int, q: int, dtype, gen, device, frames: bool = False):
-    """Seeded MSDA inputs at the flagship level shapes, with the reference
-    points of each call site: the query's own pixel centre (encoder, q = S,
-    so neighbouring queries read neighbouring values), free points (FTF) or
-    boxes (decoder, 4-d). Offsets reach outside [0, 1], and one point of
-    every head and level lands exactly on a pixel centre. ``frames`` adds
-    the 3D op's frame coordinate (``frame_coords``)."""
+def msda_inputs(kind: str, n: int, q: int, dtype, gen, device, frames: bool = False,
+                shapes=FLAGSHIP_SHAPES, points: int = P, spread: float = 4.0):
+    """Seeded MSDA inputs at the level ``shapes`` (the flagship's unless
+    given) with ``points`` points, and the reference points of each call
+    site: the query's own pixel centre (encoder, the first q of the S
+    pixels, so neighbouring queries read neighbouring values), free points
+    (FTF) or boxes (decoder, 4-d). Offsets of about ``spread`` pixels reach
+    outside [0, 1], and one point of every head and level lands exactly on a
+    pixel centre. ``frames`` adds the 3D op's frame coordinate
+    (``frame_coords``)."""
     import torch
 
-    s = sum(h * w for h, w in FLAGSHIP_SHAPES)
+    s = sum(h * w for h, w in shapes)
+    n_levels = len(shapes)
     value = torch.randn(n, s, M, D, generator=gen).to(device=device, dtype=dtype)
-    wh = torch.tensor([[w, h] for h, w in FLAGSHIP_SHAPES], dtype=torch.float32)
+    wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32)
     if kind != "decoder":
         if kind == "encoder":
-            grids = [torch.stack(torch.meshgrid((torch.arange(w) + 0.5) / w,
-                                                (torch.arange(h) + 0.5) / h,
-                                                indexing="xy"), -1).reshape(-1, 2)
-                     for h, w in FLAGSHIP_SHAPES]
-            ref = torch.cat(grids)[None, :, None, None, None, :].expand(n, q, 1, 1, 1, 2)
+            ref = pixel_grid(shapes)[None, :q, None, None, None, :].expand(n, q, 1, 1, 1, 2)
         else:
             ref = torch.rand(n, q, 1, 1, 1, 2, generator=gen) * 1.2 - 0.1
-        off = torch.randn(n, q, M, L, P, 2, generator=gen) * 4.0
+        off = torch.randn(n, q, M, n_levels, points, 2, generator=gen) * spread
         loc = ref + off / wh[None, None, None, :, None, :]
     else:
         box = torch.rand(n, q, 1, 1, 1, 4, generator=gen)
-        off = torch.randn(n, q, M, L, P, 2, generator=gen)
-        loc = box[..., :2] + off / P * box[..., 2:] * 0.5
+        off = torch.randn(n, q, M, n_levels, points, 2, generator=gen)
+        loc = box[..., :2] + off / points * box[..., 2:] * 0.5
     # exact pixel centres for one point of every head
-    pix = torch.floor(torch.rand(n, q, M, L, 2, generator=gen) * wh)
+    pix = torch.floor(torch.rand(n, q, M, n_levels, 2, generator=gen) * wh)
     loc[:, :, :, :, 0, :] = (pix + 0.5) / wh
     if frames:
         loc = torch.cat([loc, frame_coords(n, loc.shape[:-1], gen)[..., None]], -1)
-    logits = torch.randn(n, q, M, L * P, generator=gen)
-    attn = torch.softmax(logits, -1).reshape(n, q, M, L, P)
+    logits = torch.randn(n, q, M, n_levels * points, generator=gen)
+    attn = torch.softmax(logits, -1).reshape(n, q, M, n_levels, points)
     return value, loc.contiguous().to(device), attn.contiguous().to(device)
 
 
@@ -274,6 +313,83 @@ def msda_bwd_bound(value, loc, attn, grad_out) -> dict:
     return _bound(nbytes, value.shape[-1] * ops, value, tr["value_bytes"])
 
 
+# forward kernel against plain: f32, the kernel and the plain version sum
+# the same f32 products in another order (~1e-6); bf16, both round an f32
+# sum of bf16 taps to bf16 once, so they differ by at most one bf16 step
+# (2^-8 relative). (rtol, atol)
+FWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (8e-3, 1e-2)}
+# (rtol, atol as a share of the largest |reference|) of the backward kernel
+# against autograd through the plain version. d_loc and d_attn are f32 sums
+# of the same f32 products in another order, whatever the value's dtype;
+# d_value is summed with atomics in an order that changes from run to run
+# and then cast to the value's dtype: in bf16 the two may round to
+# neighbouring values, one bf16 step (at most 2^-7 relative) apart.
+BWD_TOL = {"f32": (1e-4, 1e-5), "bf16_d_value": (1e-2, 1e-3)}
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def hold_forward(op, plain, label: str, value, shapes, loc, attn):
+    """One forward call of ``op`` (a kernel) against ``plain`` at FWD_TOL;
+    returns (the kernel's output, the largest |difference|)."""
+    import torch
+
+    got = op(value, shapes, loc, attn)
+    torch.cuda.synchronize()
+    ref = plain(value, shapes, loc, attn)
+    err = (got.float() - ref.float()).abs()
+    rtol, atol = FWD_TOL[dtype_name(value.dtype)]
+    bad = err > atol + rtol * ref.float().abs()
+    if bool(bad.any()):
+        raise AssertionError(f"{label}: kernel disagrees with plain, max |err| "
+                             f"{float(err.max()):.3e}, {int(bad.sum())} elements out of "
+                             f"tolerance (rtol {rtol}, atol {atol})")
+    return got, float(err.max())
+
+
+def hold_backward(op, plain, label: str, value, shapes, loc, attn, g) -> dict:
+    """The gradients of ``op`` (through its autograd function, as the model
+    calls it) against autograd through ``plain`` at BWD_TOL; returns the
+    largest |difference| of each."""
+    import torch
+
+    grads = {}
+    for which, fn in (("kernel", op), ("plain", plain)):
+        ins = [t.detach().clone().requires_grad_(True) for t in (value, loc, attn)]
+        fn(ins[0], shapes, ins[1], ins[2]).backward(g)
+        torch.cuda.synchronize()
+        grads[which] = [t.grad.float() for t in ins]
+    errs = {}
+    for gname, got, ref in zip(("d_value", "d_loc", "d_attn"), grads["kernel"], grads["plain"]):
+        rtol, atol = BWD_TOL["bf16_d_value" if (gname == "d_value" and value.dtype == torch.bfloat16)
+                             else "f32"]
+        scale = float(ref.abs().max())
+        err = (got - ref).abs()
+        bad = err > rtol * ref.abs() + atol * scale
+        errs[gname] = float(err.max())
+        if bool(bad.any()):
+            raise AssertionError(
+                f"{label} {gname}: kernel disagrees with plain, max |err| {errs[gname]:.3e} "
+                f"(scale {scale:.3g}), {int(bad.sum())} elements out of tolerance (rtol {rtol}, "
+                f"atol {atol} x scale)")
+    return errs
+
+
+def hold_plan(backward: bool, label: str, value, shapes, loc) -> dict:
+    """The 2D kernels' launch plan as the library computes it against
+    ``launch_plan`` (its Python mirror); returns it."""
+    from tce_rvos_tpu_torch.ops.msda_cuda import kernel_plan, launch_plan
+
+    n, _, m, _ = value.shape
+    args = (backward, value.dtype, shapes, n, loc.shape[1], m)
+    got, want = kernel_plan(*args), launch_plan(*args)
+    if got != want:
+        raise AssertionError(f"{label}: the kernel's launch plan {got} is not launch_plan's {want}")
+    return got
+
+
 def phase_kernels(e: int, is_3d: bool = False) -> dict:
     """Forward kernel against plain at the serving trunk's MSDA call shapes
     (N = 5 frames x E expressions): 2D at the encoder, FTF and decoder
@@ -293,45 +409,26 @@ def phase_kernels(e: int, is_3d: bool = False) -> dict:
                  else (ms_deform_attn, ms_deform_attn_plain))
     kname = "msda3d_fwd" if is_3d else "msda_fwd"
     cases = [("encoder", n, s)] + ([] if is_3d else [("ftf", n, 8)]) + [("decoder", n, 5)]
-    # f32: the kernel and the plain version sum the same f32 products in
-    # another order (~1e-6); bf16: both round an f32 sum of bf16 taps to
-    # bf16 once, so they differ by at most one bf16 step (2^-8 relative).
-    tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (8e-3, 1e-2)}
     results = {}
     for name, nn_, q in cases:
         for dtype in (torch.float32, torch.bfloat16):
+            key = f"{name}/{dtype_name(dtype)}"
+            label = f"{kname} {key} N={nn_} Q={q}"
             value, loc, attn = msda_inputs(name, nn_, q, dtype, gen, dev, frames=is_3d)
-            got = op(value, FLAGSHIP_SHAPES, loc, attn)
-            torch.cuda.synchronize()
-            ref = plain(value, FLAGSHIP_SHAPES, loc, attn)
-            err = (got.float() - ref.float()).abs()
-            rtol, atol = tol[dtype]
-            bad = err > atol + rtol * ref.float().abs()
-            max_err = float(err.max())
-            if bool(bad.any()):
-                raise AssertionError(
-                    f"{kname} kernel disagrees with plain at {name} N={nn_} {dtype}: "
-                    f"max |err| {max_err:.3e}, {int(bad.sum())} elements out of tolerance")
-            ms = cuda_ms(lambda: op(value, FLAGSHIP_SHAPES, loc, attn))
+            plan = {} if is_3d else {"plan": hold_plan(False, label, value, FLAGSHIP_SHAPES, loc)}
+            got, max_err = hold_forward(op, plain, label, value, FLAGSHIP_SHAPES, loc, attn)
+            ms = graph_ms(lambda: op(value, FLAGSHIP_SHAPES, loc, attn))
             plain_ms = cuda_ms(lambda: plain(value, FLAGSHIP_SHAPES, loc, attn), reps=5)
             bound = msda_bound(value, loc, attn, got)
-            key = f"{name}/{str(dtype).replace('torch.', '')}"
+            rtol, atol = FWD_TOL[dtype_name(dtype)]
             results[key] = dict(N=nn_, Q=q, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                                rtol=rtol, atol=atol, **bound)
+                                rtol=rtol, atol=atol, **plan, **bound)
             log(f"[kernels] {kname} {key:18s} N={nn_} Q={q}: max|err|={max_err:.3e} "
                 f"(rtol {rtol}, atol {atol}) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                 f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}; {bound['bytes']} bytes, "
-                f"value {bound['value_bytes_read']} of {bound['value_bytes_all']})")
+                f"value {bound['value_bytes_read']} of {bound['value_bytes_all']})"
+                + (f"; plan {plan['plan']}" if plan else ""))
     return results
-
-
-# (rtol, atol as a share of the largest |reference|) of the backward kernel
-# against autograd through the plain version. d_loc and d_attn are f32 sums
-# of the same f32 products in another order, whatever the value's dtype;
-# d_value is summed with atomics in an order that changes from run to run
-# and then cast to the value's dtype: in bf16 the two may round to
-# neighbouring values, one bf16 step (at most 2^-7 relative) apart.
-BWD_TOL = {"f32": (1e-4, 1e-5), "bf16_d_value": (1e-2, 1e-3)}
 
 
 def phase_backward_kernels(n: int = 5, is_3d: bool = False) -> dict:
@@ -361,41 +458,186 @@ def phase_backward_kernels(n: int = 5, is_3d: bool = False) -> dict:
     results = {}
     for name, q in cases:
         for dtype in (torch.float32, torch.bfloat16):
+            key = f"{name}/{dtype_name(dtype)}"
+            label = f"{kname} {key} N={n} Q={q}"
             value, loc, attn = msda_inputs(name, n, q, dtype, gen, dev, frames=is_3d)
             g = torch.randn(n, q, M * D, generator=gen).to(device=dev, dtype=dtype)
-            grads = {}
-            for which, fn in (("kernel", op), ("plain", plain)):
-                ins = [t.detach().clone().requires_grad_(True) for t in (value, loc, attn)]
-                fn(ins[0], FLAGSHIP_SHAPES, ins[1], ins[2]).backward(g)
-                torch.cuda.synchronize()
-                grads[which] = [t.grad.float() for t in ins]
-            errs = {}
-            for gname, got, ref in zip(("d_value", "d_loc", "d_attn"), grads["kernel"], grads["plain"]):
-                rtol, atol = BWD_TOL["bf16_d_value" if (gname == "d_value" and dtype == torch.bfloat16)
-                                     else "f32"]
-                scale = float(ref.abs().max())
-                err = (got - ref).abs()
-                bad = err > rtol * ref.abs() + atol * scale
-                errs[gname] = float(err.max())
-                if bool(bad.any()):
-                    raise AssertionError(
-                        f"{kname} kernel disagrees with plain at {name} N={n} {dtype} {gname}: "
-                        f"max |err| {errs[gname]:.3e} (scale {scale:.3g}), {int(bad.sum())} "
-                        f"elements out of tolerance (rtol {rtol}, atol {atol} x scale)")
-            ms = cuda_ms(lambda: backward(value, FLAGSHIP_SHAPES, loc, attn, g))
+            plan = {} if is_3d else {"plan": hold_plan(True, label, value, FLAGSHIP_SHAPES, loc)}
+            errs = hold_backward(op, plain, label, value, FLAGSHIP_SHAPES, loc, attn, g)
+            ms = graph_ms(lambda: backward(value, FLAGSHIP_SHAPES, loc, attn, g))
             ins = [t.detach().clone().requires_grad_(True) for t in (value, loc, attn)]
             out = plain(ins[0], FLAGSHIP_SHAPES, ins[1], ins[2])
             plain_ms = cuda_ms(lambda: torch.autograd.grad(out, ins, g, retain_graph=True), reps=5)
             bound = msda_bwd_bound(value, loc, attn, g)
-            key = f"{name}/{str(dtype).replace('torch.', '')}"
             results[key] = dict(N=n, Q=q, max_abs_err=max(errs.values()), errors=errs, ms=ms,
-                                plain_ms=plain_ms, library_ms=None, **bound)
+                                plain_ms=plain_ms, library_ms=None, **plan, **bound)
             log(f"[kernels] {kname} {key:18s} N={n} Q={q}: max|err| " + ", ".join(
                 f"{k} {v:.3e}" for k, v in errs.items())
                 + f"; kernel {ms:.4f} ms  plain (autograd) {plain_ms:.4f} ms  bound "
                 f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}; {bound['bytes']} bytes, "
                 f"{bound['ops']} ops, value {bound['value_bytes_read']} of "
-                f"{bound['value_bytes_all']}); library: none")
+                f"{bound['value_bytes_all']}); library: none"
+                + (f"; plan {plan['plan']}" if plan else ""))
+    return results
+
+
+def edge_cases(dtype, gen, dev):
+    """2D inputs whose results must not rest on the encoder's layout
+    (name, level shapes, value, loc, attn, whether the kernels take the
+    staged path): a query count that no block run divides; the encoder's
+    queries in shuffled order; offsets of about 25 pixels, far outside the
+    staged levels and any window; point 1 of every head and level at
+    x = -1 (first half of the queries) or y = -1 (second half), beside the
+    pixel-centre point 0; and L = 3 levels with P = 2 points (the runtime
+    loop), at the encoder and decoder shapes."""
+    import torch
+
+    s = sum(h * w for h, w in FLAGSHIP_SHAPES)
+    n = 3
+    value, loc, attn = msda_inputs("encoder", n, s, dtype, gen, dev)
+    q = s - 37
+    yield "ragged", FLAGSHIP_SHAPES, value, loc[:, :q].contiguous(), attn[:, :q].contiguous(), 1
+    perm = torch.randperm(s, generator=gen).to(dev)
+    yield "shuffled", FLAGSHIP_SHAPES, value, loc[:, perm].contiguous(), attn[:, perm].contiguous(), 1
+    yield ("far", FLAGSHIP_SHAPES, *msda_inputs("encoder", n, s, dtype, gen, dev, spread=25.0), 1)
+    edge = loc.clone()
+    half = s // 2
+    for lvl, (h, w) in enumerate(FLAGSHIP_SHAPES):
+        edge[:, :half, :, lvl, 1, 0] = -0.5 / w  # pixel coordinate exactly -1
+        edge[:, half:, :, lvl, 1, 1] = -0.5 / h
+    yield "x_or_y_at_-1", FLAGSHIP_SHAPES, value, edge, attn, 1
+    shapes3 = FLAGSHIP_SHAPES[:3]
+    s3 = sum(h * w for h, w in shapes3)
+    yield ("L3_P2_encoder", shapes3,
+           *msda_inputs("encoder", n, s3, dtype, gen, dev, shapes=shapes3, points=2), 1)
+    yield ("L3_P2_decoder", shapes3,
+           *msda_inputs("decoder", n, 5, dtype, gen, dev, shapes=shapes3, points=2), 0)
+
+
+def phase_edge_kernels() -> dict:
+    """The 2D forward and backward kernels against the plain version (and
+    autograd through it) on ``edge_cases``, f32 and bf16, at phase 2's
+    tolerances, each case on the path it names. Returns the largest errors."""
+    import torch
+
+    from tce_rvos_tpu_torch.ops.msda import ms_deform_attn_plain
+    from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn
+
+    dev = torch.device("cuda")
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator().manual_seed(5)
+        for name, shapes, value, loc, attn, staged in edge_cases(dtype, gen, dev):
+            label = f"[edge] {name} {dtype_name(dtype)} N={value.shape[0]} Q={loc.shape[1]}"
+            for backward in (False, True):
+                plan = hold_plan(backward, label, value, shapes, loc)
+                if plan["staged"] != staged:
+                    raise AssertionError(f"{label}: {'backward' if backward else 'forward'} "
+                                         f"plan {plan}, expected staged={staged}")
+            _, fwd = hold_forward(ms_deform_attn, ms_deform_attn_plain, label, value, shapes, loc,
+                                  attn)
+            g = torch.randn(*loc.shape[:2], M * D, generator=gen).to(device=dev, dtype=dtype)
+            bwd = hold_backward(ms_deform_attn, ms_deform_attn_plain, label, value, shapes, loc,
+                                attn, g)
+            results[f"{name}/{dtype_name(dtype)}"] = dict(forward=fwd, **bwd)
+            log(f"{label}: {'staged' if staged else 'flat'} path; max |err| forward {fwd:.3e}, "
+                + ", ".join(f"{k} {v:.3e}" for k, v in bwd.items()))
+    return results
+
+
+AB_DIR = "build/ab"  # git-ignored: other builds of the 2D entry points, if any
+
+
+def own_pixel(loc):
+    """Encoder-call locations with every tap moved onto the query's own
+    reference point (the same at every head, level and point): the most
+    local gathers the call can make."""
+    ref = pixel_grid().to(loc.device)[None, :, None, None, None, :]
+    return ref.expand(loc.shape).contiguous()
+
+
+def phase_ab(ab_dir: str = AB_DIR, rounds: int = 3) -> dict:
+    """The package's 2D MSDA kernels against other builds of the same C
+    entry points, at the trunk's three calls in bf16 (forward N = 20 as
+    serving at E = 4, backward N = 5 as training; ``msda_inputs``' seeded
+    data), by device time (``graph_ms``) taken in turns: each round runs the
+    package kernel, then every other build, then the same in reverse, and a
+    build's time is the median of its readings. ``ab_dir`` holds the other
+    builds' sources (``fwd_*.cu`` with ``tce_msda_fwd``, ``bwd_*.cu`` with
+    ``tce_msda_bwd``; e.g. an earlier version's sources, from git), built
+    in parallel; without it only the package kernels are timed. At the
+    encoder call every build also runs on ``own_pixel`` locations.
+    Each build's largest difference from the plain version (backward: from
+    autograd through it) is printed, not held: phase 2 holds the package
+    kernels."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    import torch
+
+    from tce_rvos_tpu_torch.ops import _build
+    from tce_rvos_tpu_torch.ops.msda import ms_deform_attn_plain
+    from tce_rvos_tpu_torch.ops.msda_cuda import (
+        _bwd_kernel,
+        _fwd_kernel,
+        bind,
+        launch_backward,
+        launch_forward,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4)
+    s = sum(h * w for h, w in FLAGSHIP_SHAPES)
+    root = Path(__file__).resolve().parent / ab_dir
+    sources = sorted(root.glob("*_*.cu")) if root.is_dir() else []
+    with ThreadPoolExecutor(max(1, len(sources))) as pool:
+        list(pool.map(_build.build, sources))
+    results = {}
+    for backward, n in ((False, 20), (True, 5)):
+        kname = "msda_bwd" if backward else "msda_fwd"
+        for call, q in (("encoder", s), ("ftf", 8), ("decoder", 5)):
+            value, loc, attn = msda_inputs(call, n, q, torch.bfloat16, gen, dev)
+            g = torch.randn(n, q, M * D, generator=gen).to(device=dev, dtype=torch.bfloat16)
+            builds = {"package": (_bwd_kernel() if backward else _fwd_kernel(), loc)}
+            for src in sources:
+                if src.name.startswith("bwd_" if backward else "fwd_"):
+                    builds[src.stem] = (bind(src, backward), loc)
+            if call == "encoder":
+                near = own_pixel(loc)
+                builds.update({f"{k}/own_pixel": (fn, near) for k, (fn, _) in list(builds.items())})
+            if backward:
+                ins = [t.detach().clone().requires_grad_(True) for t in (value, loc, attn)]
+                want = torch.autograd.grad(ms_deform_attn_plain(ins[0], FLAGSHIP_SHAPES, ins[1],
+                                                                ins[2]), ins, g)
+            else:
+                want = ms_deform_attn_plain(value, FLAGSHIP_SHAPES, loc, attn)
+            runs, errs = {}, {}
+            for name, (fn, lc) in builds.items():
+                if backward:
+                    runs[name] = lambda fn=fn, lc=lc: launch_backward(
+                        fn, kname, value, FLAGSHIP_SHAPES, lc, attn, g)
+                else:
+                    runs[name] = lambda fn=fn, lc=lc: launch_forward(
+                        fn, kname, value, FLAGSHIP_SHAPES, lc, attn)
+                if lc is loc:
+                    got = runs[name]()
+                    torch.cuda.synchronize()
+                    pairs = zip(got, want) if backward else [(got, want)]
+                    errs[name] = [float((a.float() - b.float()).abs().max()) for a, b in pairs]
+            order = list(runs) + list(runs)[::-1]
+            times = {k: [] for k in runs}
+            for _ in range(rounds):
+                for name in order:
+                    times[name].append(graph_ms(runs[name]))
+            key = f"{'backward' if backward else 'forward'}/{call}"
+            results[key] = {}
+            for name, ts in times.items():
+                ms = statistics.median(ts)
+                results[key][name] = dict(ms=ms, readings=ts, max_abs_err=errs.get(name))
+                log(f"[ab] {kname} {call} N={n} Q={q} bf16 {name:22s} {ms:.4f} ms (readings "
+                    + ", ".join(f"{t:.4f}" for t in ts) + ")"
+                    + ("" if name not in errs else "; max |err| against plain "
+                       + ", ".join(f"{e:.3e}" for e in errs[name])))
     return results
 
 
@@ -967,6 +1209,12 @@ def profile_device(fn, label: str, top: int = 12, host_top: int = 0) -> dict:
             f"({100.0 * busy_ms / wall:.1f}%) in {n_ops} device ops; top device ops:")
         for us, key, count in kernels[:top]:
             log(f"{label}   {us / 1e3:9.3f} ms  x{count:<5d} {key[:100]}")
+        for kname in ("msda_fwd_kernel", "msda_bwd_kernel", "msda3d_fwd_kernel",
+                      "msda3d_bwd_kernel"):  # every instantiation of each
+            mine = [(us, count) for us, key, count in kernels if f"{kname}<" in key]
+            if mine:
+                log(f"{label}   {kname}: {sum(u for u, _ in mine) / 1e3:.3f} ms in "
+                    f"{sum(c for _, c in mine)} launches")
     host = sorted(((evt.self_cpu_time_total, evt.key, evt.count) for evt in prof.key_averages()
                    if not str(evt.device_type).endswith("CUDA")), reverse=True)
     if host_top:
@@ -1518,6 +1766,8 @@ def main() -> int:
     phase_build()
     kern = {"e4": phase_kernels(e=4), "e1": phase_kernels(e=1)}
     bwd = phase_backward_kernels()
+    phase_edge_kernels()
+    phase_ab()
     kern3 = {"e4": phase_kernels(e=4, is_3d=True), "e1": phase_kernels(e=1, is_3d=True)}
     bwd3 = {"n5": phase_backward_kernels(5, is_3d=True),
             "n10": phase_backward_kernels(10, is_3d=True)}

@@ -9,8 +9,7 @@
 //     one call).
 // The TPU kernels build the bilinear taps as dense interpolation matmuls
 // over banded value windows because the TPU has no gather. Hopper has one,
-// so this is a single gather kernel over all levels, in the form of the
-// original ms_deformable_im2col CUDA kernel.
+// so this is a gather kernel over all levels.
 //
 // What it computes (the semantics of tce_rvos_tpu/ops/msda.py and of
 // ops/msda.py::ms_deform_attn_plain in the port):
@@ -18,142 +17,216 @@
 //       bilinear_zero_pad(value_l[n, :, m, d], loc[n,q,m,l,p] * (W_l, H_l) - 0.5)
 // value [N, S, M, D] f32 or bf16, loc [N, Q, M, L, P, 2] f32,
 // attn [N, Q, M, L, P] f32, out [N, Q, M*D] in the value's dtype. D = 32.
-// Sums are taken in f32. A tap whose four corners all lie outside its level
-// (or whose location is not finite) contributes nothing.
+// Sums are taken in f32 and written once in the value's dtype. A tap whose
+// four corners all lie outside its level (or whose location is not finite)
+// contributes nothing.
 //
-// What bounds it: memory. Each output row (n, q, m) reads L*P*2 location
-// floats and L*P weights once and writes D outputs; the value rows it
-// gathers are re-read by many queries. At the flagship encoder call
-// (N = 5 frames, Q = S = 5100, bf16 value) the compulsory traffic is
-// 13 MB of value, 26 MB of locations, 13 MB of weights and 13 MB of output,
-// some 65 MB, or about 20 us at 3.35 TB/s; the gathered corner reads come to
-// about 0.8 GB but mostly hit the 50 MB L2, which holds the whole value.
-// The design follows from that:
-//   * one warp per output row (n, q, m), lane = channel d: each corner read
-//     is one coalesced 64-byte (bf16) or 128-byte (f32) row segment;
-//   * the location and weight of a tap are read once per warp (a broadcast
-//     load) and kept in registers; no shared memory, no atomics, no
-//     cross-block reduction, since every output row is owned by one warp;
-//   * the level shapes travel as kernel arguments, so no device array of
-//     shapes is read.
-// Not done yet (later work, measured first): caching a query's value window
-// in shared memory, wider vector loads, and fusing the softmax of the
-// attention weights and the output projection.
+// What bounds it. The compulsory traffic of the serving encoder call
+// (N = 20 frames, Q = S = 5100, M = 8, L = P = 4, bf16) is about 261 MB
+// (locations 104 MB, weights 52 MB, value and output 52 MB each), some
+// 78 us at 3.35 TB/s. The gathers are another matter: 16 taps x 4 corners
+// x 64 bytes for each of the 816,000 rows, 3.3 GB, re-reading value rows
+// that many queries share. The first design of this kernel (one warp per
+// row, lane = channel, one tap at a time) ran at under 5% of the bound
+// (PERF.md). This design (msda2d_common.cuh):
+//   * 16 lanes a row: 4 channel groups of 8 channels (one 16-byte load a
+//     corner in bf16) x 4 tap groups of 4 taps; the tap groups' sums meet
+//     through 2 shuffle steps. With L = P = 4 (the flagship's) at compile
+//     time a lane's 4 locations and weights are loaded ahead of the
+//     gathers; other L (1..8) and P take the runtime-loop instantiation;
+//   * staged path (Q >= 512): a block takes one (frame, head) and a run of
+//     consecutive queries, and stages the trailing levels of that
+//     (frame, head) that fit (levels 1-3 of the flagship in bf16: 1,260
+//     pixels, 80,640 bytes) in shared memory with cp.async; level 0 reads
+//     device memory through L1, which the run's neighbouring queries share.
+//     512 threads a block, so 64 registers a thread and 32 warps an SM;
+//   * flat path for the small calls (FTF Q = 8, decoder Q = 5): the same
+//     row code with every tap from device memory.
+// Correctness never depends on locality: a staged level is staged whole,
+// and every other tap reads device memory.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "msda2d_common.cuh"
 
 #include <cmath>
+#include <type_traits>
 
 namespace {
 
-constexpr int kMaxLevels = 8;
-constexpr int kChannels = 32;  // D: one lane per channel
-constexpr int kThreads = 256;  // 8 output rows per block
+using namespace msda2d;
 
-struct Levels {
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  long long start[kMaxLevels];
+// One tap, added into this lane's 8 channels.
+template <typename T>
+__device__ __forceinline__ void tap_forward(const LevelRef<T>& lr, long long pix, float2 xy,
+                                            float a_t, float acc[8]) {
+  const float x = pixel_coord(xy.x, lr.w);
+  const float y = pixel_coord(xy.y, lr.h);
+  // at least one corner inside; also false for NaN
+  const bool live = x > -1.f && x < (float)lr.w && y > -1.f && y < (float)lr.h;
+  const float a = live ? a_t : 0.f;  // a dead tap adds nothing
+  const Corners c = corners(x, y, lr.h, lr.w, live);
+  Row8<T> v[4];
+  load_corners(lr, pix, c, v);
+  const float wgt[4] = {a * (1.f - c.dy) * (1.f - c.dx), a * (1.f - c.dy) * c.dx,
+                        a * c.dy * (1.f - c.dx), a * c.dy * c.dx};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float f[8];
+    v[k].to_float(f);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] += wgt[k] * f[j];
+  }
+}
+
+// One row (n, q, m): this lane's taps, summed over the row's tap groups
+// and written by tap group 0. v_nm: the row's (n, m) value rows for this
+// lane's channel group (pixel stride `pix`); s_val: the staged levels
+// (pixels from value_start), for levels from value_from on.
+template <typename T, int kL, int kP>
+__device__ __forceinline__ void row_forward(const T* __restrict__ v_nm, const T* s_val,
+                                            int value_from, int value_start, const Levels& lv,
+                                            int n_levels, int P, long long pix,
+                                            const float* __restrict__ loc_r,
+                                            const float* __restrict__ attn_r,
+                                            T* __restrict__ out_r, const Lane& ln) {
+  const auto level = [&](int l) {
+    return LevelRef<T>{lv.h[l], lv.w[l], v_nm + lv.start[l] * pix,
+                       l >= value_from ? s_val + (lv.start[l] - value_start) * kChannels
+                                       : nullptr};
+  };
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (kL) {  // point tg of every level; locations and weights ahead
+    constexpr int kN = kL > 0 ? kL : 1;  // no zero-sized arrays in device code
+    float2 xy[kN];
+    float a[kN];
+#pragma unroll
+    for (int l = 0; l < kL; ++l) {
+      xy[l] = __ldg(reinterpret_cast<const float2*>(loc_r) + l * kP + ln.tg);
+      a[l] = __ldg(attn_r + l * kP + ln.tg);
+    }
+#pragma unroll
+    for (int l = 0; l < kL; ++l) tap_forward(level(l), pix, xy[l], a[l], acc);
+  } else {
+    for (int t = ln.tg; t < n_levels * P; t += kTapGroups)
+      tap_forward(level(t / P), pix, __ldg(reinterpret_cast<const float2*>(loc_r) + t),
+                  __ldg(attn_r + t), acc);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {  // sum over the 4 tap groups (lane bits 2-3)
+    acc[j] += __shfl_xor_sync(ln.row_mask, acc[j], kChannelGroups);
+    acc[j] += __shfl_xor_sync(ln.row_mask, acc[j], 2 * kChannelGroups);
+  }
+  if (ln.tg == 0) store8(out_r, acc);
+}
+
+template <typename T, int kL, int kP, bool kStaged, int kThreads>
+__global__ void __launch_bounds__(kThreads, 2)
+msda_fwd_kernel(const T* __restrict__ value, const __grid_constant__ Levels lv, const int n_levels,
+                const float* __restrict__ loc, const float* __restrict__ attn,
+                T* __restrict__ out, const __grid_constant__ Plan plan, const int N, const int S,
+                const int Q, const int M, const int P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s_val = reinterpret_cast<T*>(smem);
+  const Lane ln = lane_of_row();
+  const int taps = n_levels * P;
+  const long long pix = (long long)M * kChannels;  // stride of one pixel
+  constexpr int kRowsPerPass = kThreads / kLanesPerRow;
+  const int row_in_pass = threadIdx.x / kLanesPerRow;
+  if (kStaged) {
+    const BlockRun b = block_run(plan.run, Q, M);
+    stage_pixels<kThreads>(s_val, value, b.n, S, M, b.m, plan.value_start, S);
+    const T* v_nm = value + (b.n * S * M + b.m) * kChannels + ln.cg * 8;
+    for (int q = b.q0 + row_in_pass; q < b.q1; q += kRowsPerPass) {
+      const long long row = (b.n * Q + q) * M + b.m;
+      row_forward<T, kL, kP>(v_nm, s_val + ln.cg * 8, plan.value_from, plan.value_start, lv,
+                             n_levels, P, pix, loc + row * taps * 2, attn + row * taps,
+                             out + row * kChannels + ln.cg * 8, ln);
+    }
+  } else {
+    const long long row = (long long)blockIdx.x * kRowsPerPass + row_in_pass;
+    if (row >= (long long)N * Q * M) return;  // whole rows: the 16 lanes stay together
+    const int m = (int)(row % M);
+    const long long n = row / ((long long)M * Q);
+    row_forward<T, kL, kP>(value + (n * S * M + m) * kChannels + ln.cg * 8, s_val, n_levels, S,
+                           lv, n_levels, P, pix, loc + row * taps * 2, attn + row * taps,
+                           out + row * kChannels + ln.cg * 8, ln);
+  }
+}
+
+// One call's arguments, as the host passes them to an instantiation.
+template <typename T>
+struct Call {
+  const T* value;
+  Levels lv;
+  int n_levels;
+  const float *loc, *attn;
+  T* out;
+  Plan plan;
+  int N, S, Q, M, P;
+  cudaStream_t stream;
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-msda_fwd_kernel(const T* __restrict__ value, const Levels lv, const int n_levels,
-                const float* __restrict__ loc, const float* __restrict__ attn,
-                T* __restrict__ out, const long long n_rows, const int S,
-                const int Q, const int M, const int P) {
-  const long long row = (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (row >= n_rows) return;
-  const int lane = threadIdx.x & 31;
-  const int m = (int)(row % M);
-  const long long n = row / ((long long)M * Q);
-  const int taps = n_levels * P;
-  const float* loc_r = loc + row * taps * 2;
-  const float* attn_r = attn + row * taps;
-  const long long pix = (long long)M * kChannels;  // stride of one pixel
-  const T* v_nm = value + (n * S * M + m) * kChannels + lane;
-
-  float acc = 0.f;
-  // unrolled so that lv.* is indexed statically: a dynamic index into a
-  // kernel argument would copy the struct to local memory
-#pragma unroll
-  for (int l = 0; l < kMaxLevels; ++l) {
-    if (l >= n_levels) break;
-    const int h = lv.h[l];
-    const int w = lv.w[l];
-    const T* v_l = v_nm + lv.start[l] * pix;
-    for (int p = 0; p < P; ++p) {
-      const int t = l * P + p;
-      const float2 xy = __ldg(reinterpret_cast<const float2*>(loc_r) + t);
-      const float x = xy.x * (float)w - 0.5f;
-      const float y = xy.y * (float)h - 0.5f;
-      // at least one corner inside; also false for NaN
-      if (!(x > -1.f && x < (float)w && y > -1.f && y < (float)h)) continue;
-      const float a = __ldg(attn_r + t);
-      const float x0f = floorf(x);
-      const float y0f = floorf(y);
-      const int x0 = (int)x0f;  // in [-1, w - 1]
-      const int y0 = (int)y0f;  // in [-1, h - 1]
-      const float dx = x - x0f;
-      const float dy = y - y0f;
-      float s = 0.f;
-      if (y0 >= 0) {
-        const T* r = v_l + (long long)y0 * w * pix;
-        if (x0 >= 0) s += (1.f - dy) * (1.f - dx) * to_float(r[x0 * pix]);
-        if (x0 + 1 < w) s += (1.f - dy) * dx * to_float(r[(x0 + 1) * pix]);
-      }
-      if (y0 + 1 < h) {
-        const T* r = v_l + (long long)(y0 + 1) * w * pix;
-        if (x0 >= 0) s += dy * (1.f - dx) * to_float(r[x0 * pix]);
-        if (x0 + 1 < w) s += dy * dx * to_float(r[(x0 + 1) * pix]);
-      }
-      acc += a * s;
-    }
+template <typename T, int kL, int kP, bool kStaged, int kThreads>
+int launch(const Call<T>& c) {
+  auto* kernel = msda_fwd_kernel<T, kL, kP, kStaged, kThreads>;
+  if (c.plan.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, c.plan.smem);
+    if (e != cudaSuccess) return (int)e;
   }
-  store(out + row * kChannels + lane, acc);
+  kernel<<<c.plan.blocks, kThreads, c.plan.smem, c.stream>>>(
+      c.value, c.lv, c.n_levels, c.loc, c.attn, c.out, c.plan, c.N, c.S, c.Q, c.M, c.P);
+  return (int)cudaGetLastError();
+}
+
+// L = P = 4 (the flagship's) unrolled; other L and P take the runtime loops.
+template <typename T>
+int dispatch(const Call<T>& c) {
+  const bool flagship = c.n_levels == 4 && c.P == 4;
+  if (c.plan.staged)
+    return flagship ? launch<T, 4, 4, true, kThreadsStagedForward>(c)
+                    : launch<T, 0, 0, true, kThreadsStagedForward>(c);
+  return flagship ? launch<T, 4, 4, false, kThreadsFlat>(c)
+                  : launch<T, 0, 0, false, kThreadsFlat>(c);
 }
 
 }  // namespace
 
 // value_dtype: 0 = float32, 1 = bfloat16. level_hw: host array of
-// n_levels (H, W) pairs. Returns cudaGetLastError() after the launch
+// n_levels (H, W) pairs. value and out must start on a 16-byte boundary,
+// loc on an 8-byte one. Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for arguments the kernel does not take).
 extern "C" int tce_msda_fwd(const void* value, int value_dtype, const int* level_hw,
                             int n_levels, const void* loc, const void* attn, void* out,
                             int N, int S, int Q, int M, int D, int P, void* stream) {
   if (D != kChannels || n_levels < 1 || n_levels > kMaxLevels || P < 1 ||
-      (value_dtype != 0 && value_dtype != 1))
+      (value_dtype != 0 && value_dtype != 1) ||
+      reinterpret_cast<uintptr_t>(value) % 16 || reinterpret_cast<uintptr_t>(out) % 16 ||
+      reinterpret_cast<uintptr_t>(loc) % 8)
     return (int)cudaErrorInvalidValue;
   Levels lv;
-  long long start = 0;
-  for (int l = 0; l < n_levels; ++l) {
-    lv.h[l] = level_hw[2 * l];
-    lv.w[l] = level_hw[2 * l + 1];
-    lv.start[l] = start;
-    start += (long long)lv.h[l] * lv.w[l];
-  }
-  if (start != S) return (int)cudaErrorInvalidValue;
-  const long long n_rows = (long long)N * Q * M;
-  if (n_rows == 0) return (int)cudaSuccess;
-  const long long rows_per_block = kThreads / 32;
-  const dim3 grid((unsigned)((n_rows + rows_per_block - 1) / rows_per_block));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* loc_f = static_cast<const float*>(loc);
-  const float* attn_f = static_cast<const float*>(attn);
-  if (value_dtype == 0) {
-    msda_fwd_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(value), lv, n_levels, loc_f, attn_f,
-        static_cast<float*>(out), n_rows, S, Q, M, P);
-  } else {
-    msda_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(value), lv, n_levels, loc_f, attn_f,
-        static_cast<__nv_bfloat16*>(out), n_rows, S, Q, M, P);
-  }
-  return (int)cudaGetLastError();
+  if (!make_levels(level_hw, n_levels, S, &lv)) return (int)cudaErrorInvalidValue;
+  if ((long long)N * Q * M == 0) return (int)cudaSuccess;
+  const Plan plan = make_plan(false, value_dtype == 0 ? 4 : 2, lv, n_levels, N, Q, M);
+  const auto call = [&](auto* typed_out) {
+    using T = std::remove_pointer_t<decltype(typed_out)>;
+    return dispatch(Call<T>{static_cast<const T*>(value), lv, n_levels,
+                            static_cast<const float*>(loc), static_cast<const float*>(attn),
+                            typed_out, plan, N, S, Q, M, P, static_cast<cudaStream_t>(stream)});
+  };
+  return value_dtype == 0 ? call(static_cast<float*>(out))
+                          : call(static_cast<__nv_bfloat16*>(out));
+}
+
+// The launch plan tce_msda_fwd (backward = 0) or tce_msda_bwd (1) takes
+// for these shapes, into out[6]: staged, threads, run, blocks, value_from,
+// smem (msda2d_common.cuh; mirrored by ops/msda_cuda.py::launch_plan).
+extern "C" int tce_msda_plan(int backward, int value_dtype, const int* level_hw, int n_levels,
+                             int N, int S, int Q, int M, int* out) {
+  Levels lv;
+  if (n_levels < 1 || n_levels > kMaxLevels || !make_levels(level_hw, n_levels, S, &lv))
+    return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(backward != 0, value_dtype == 0 ? 4 : 2, lv, n_levels, N, Q, M);
+  const int v[6] = {p.staged, p.threads, p.run, p.blocks, p.value_from, p.smem};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
 }

@@ -2,9 +2,9 @@
 with a plain C interface, at first use, and load it with ctypes.
 
 Each library goes to ``build/tce_rvos_tpu_torch/`` at the root of the
-checkout, named by a hash of its source and the compiler flags, so an edited
-source is rebuilt and an unchanged one is reused. Nothing is compiled when a
-module is imported: the CPU tests import every module, and a machine
+checkout, named by a hash of its source, the shared headers
+(``csrc/*.cuh``) and the compiler flags, so an edited source is rebuilt and
+an unchanged one is reused. Nothing is compiled when a module is imported: the CPU tests import every module, and a machine
 without the CUDA toolkit never calls these functions.
 """
 
@@ -44,7 +44,8 @@ def _nvcc() -> str:
 def library_path(source: str) -> Path:
     """Where the library of ``csrc/<source>`` lives once built."""
     src = CSRC_DIR / source
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    key = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{key.hexdigest()[:16]}.so"
 
 

@@ -42,27 +42,84 @@ SOURCES = ("msda_fwd.cu", "msda_bwd.cu", "msda3d_fwd.cu", "msda3d_bwd.cu")
 MAX_LEVELS = 8
 CHANNELS = 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the 2D kernels' launch plan (csrc/msda2d_common.cuh, make_plan)
+LANES_PER_ROW = 16          # 4 channel groups x 4 tap groups
+THREADS_FLAT = 256          # a block's threads on the flat path,
+THREADS_STAGED = {False: 512, True: 256}  # and on the staged path (backward?)
+STAGE_MIN_QUERIES = 512     # staged path from this many queries on
+SMEM_BUDGET = 115_712       # bytes a block, so that two blocks share an SM
+TARGET_BLOCKS = 4 * 132     # two waves of two blocks on an H100's 132 SMs
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 _SHAPE_ARGS = [_I32] * 6 + [_PTR]  # N, S, Q, M, D, P, stream
 
 
-@functools.lru_cache(maxsize=None)
-def _fwd_kernel(is_3d: bool = False):
-    lib = load_library("msda3d_fwd.cu" if is_3d else "msda_fwd.cu")
-    fn = lib.tce_msda3d_fwd if is_3d else lib.tce_msda_fwd
-    fn.argtypes = [_PTR, _I32, ctypes.POINTER(_I32), _I32, _PTR, _PTR, _PTR] + _SHAPE_ARGS
+_FWD_ARGS = [_PTR, _I32, ctypes.POINTER(_I32), _I32, _PTR, _PTR, _PTR] + _SHAPE_ARGS
+_BWD_ARGS = [_PTR, _I32, ctypes.POINTER(_I32), _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR] + _SHAPE_ARGS
+
+
+def bind(source, backward: bool, is_3d: bool = False):
+    """The C entry point (``tce_msda[3d]_{fwd,bwd}``) of the library built
+    from ``source``: a file of ``csrc/`` or the path of another build of the
+    same entry points (``chip_smoke.py`` times such builds against these)."""
+    fn = getattr(load_library(str(source)),
+                 f"tce_msda{'3d' if is_3d else ''}_{'bwd' if backward else 'fwd'}")
+    fn.argtypes = _BWD_ARGS if backward else _FWD_ARGS
     fn.restype = _I32
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_kernel(is_3d: bool = False):
+    return bind("msda3d_fwd.cu" if is_3d else "msda_fwd.cu", False, is_3d)
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel(is_3d: bool = False):
-    lib = load_library("msda3d_bwd.cu" if is_3d else "msda_bwd.cu")
-    fn = lib.tce_msda3d_bwd if is_3d else lib.tce_msda_bwd
-    fn.argtypes = ([_PTR, _I32, ctypes.POINTER(_I32), _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]
-                   + _SHAPE_ARGS)
+    return bind("msda3d_bwd.cu" if is_3d else "msda_bwd.cu", True, is_3d)
+
+
+def launch_plan(backward: bool, dtype, spatial_shapes, n: int, q: int, m: int) -> dict:
+    """How the 2D forward (or backward) kernel launches for these shapes, as
+    ``make_plan`` in ``csrc/msda2d_common.cuh`` decides it (the card's
+    ``tce_msda_plan`` returns the same; ``chip_smoke.py`` compares them):
+
+    * ``staged``: a block takes one (frame, head) and ``run`` consecutive
+      queries and keeps the trailing levels from ``value_from`` on, as many
+      as fit in ``SMEM_BUDGET``, in ``smem`` bytes of shared memory; else
+      every tap reads device memory (the small FTF and decoder calls);
+    * ``threads`` a block, 16 a row; ``blocks``: the grid size."""
+    starts = level_splits(spatial_shapes)
+    n_levels = len(spatial_shapes)
+    pix_bytes = (4 if dtype == torch.float32 else 2) * CHANNELS
+    first = n_levels
+    while first > 0 and (starts[-1] - starts[first - 1]) * pix_bytes <= SMEM_BUDGET:
+        first -= 1
+    if q < STAGE_MIN_QUERIES or first == n_levels or n * m == 0:
+        rows = THREADS_FLAT // LANES_PER_ROW
+        return dict(staged=0, threads=THREADS_FLAT, run=0, blocks=-(-n * m * q // rows),
+                    value_from=n_levels, smem=0)
+    threads = THREADS_STAGED[backward]
+    rows = threads // LANES_PER_ROW
+    per_nm = -(-TARGET_BLOCKS // (n * m))
+    run = -(-(-(-q // per_nm)) // rows) * rows
+    return dict(staged=1, threads=threads, run=run, blocks=n * m * -(-q // run),
+                value_from=first, smem=(starts[-1] - starts[first]) * pix_bytes)
+
+
+_PLAN_KEYS = ("staged", "threads", "run", "blocks", "value_from", "smem")
+
+
+def kernel_plan(backward: bool, dtype, spatial_shapes, n: int, q: int, m: int) -> dict:
+    """``launch_plan`` as the built kernels compute it (``tce_msda_plan``)."""
+    fn = load_library("msda_fwd.cu").tce_msda_plan
+    fn.argtypes = [_I32, _I32, ctypes.POINTER(_I32), _I32] + [_I32] * 4 + [ctypes.POINTER(_I32)]
     fn.restype = _I32
-    return fn
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    rc = fn(int(backward), _DTYPE_CODE[dtype], _level_hw(spatial_shapes), len(spatial_shapes),
+            n, level_splits(spatial_shapes)[-1], q, m, out)
+    if rc != 0:
+        raise RuntimeError(f"tce_msda_plan failed with CUDA error {rc}")
+    return dict(zip(_PLAN_KEYS, out))
 
 
 def _check(value, spatial_shapes, loc, attn, coords: int = 2) -> None:
@@ -91,6 +148,17 @@ def _check(value, spatial_shapes, loc, attn, coords: int = 2) -> None:
                          f"got {tuple(loc.shape)}")
     if tuple(attn.shape) != tuple(loc.shape[:5]):
         raise ValueError(f"attention_weights must be {tuple(loc.shape[:5])}, got {tuple(attn.shape)}")
+    if coords == 2:  # the 2D kernels read value rows in 16 bytes, locations in 8
+        for name, t, nbytes in (("value", value, 16), ("sampling_locations", loc, 8)):
+            if t.data_ptr() % nbytes:
+                raise ValueError(f"{name} must start on a {nbytes}-byte boundary "
+                                 f"(pointer {t.data_ptr():#x}); pass a fresh tensor")
+
+
+def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """``t``, or a copy in a fresh (aligned) allocation if its pointer is not
+    a multiple of ``nbytes``."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
 def _level_hw(spatial_shapes):
@@ -103,22 +171,25 @@ def _dims(value, loc):
     return n, s, loc.shape[1], m, d, loc.shape[4]
 
 
-def _forward(is_3d: bool, value, spatial_shapes, loc, attn) -> torch.Tensor:
+def launch_forward(kernel, name: str, value, spatial_shapes, loc, attn) -> torch.Tensor:
+    """One launch of a forward entry point (``bind``) -> [N, Q, M*32]."""
     n, s, q, m, d, p = _dims(value, loc)
     out = torch.empty((n, q, m * d), dtype=value.dtype, device=value.device)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _fwd_kernel(is_3d)(value.data_ptr(), _DTYPE_CODE[value.dtype],
-                                _level_hw(spatial_shapes), len(spatial_shapes), loc.data_ptr(),
-                                attn.data_ptr(), out.data_ptr(), n, s, q, m, d, p, stream)
+        rc = kernel(value.data_ptr(), _DTYPE_CODE[value.dtype], _level_hw(spatial_shapes),
+                    len(spatial_shapes), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
+                    n, s, q, m, d, p, stream)
     if rc != 0:
-        name = "msda3d_fwd" if is_3d else "msda_fwd"
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
     return out
 
 
-def _backward(is_3d: bool, value, spatial_shapes, loc, attn, grad_out):
-    grad_out = grad_out.contiguous()
+def launch_backward(kernel, name: str, value, spatial_shapes, loc, attn, grad_out):
+    """One launch of a backward entry point (``bind``) -> (d_value in the
+    value's dtype, d_loc, d_attn). ``grad_out`` is made contiguous and, if
+    its pointer is not 16-byte aligned, copied to a buffer that is."""
+    grad_out = _aligned(grad_out.contiguous(), 16)
     if grad_out.dtype != value.dtype or grad_out.device != value.device:
         raise TypeError(f"grad_out is {grad_out.dtype} on {grad_out.device}; "
                         f"value is {value.dtype} on {value.device}")
@@ -130,14 +201,23 @@ def _backward(is_3d: bool, value, spatial_shapes, loc, attn, grad_out):
     d_attn = torch.empty(attn.shape, dtype=torch.float32, device=value.device)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _bwd_kernel(is_3d)(value.data_ptr(), _DTYPE_CODE[value.dtype],
-                                _level_hw(spatial_shapes), len(spatial_shapes), loc.data_ptr(),
-                                attn.data_ptr(), grad_out.data_ptr(), d_value.data_ptr(),
-                                d_loc.data_ptr(), d_attn.data_ptr(), n, s, q, m, d, p, stream)
+        rc = kernel(value.data_ptr(), _DTYPE_CODE[value.dtype], _level_hw(spatial_shapes),
+                    len(spatial_shapes), loc.data_ptr(), attn.data_ptr(), grad_out.data_ptr(),
+                    d_value.data_ptr(), d_loc.data_ptr(), d_attn.data_ptr(),
+                    n, s, q, m, d, p, stream)
     if rc != 0:
-        name = "msda3d_bwd" if is_3d else "msda_bwd"
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
     return d_value.to(value.dtype), d_loc, d_attn
+
+
+def _forward(is_3d: bool, value, spatial_shapes, loc, attn) -> torch.Tensor:
+    return launch_forward(_fwd_kernel(is_3d), "msda3d_fwd" if is_3d else "msda_fwd",
+                          value, spatial_shapes, loc, attn)
+
+
+def _backward(is_3d: bool, value, spatial_shapes, loc, attn, grad_out):
+    return launch_backward(_bwd_kernel(is_3d), "msda3d_bwd" if is_3d else "msda_bwd",
+                           value, spatial_shapes, loc, attn, grad_out)
 
 
 def msda_forward(value, spatial_shapes, loc, attn) -> torch.Tensor:

@@ -16,8 +16,12 @@
   shape of the trunk (encoder pixel queries, FTF Q = 8, decoder Q = 5 with
   2-d and 4-d reference points), on shared seeded weights: outputs, and
   the gradients of every parameter;
-* the CUDA kernels against the plain version, forward and gradients (skip
-  without a card; ``chip_smoke.py`` runs those comparisons on the GPU);
+* the CUDA kernels against the plain version, forward and gradients, on
+  their flat and staged paths (skip without a card; ``chip_smoke.py`` runs
+  those comparisons on the GPU);
+* what surrounds the 2D kernels on the CPU: their launch plan
+  (``launch_plan``: path, queries per block, staged levels, shared-memory
+  bytes) and the alignment ``_check`` demands of the pointers;
 * the port imports no JAX, Flax or ``tce_rvos_tpu`` module.
 """
 
@@ -41,13 +45,24 @@ from tce_rvos_tpu.ops.msda import ms_deform_attn as jax_ms_deform_attn
 from tce_rvos_tpu.ops.pallas_msda import FLAT_LEVEL_MAX_PIXELS, ms_deform_attn_pallas
 from tce_rvos_tpu_torch.models.transformer import MSDeformAttn
 from tce_rvos_tpu_torch.ops.msda import ms_deform_attn_plain
-from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn
+from tce_rvos_tpu_torch.ops.msda_cuda import (
+    LANES_PER_ROW,
+    SMEM_BUDGET,
+    THREADS_FLAT,
+    THREADS_STAGED,
+    _aligned,
+    _check,
+    launch_plan,
+    ms_deform_attn,
+)
 from tce_rvos_tpu_torch.utils.convert import state_dict_from_jax
 from torch_parity_helpers import assert_close, prefixed, random_variables, sub_state_dict
 
 REPO = Path(__file__).resolve().parent.parent
 SHAPES_SEP = ((40, 64), (4, 8))       # 2560-pixel level: the Pallas sep kernel
 SHAPES_FLAT = ((8, 16), (4, 8), (2, 4))
+FLAGSHIP = ((48, 80), (24, 40), (12, 20), (6, 10))  # 384x640 clip
+MAX_SMEM = 232_448  # the most shared memory a block may ask for on Hopper
 
 
 def _op_inputs(shapes, n=2, q=12, m=2, d=8, p=3, seed=0):
@@ -236,51 +251,145 @@ def test_msdeformattn_module_matches_jax(kind):
         assert_close(g, w, rtol=1e-5, atol=1e-5, name=f"{kind} {name}")
 
 
+# flat path (q = 64) and staged path (q = 600 >= 512) of the 2D kernels, at
+# two levels (the runtime loop) and at the flagship's L = P = 4
+CUDA_CASES = ((SHAPES_SEP, 64, 4), (SHAPES_SEP, 600, 3), (FLAGSHIP, 600, 4))
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
     """The hand-written kernel against the plain version on the card, f32
     (rtol = atol = 1e-5) and bf16 value (both round one f32 sum to bf16:
-    at most one bf16 step apart)."""
+    at most one bf16 step apart), on the flat and the staged path."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this comparison on the GPU")
-    value, loc, attn = (torch.from_numpy(a).cuda()
-                        for a in _op_inputs(SHAPES_SEP, n=3, q=64, m=8, d=32, p=4))
-    for dtype, rtol, atol in ((torch.float32, 1e-5, 1e-5), (torch.bfloat16, 8e-3, 1e-2)):
-        v = value.to(dtype)
-        got = ms_deform_attn(v, SHAPES_SEP, loc, attn)
-        torch.cuda.synchronize()
-        want = ms_deform_attn_plain(v, SHAPES_SEP, loc, attn)
-        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    for shapes, q, p in CUDA_CASES:
+        value, loc, attn = (torch.from_numpy(a).cuda()
+                            for a in _op_inputs(shapes, n=3, q=q, m=8, d=32, p=p))
+        for dtype, rtol, atol in ((torch.float32, 1e-5, 1e-5), (torch.bfloat16, 8e-3, 1e-2)):
+            v = value.to(dtype)
+            got = ms_deform_attn(v, shapes, loc, attn)
+            torch.cuda.synchronize()
+            want = ms_deform_attn_plain(v, shapes, loc, attn)
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
 
 @pytest.mark.cuda
 def test_cuda_backward_matches_plain_gradients():
     """The backward kernel (through ``MSDeformAttnFunction``) against
-    autograd through the plain version on the card. d_loc and d_attn are
-    f32 sums of the same products in another order in both dtypes (rtol
-    1e-4 plus 1e-5 of the largest magnitude); d_value is summed with
-    atomics in an order that changes from run to run, then cast to the
-    value's dtype: f32 as above, bf16 within one bf16 step (rtol 1e-2 plus
-    1e-3 of the largest magnitude)."""
+    autograd through the plain version on the card, on the flat and the
+    staged path. d_loc and d_attn are f32 sums of the same products in
+    another order in both dtypes (rtol 1e-4 plus 1e-5 of the largest
+    magnitude); d_value is summed with atomics in an order that changes
+    from run to run, then cast to the value's dtype: f32 as above, bf16
+    within one bf16 step (rtol 1e-2 plus 1e-3 of the largest magnitude)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this comparison on the GPU")
-    arrays = _op_inputs(SHAPES_SEP, n=3, q=64, m=8, d=32, p=4)
-    g = torch.from_numpy(_cotangent(arrays[0], arrays[1], seed=8)).cuda()
-    for dtype in (torch.float32, torch.bfloat16):
-        grads = {}
-        for which, fn in (("kernel", ms_deform_attn), ("plain", ms_deform_attn_plain)):
-            ins = [torch.from_numpy(a).cuda() for a in arrays]
-            ins[0] = ins[0].to(dtype)
-            for t in ins:
-                t.requires_grad_(True)
-            before = ms_deform_attn.backward_launches
-            fn(ins[0], SHAPES_SEP, ins[1], ins[2]).backward(g.to(dtype))
-            torch.cuda.synchronize()
-            assert ms_deform_attn.backward_launches - before == (which == "kernel")
-            grads[which] = [t.grad.float() for t in ins]
-        for i, (a, b) in enumerate(zip(grads["kernel"], grads["plain"])):
-            rtol, atol = (1e-2, 1e-3) if (i == 0 and dtype == torch.bfloat16) else (1e-4, 1e-5)
-            torch.testing.assert_close(a, b, rtol=rtol, atol=atol * float(b.abs().max()))
+    for shapes, q, p in CUDA_CASES:
+        arrays = _op_inputs(shapes, n=3, q=q, m=8, d=32, p=p)
+        g = torch.from_numpy(_cotangent(arrays[0], arrays[1], seed=8)).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            grads = {}
+            for which, fn in (("kernel", ms_deform_attn), ("plain", ms_deform_attn_plain)):
+                ins = [torch.from_numpy(a).cuda() for a in arrays]
+                ins[0] = ins[0].to(dtype)
+                for t in ins:
+                    t.requires_grad_(True)
+                before = ms_deform_attn.backward_launches
+                fn(ins[0], shapes, ins[1], ins[2]).backward(g.to(dtype))
+                torch.cuda.synchronize()
+                assert ms_deform_attn.backward_launches - before == (which == "kernel")
+                grads[which] = [t.grad.float() for t in ins]
+            for i, (a, b) in enumerate(zip(grads["kernel"], grads["plain"])):
+                rtol, atol = (1e-2, 1e-3) if (i == 0 and dtype == torch.bfloat16) else (1e-4, 1e-5)
+                torch.testing.assert_close(a, b, rtol=rtol, atol=atol * float(b.abs().max()))
+
+
+# ---- what surrounds the 2D kernels: launch plan and alignment ----------
+
+
+def _level_bytes(shapes, first, pix_bytes):
+    return sum(h * w for h, w in shapes[first:]) * pix_bytes
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_launch_plan_at_the_flagship_call_shapes(backward, dtype):
+    """The encoder's pixel queries (Q = 5100; serving N = 20, training
+    N = 5) take the staged path with whole small levels in shared memory
+    (bf16: levels 1-3, 1,260 pixels; f32: levels 2-3), 512 threads a block
+    forward and 256 backward; the FTF (Q = 8) and decoder (Q = 5) calls
+    take the flat path, 16 rows to a block of 256 threads."""
+    elt = 4 if dtype == torch.float32 else 2
+    threads = THREADS_STAGED[backward]
+    for n in (20, 5):
+        enc = launch_plan(backward, dtype, FLAGSHIP, n, 5100, 8)
+        value_from = 1 if elt == 2 else 2
+        assert enc["staged"] == 1 and enc["value_from"] == value_from
+        assert enc["threads"] == threads == (256 if backward else 512)
+        assert enc["smem"] == _level_bytes(FLAGSHIP, value_from, elt * 32)
+        assert enc["run"] % (threads // LANES_PER_ROW) == 0 and enc["run"] < 5100
+        assert enc["blocks"] == n * 8 * -(-5100 // enc["run"])
+        for q in (8, 5):
+            small = launch_plan(backward, dtype, FLAGSHIP, n, q, 8)
+            assert small == dict(staged=0, threads=THREADS_FLAT, run=0,
+                                 blocks=-(-n * 8 * q // 16), value_from=4, smem=0)
+    bf16_fwd = launch_plan(False, torch.bfloat16, FLAGSHIP, 20, 5100, 8)
+    assert bf16_fwd["smem"] == 80_640 and bf16_fwd["blocks"] == 640  # levels 1-3: 1,260 pixels
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+def test_launch_plan_stages_whole_levels_within_budget(backward):
+    """Over seeded random level shapes and call sizes: the staged levels
+    are whole trailing levels, as many as fit (one more would not), no plan
+    asks for more shared memory than a block may have, and the blocks cover
+    every row."""
+    rng = np.random.RandomState(0)
+    for _ in range(200):
+        shapes = tuple((int(rng.randint(1, 60)), int(rng.randint(1, 90)))
+                       for _ in range(rng.randint(1, 9)))
+        n_levels = len(shapes)
+        dtype = (torch.float32, torch.bfloat16)[rng.randint(2)]
+        elt = 4 if dtype == torch.float32 else 2
+        n, q = int(rng.randint(1, 40)), int(rng.choice([5, 8, 511, 512, 3000, 5100]))
+        plan = launch_plan(backward, dtype, shapes, n, q, 8)
+        assert plan["smem"] <= SMEM_BUDGET <= MAX_SMEM // 2
+        rows = plan["threads"] // LANES_PER_ROW
+        if not plan["staged"]:
+            assert plan["smem"] == 0 and plan["threads"] == THREADS_FLAT
+            assert (plan["blocks"] - 1) * rows < n * 8 * q <= plan["blocks"] * rows
+            continue
+        assert q >= 512 and plan["value_from"] < n_levels and plan["run"] % rows == 0
+        assert plan["smem"] == _level_bytes(shapes, plan["value_from"], elt * 32)
+        if plan["value_from"] > 0:
+            assert _level_bytes(shapes, plan["value_from"] - 1, elt * 32) > SMEM_BUDGET
+        assert plan["blocks"] * plan["run"] >= n * 8 * q
+
+
+def test_check_rejects_misaligned_pointers():
+    """The 2D kernels read value rows in 16 bytes and locations in 8: a
+    view that starts elsewhere is refused, never sent to the plain
+    version; a misaligned upstream gradient is copied to an aligned one."""
+    shapes = SHAPES_FLAT
+    value, loc, attn = (torch.from_numpy(a) for a in _op_inputs(shapes, d=32))
+    _check(value, shapes, loc, attn)
+    off_value = torch.cat([torch.zeros(1), value.reshape(-1)])[1:].view(value.shape)  # 4 B off
+    assert off_value.is_contiguous() and off_value.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte"):
+        _check(off_value, shapes, loc, attn)
+    bf16 = value.to(torch.bfloat16)
+    off_bf16 = torch.cat([torch.zeros(1, dtype=torch.bfloat16), bf16.reshape(-1)])[1:].view(
+        value.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        _check(off_bf16, shapes, loc, attn)
+    off_loc = torch.cat([torch.zeros(1), loc.reshape(-1)])[1:].view(loc.shape)  # 4 B off
+    with pytest.raises(ValueError, match="8-byte"):
+        _check(value, shapes, off_loc, attn)
+    g = torch.randn(value.shape[0], loc.shape[1], 2 * 32)
+    off_g = torch.cat([torch.zeros(2), g.reshape(-1)])[2:].view(g.shape)
+    fixed = _aligned(off_g, 16)
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, g)
+    assert _aligned(g, 16) is g
 
 
 # ---- import rule ---------------------------------------------------------
