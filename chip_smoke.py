@@ -12,12 +12,14 @@ Phases (each one fails the run, nothing is caught and carried on from):
                the training shapes (N = 5 frames; encoder Q = 5100, FTF
                Q = 8, decoder Q = 5 with 4-d refs), f32 and bf16, with
                out-of-range and pixel-centre taps; the 2D kernels' launch
-               plan against its Python mirror; the 2D kernels on edge
-               cases (a ragged query count, shuffled queries, far taps,
-               x or y = -1, L = 3 and P = 2); times and bounds; then the
-               2D kernels timed in turns against other builds of their
-               entry points found in build/ab/ (git-ignored), e.g. an
-               earlier version's sources (phase_ab);
+               plan against its Python mirror; the 2D and 3D kernels on
+               edge cases (a ragged query count, shuffled queries, far
+               taps, x or y = -1, L = 3 and P = 2; in 3D also f_im = -1
+               and N - 1, integer and halfway frames, frames past both
+               ends, N = 1); times and bounds; then the 2D and 3D kernels
+               timed in turns against other builds of their entry points
+               found in build/ab/ (git-ignored), e.g. an earlier version's
+               sources (phase_ab);
   3. path    - flagship model at full width (ResNet-50 + RoBERTa-base,
                f_token 8, IQT, box refine, binary) from seeded random
                weights; InferenceEngine.run_video_batch on a 10-frame
@@ -45,7 +47,8 @@ Phases (each one fails the run, nothing is caught and carried on from):
                lie from float64, at two weight seeds):
                run_video_batch E = 4 in bf16 (8 3D + 4 2D forward launches
                per trunk forward; batched against serial masks printed as a
-               reading, since the 3D op's time axis spans the expressions);
+               reading, since the 3D op's time axis spans the expressions;
+               where the encoder's taps land in time, a reading);
                one window at E = 2, f32, GPU against CPU; 4 bf16 train
                steps (8 + 8 3D and 4 + 4 2D launches per step, a gradient
                on every parameter and on the temporal offset rows); one f32
@@ -141,11 +144,17 @@ def phase_build() -> None:
         libs = list(pool.map(_build.build, SOURCES))
     secs = time.perf_counter() - t0
     for source, so in zip(SOURCES, libs):
-        log(f"[build] {source} -> {so.name}")
-        for line in so.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+        log_build("[build]", source, so)
     log(f"[build] seconds={secs:.3f}")
+
+
+def log_build(tag: str, source, so) -> None:
+    """The library a source was built into, and its kernels' registers,
+    shared memory and spills (``-Xptxas -v``)."""
+    log(f"{tag} {source} -> {so.name}")
+    for line in so.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"{tag}   {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -163,24 +172,33 @@ def pixel_grid(shapes=FLAGSHIP_SHAPES):
                       for h, w in shapes])
 
 
-def frame_coords(n: int, shape, gen):
-    """The third coordinate of 3D MSDA taps, [n, ...] = ``shape``: the
-    query's own frame ((i + 0.5) / N, as the model makes it) plus seeded
-    offsets of about 1.5 frames, so that taps reach past both ends of the
-    frame axis and into neighbouring clips; point 0 (a pixel centre) sits
-    exactly on the own frame (an exact-integer f_im), point 1 halfway
-    between two frames."""
+def own_frames(n: int, ndim: int):
+    """The query's own frame coordinate, (i + 0.5) / N as the model makes it
+    (an exact-integer f_im), shaped [n, 1, ...] to ``ndim`` dimensions."""
     import torch
 
-    own = ((torch.arange(n, dtype=torch.float32) + 0.5) / n).reshape(n, *[1] * (len(shape) - 1))
-    f = own + torch.randn(shape, generator=gen) * 1.5 / n
+    return ((torch.arange(n, dtype=torch.float32) + 0.5) / n).reshape(n, *[1] * (ndim - 1))
+
+
+def frame_coords(n: int, shape, gen, spread: float = 1.5):
+    """The third coordinate of 3D MSDA taps, [n, ...] = ``shape``: the
+    query's own frame plus seeded offsets of about ``spread`` frames, so
+    that taps reach past both ends of the frame axis and into neighbouring
+    clips; point 0 (a pixel centre) sits exactly on the own frame (an
+    exact-integer f_im), point 1 halfway between two frames (with N > 1)."""
+    import torch
+
+    own = own_frames(n, len(shape))
+    f = own + torch.randn(shape, generator=gen) * spread / n
     f[..., 0] = own[..., 0]
-    f[..., 1] = torch.randint(1, n, shape[:-1], generator=gen).float() / n
+    if n > 1:
+        f[..., 1] = torch.randint(1, n, shape[:-1], generator=gen).float() / n
     return f
 
 
 def msda_inputs(kind: str, n: int, q: int, dtype, gen, device, frames: bool = False,
-                shapes=FLAGSHIP_SHAPES, points: int = P, spread: float = 4.0):
+                shapes=FLAGSHIP_SHAPES, points: int = P, spread: float = 4.0,
+                frame_spread: float = 1.5):
     """Seeded MSDA inputs at the level ``shapes`` (the flagship's unless
     given) with ``points`` points, and the reference points of each call
     site: the query's own pixel centre (encoder, the first q of the S
@@ -188,7 +206,7 @@ def msda_inputs(kind: str, n: int, q: int, dtype, gen, device, frames: bool = Fa
     (FTF) or boxes (decoder, 4-d). Offsets of about ``spread`` pixels reach
     outside [0, 1], and one point of every head and level lands exactly on a
     pixel centre. ``frames`` adds the 3D op's frame coordinate
-    (``frame_coords``)."""
+    (``frame_coords``, offsets of about ``frame_spread`` frames)."""
     import torch
 
     s = sum(h * w for h, w in shapes)
@@ -210,7 +228,7 @@ def msda_inputs(kind: str, n: int, q: int, dtype, gen, device, frames: bool = Fa
     pix = torch.floor(torch.rand(n, q, M, n_levels, 2, generator=gen) * wh)
     loc[:, :, :, :, 0, :] = (pix + 0.5) / wh
     if frames:
-        loc = torch.cat([loc, frame_coords(n, loc.shape[:-1], gen)[..., None]], -1)
+        loc = torch.cat([loc, frame_coords(n, loc.shape[:-1], gen, frame_spread)[..., None]], -1)
     logits = torch.randn(n, q, M, n_levels * points, generator=gen)
     attn = torch.softmax(logits, -1).reshape(n, q, M, n_levels, points)
     return value, loc.contiguous().to(device), attn.contiguous().to(device)
@@ -514,69 +532,157 @@ def edge_cases(dtype, gen, dev):
            *msda_inputs("decoder", n, 5, dtype, gen, dev, shapes=shapes3, points=2), 0)
 
 
-def phase_edge_kernels() -> dict:
-    """The 2D forward and backward kernels against the plain version (and
-    autograd through it) on ``edge_cases``, f32 and bf16, at phase 2's
-    tolerances, each case on the path it names. Returns the largest errors."""
+def edge_cases_3d(dtype, gen, dev):
+    """3D inputs whose results must not rest on the encoder's layout or on
+    where a tap's frames land, as ``edge_cases`` yields them (the 3D kernels
+    have one path, so the last item is None; N = 8 frames, so that
+    f_im = f * N - 0.5 is exact at the chosen f): a ragged query count;
+    shuffled queries; offsets of about 25 pixels and 6 frames; x = -1 or
+    y = -1; point 2 at f_im exactly -1 (first half of the queries) or N - 1
+    (second half); points 2 and 3 on integer frames other than the own one
+    and halfway between two frames (points 0 and 1 of every case are on the
+    own frame and halfway); points 2 and 3 past the first and the last
+    frame, partly (one frame inside) or wholly; N = 1; L = 3 with P = 2 at
+    the encoder and decoder shapes."""
     import torch
 
-    from tce_rvos_tpu_torch.ops.msda import ms_deform_attn_plain
-    from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn
+    s = sum(h * w for h, w in FLAGSHIP_SHAPES)
+    n = 8
+    value, loc, attn = msda_inputs("encoder", n, s, dtype, gen, dev, frames=True)
+    q = s - 37
+    yield "ragged", FLAGSHIP_SHAPES, value, loc[:, :q].contiguous(), attn[:, :q].contiguous(), None
+    perm = torch.randperm(s, generator=gen).to(dev)
+    yield ("shuffled", FLAGSHIP_SHAPES, value, loc[:, perm].contiguous(),
+           attn[:, perm].contiguous(), None)
+    yield ("far", FLAGSHIP_SHAPES, *msda_inputs("encoder", n, s, dtype, gen, dev, frames=True,
+                                                spread=25.0, frame_spread=6.0), None)
+    half = s // 2
+    edge = loc.clone()
+    for lvl, (h, w) in enumerate(FLAGSHIP_SHAPES):
+        edge[:, :half, :, lvl, 1, 0] = -0.5 / w  # pixel coordinate exactly -1
+        edge[:, half:, :, lvl, 1, 1] = -0.5 / h
+    yield "x_or_y_at_-1", FLAGSHIP_SHAPES, value, edge, attn, None
+    edge = loc.clone()
+    edge[:, :half, :, :, 2, 2] = -0.5 / n         # f_im exactly -1
+    edge[:, half:, :, :, 2, 2] = (n - 0.5) / n    # f_im exactly N - 1
+    yield "f_at_-1_and_N-1", FLAGSHIP_SHAPES, value, edge, attn, None
+    edge = loc.clone()
+    shape = edge.shape[:4]
+    edge[..., 2, 2] = ((torch.randint(0, n, shape, generator=gen).float() + 0.5) / n).to(dev)
+    edge[..., 3, 2] = (torch.randint(1, n, shape, generator=gen).float() / n).to(dev)
+    yield "integer_and_halfway_frames", FLAGSHIP_SHAPES, value, edge, attn, None
+    edge = loc.clone()
+    edge[..., 2, 2] = (torch.rand(shape, generator=gen) * -0.4 - 0.05).to(dev)  # f_im -4.1..-0.9
+    edge[..., 3, 2] = (torch.rand(shape, generator=gen) * 0.4 + 1.0).to(dev)    # f_im 7.5..10.7
+    yield "past_both_ends", FLAGSHIP_SHAPES, value, edge, attn, None
+    yield "N1", FLAGSHIP_SHAPES, *msda_inputs("encoder", 1, s, dtype, gen, dev, frames=True), None
+    shapes3 = FLAGSHIP_SHAPES[:3]
+    s3 = sum(h * w for h, w in shapes3)
+    yield ("L3_P2_encoder", shapes3, *msda_inputs("encoder", n, s3, dtype, gen, dev, frames=True,
+                                                  shapes=shapes3, points=2), None)
+    yield ("L3_P2_decoder", shapes3, *msda_inputs("decoder", n, 5, dtype, gen, dev, frames=True,
+                                                  shapes=shapes3, points=2), None)
+
+
+def phase_edge_kernels() -> dict:
+    """The 2D and 3D forward and backward kernels against the plain version
+    (and autograd through it) on ``edge_cases`` and ``edge_cases_3d``, f32
+    and bf16, at phase 2's tolerances, each 2D case on the path it names
+    (the launch plan is held against its mirror). Returns the largest
+    errors."""
+    import torch
+
+    from tce_rvos_tpu_torch.ops.msda import ms_deform_attn_3d_plain, ms_deform_attn_plain
+    from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn, ms_deform_attn_3d
 
     dev = torch.device("cuda")
     results = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        gen = torch.Generator().manual_seed(5)
-        for name, shapes, value, loc, attn, staged in edge_cases(dtype, gen, dev):
-            label = f"[edge] {name} {dtype_name(dtype)} N={value.shape[0]} Q={loc.shape[1]}"
-            for backward in (False, True):
-                plan = hold_plan(backward, label, value, shapes, loc)
-                if plan["staged"] != staged:
-                    raise AssertionError(f"{label}: {'backward' if backward else 'forward'} "
-                                         f"plan {plan}, expected staged={staged}")
-            _, fwd = hold_forward(ms_deform_attn, ms_deform_attn_plain, label, value, shapes, loc,
-                                  attn)
-            g = torch.randn(*loc.shape[:2], M * D, generator=gen).to(device=dev, dtype=dtype)
-            bwd = hold_backward(ms_deform_attn, ms_deform_attn_plain, label, value, shapes, loc,
-                                attn, g)
-            results[f"{name}/{dtype_name(dtype)}"] = dict(forward=fwd, **bwd)
-            log(f"{label}: {'staged' if staged else 'flat'} path; max |err| forward {fwd:.3e}, "
-                + ", ".join(f"{k} {v:.3e}" for k, v in bwd.items()))
+    for dim, cases, op, plain in (("2d", edge_cases, ms_deform_attn, ms_deform_attn_plain),
+                                  ("3d", edge_cases_3d, ms_deform_attn_3d,
+                                   ms_deform_attn_3d_plain)):
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator().manual_seed(5)
+            for name, shapes, value, loc, attn, staged in cases(dtype, gen, dev):
+                label = (f"[edge {dim}] {name} {dtype_name(dtype)} N={value.shape[0]} "
+                         f"Q={loc.shape[1]}")
+                if staged is not None:  # the 2D kernels' path
+                    for backward in (False, True):
+                        plan = hold_plan(backward, label, value, shapes, loc)
+                        if plan["staged"] != staged:
+                            raise AssertionError(f"{label}: {'backward' if backward else 'forward'}"
+                                                 f" plan {plan}, expected staged={staged}")
+                _, fwd = hold_forward(op, plain, label, value, shapes, loc, attn)
+                g = torch.randn(*loc.shape[:2], M * D, generator=gen).to(device=dev, dtype=dtype)
+                bwd = hold_backward(op, plain, label, value, shapes, loc, attn, g)
+                results[f"{dim}/{name}/{dtype_name(dtype)}"] = dict(forward=fwd, **bwd)
+                path = {None: "one", 0: "flat", 1: "staged"}[staged]
+                log(f"{label}: {path} path; max |err| forward "
+                    f"{fwd:.3e}, " + ", ".join(f"{k} {v:.3e}" for k, v in bwd.items()))
     return results
 
 
-AB_DIR = "build/ab"  # git-ignored: other builds of the 2D entry points, if any
+AB_DIR = "build/ab"  # git-ignored: other builds of the kernels' entry points, if any
+# the file-name prefix of another build in AB_DIR -> (3D?, backward?)
+AB_PREFIXES = {"fwd_": (False, False), "bwd_": (False, True), "fwd3d_": (True, False),
+               "bwd3d_": (True, True)}
 
 
 def own_pixel(loc):
     """Encoder-call locations with every tap moved onto the query's own
-    reference point (the same at every head, level and point): the most
-    local gathers the call can make."""
-    ref = pixel_grid().to(loc.device)[None, :, None, None, None, :]
-    return ref.expand(loc.shape).contiguous()
+    reference point (the same at every head, level and point), and in 3D
+    onto its own frame: the most local gathers the call can make."""
+    import torch
+
+    ref = pixel_grid().to(loc.device)[None, :, None, None, None, :].expand(*loc.shape[:-1], 2)
+    return torch.cat([ref, own_frame(loc)[..., 2:]], -1) if loc.shape[-1] == 3 else ref.contiguous()
+
+
+def own_frame(loc):
+    """3D locations with every tap's frame coordinate on the query's own
+    frame (zero temporal offset: one frame a tap, as at the model's init)."""
+    out = loc.clone()
+    out[..., 2] = own_frames(loc.shape[0], loc.dim() - 1).to(loc.device)
+    return out
+
+
+def near_frame(loc, gen):
+    """3D locations with every tap's f_im within one frame of the query's
+    own frame (uniform in (-1, 1) frames off it): two frames a tap, one of
+    them the own frame, as ``temporal_taps`` finds the model's taps with
+    ``random_state_dict`` weights."""
+    import torch
+
+    n = loc.shape[0]
+    out = loc.clone()
+    off = (torch.rand(loc.shape[:-1], generator=gen) * 2 - 1) / n
+    out[..., 2] = (own_frames(n, loc.dim() - 1) + off).to(loc.device)
+    return out
 
 
 def phase_ab(ab_dir: str = AB_DIR, rounds: int = 3) -> dict:
-    """The package's 2D MSDA kernels against other builds of the same C
-    entry points, at the trunk's three calls in bf16 (forward N = 20 as
-    serving at E = 4, backward N = 5 as training; ``msda_inputs``' seeded
-    data), by device time (``graph_ms``) taken in turns: each round runs the
-    package kernel, then every other build, then the same in reverse, and a
-    build's time is the median of its readings. ``ab_dir`` holds the other
-    builds' sources (``fwd_*.cu`` with ``tce_msda_fwd``, ``bwd_*.cu`` with
-    ``tce_msda_bwd``; e.g. an earlier version's sources, from git), built
-    in parallel; without it only the package kernels are timed. At the
-    encoder call every build also runs on ``own_pixel`` locations.
-    Each build's largest difference from the plain version (backward: from
-    autograd through it) is printed, not held: phase 2 holds the package
-    kernels."""
+    """The package's MSDA kernels against other builds of the same C entry
+    points, in bf16 at the trunk's calls (forward N = 20 as serving at
+    E = 4, backward N = 5 as training; ``msda_inputs``' seeded data), by
+    device time (``graph_ms``) taken in turns: each round runs the package
+    kernel, then every other build, then the same in reverse, and a build's
+    time is the median of its readings. ``ab_dir`` holds the other builds'
+    sources, named by ``AB_PREFIXES`` (``fwd_*.cu`` with ``tce_msda_fwd``,
+    ``bwd_*.cu`` with ``tce_msda_bwd``, ``fwd3d_*.cu`` with
+    ``tce_msda3d_fwd``, ``bwd3d_*.cu`` with ``tce_msda3d_bwd``; e.g. an
+    earlier version's sources, from git), built in parallel; without it only
+    the package kernels are timed. At the 2D encoder call every build also
+    runs on ``own_pixel`` locations; at the 3D encoder call on
+    ``frame_coords`` taps, ``near_frame`` taps, ``own_frame`` taps and
+    ``own_pixel`` taps (own frame and pixel). Each build's largest
+    difference from the plain version (backward: from autograd through it)
+    is printed, not held: phase 2 holds the package kernels."""
     from concurrent.futures import ThreadPoolExecutor
     from pathlib import Path
 
     import torch
 
     from tce_rvos_tpu_torch.ops import _build
-    from tce_rvos_tpu_torch.ops.msda import ms_deform_attn_plain
+    from tce_rvos_tpu_torch.ops.msda import ms_deform_attn_3d_plain, ms_deform_attn_plain
     from tce_rvos_tpu_torch.ops.msda_cuda import (
         _bwd_kernel,
         _fwd_kernel,
@@ -591,26 +697,35 @@ def phase_ab(ab_dir: str = AB_DIR, rounds: int = 3) -> dict:
     root = Path(__file__).resolve().parent / ab_dir
     sources = sorted(root.glob("*_*.cu")) if root.is_dir() else []
     with ThreadPoolExecutor(max(1, len(sources))) as pool:
-        list(pool.map(_build.build, sources))
+        for src, so in zip(sources, pool.map(_build.build, sources)):
+            log_build("[ab]", src.name, so)
     results = {}
-    for backward, n in ((False, 20), (True, 5)):
-        kname = "msda_bwd" if backward else "msda_fwd"
-        for call, q in (("encoder", s), ("ftf", 8), ("decoder", 5)):
-            value, loc, attn = msda_inputs(call, n, q, torch.bfloat16, gen, dev)
+    for is_3d, backward, n in ((False, False, 20), (False, True, 5), (True, False, 20),
+                               (True, True, 5)):
+        kname = f"msda{'3d' if is_3d else ''}_{'bwd' if backward else 'fwd'}"
+        plain = ms_deform_attn_3d_plain if is_3d else ms_deform_attn_plain
+        calls = (("encoder", s), ("decoder", 5)) if is_3d else (("encoder", s), ("ftf", 8),
+                                                                ("decoder", 5))
+        for call, q in calls:
+            value, loc, attn = msda_inputs(call, n, q, torch.bfloat16, gen, dev, frames=is_3d)
             g = torch.randn(n, q, M * D, generator=gen).to(device=dev, dtype=torch.bfloat16)
-            builds = {"package": (_bwd_kernel() if backward else _fwd_kernel(), loc)}
+            kernels = {"package": _bwd_kernel(is_3d) if backward else _fwd_kernel(is_3d)}
             for src in sources:
-                if src.name.startswith("bwd_" if backward else "fwd_"):
-                    builds[src.stem] = (bind(src, backward), loc)
+                prefix = src.name[:src.name.index("_") + 1]
+                if AB_PREFIXES.get(prefix) == (is_3d, backward):
+                    kernels[src.stem] = bind(src, backward, is_3d)
+            inputs = {"": loc}
             if call == "encoder":
-                near = own_pixel(loc)
-                builds.update({f"{k}/own_pixel": (fn, near) for k, (fn, _) in list(builds.items())})
+                inputs = ({"": loc, "/near_frame": near_frame(loc, gen),
+                           "/own_frame": own_frame(loc), "/own_pixel": own_pixel(loc)}
+                          if is_3d else {"": loc, "/own_pixel": own_pixel(loc)})
+            builds = {f"{k}{tag}": (fn, lc) for tag, lc in inputs.items()
+                      for k, fn in kernels.items()}
             if backward:
                 ins = [t.detach().clone().requires_grad_(True) for t in (value, loc, attn)]
-                want = torch.autograd.grad(ms_deform_attn_plain(ins[0], FLAGSHIP_SHAPES, ins[1],
-                                                                ins[2]), ins, g)
+                want = torch.autograd.grad(plain(ins[0], FLAGSHIP_SHAPES, ins[1], ins[2]), ins, g)
             else:
-                want = ms_deform_attn_plain(value, FLAGSHIP_SHAPES, loc, attn)
+                want = plain(value, FLAGSHIP_SHAPES, loc, attn)
             runs, errs = {}, {}
             for name, (fn, lc) in builds.items():
                 if backward:
@@ -629,12 +744,12 @@ def phase_ab(ab_dir: str = AB_DIR, rounds: int = 3) -> dict:
             for _ in range(rounds):
                 for name in order:
                     times[name].append(graph_ms(runs[name]))
-            key = f"{'backward' if backward else 'forward'}/{call}"
+            key = f"{'3d_' if is_3d else ''}{'backward' if backward else 'forward'}/{call}"
             results[key] = {}
             for name, ts in times.items():
                 ms = statistics.median(ts)
                 results[key][name] = dict(ms=ms, readings=ts, max_abs_err=errs.get(name))
-                log(f"[ab] {kname} {call} N={n} Q={q} bf16 {name:22s} {ms:.4f} ms (readings "
+                log(f"[ab] {kname} {call} N={n} Q={q} bf16 {name:26s} {ms:.4f} ms (readings "
                     + ", ".join(f"{t:.4f}" for t in ts) + ")"
                     + ("" if name not in errs else "; max |err| against plain "
                        + ", ".join(f"{e:.3e}" for e in errs[name])))
@@ -1028,6 +1143,52 @@ def phase_path(dtype_name: str, sd, videos) -> dict:
     return result, bvs["masks"]
 
 
+def temporal_taps(engine, feats, mask, sizes, e: int = 4) -> dict:
+    """Where the 3D encoder's taps land in time, in one trunk forward at E
+    expressions (N = 5E frames): forward hooks on each encoder layer's 3D
+    ``MSDeformAttn`` (its ``sampling_offsets``) rebuild every tap's f_im as
+    the module does, and this counts the shares of taps whose f_im is the
+    query's own frame exactly, within 1 or 2 frames of it, or farther, and
+    of those that lie partly or wholly outside [0, N - 1]. A reading for the
+    staging choice of the 3D kernels, not held."""
+    import torch
+
+    from tce_rvos_tpu_torch.models.text_encoder import tokenize
+
+    counts = dict(exact=0, within_1=0, within_2=0, farther=0, outside=0, taps=0)
+
+    def hook(module, inputs, out):
+        n, q = inputs[0].shape[:2]
+        parent = layers[module]
+        off = out.reshape(n, q, parent.n_heads, parent.n_levels, parent.n_points, 3)[..., 2]
+        ref_f = (torch.arange(n, dtype=torch.float32, device=out.device) + 0.5) / n
+        f_im = ((ref_f[:, None, None, None, None] + off / n).float() * n - 0.5)
+        dist = (f_im - torch.arange(n, device=out.device)[:, None, None, None, None]).abs()
+        counts["exact"] += int((dist == 0).sum())
+        counts["within_1"] += int(((dist > 0) & (dist <= 1)).sum())
+        counts["within_2"] += int(((dist > 1) & (dist <= 2)).sum())
+        counts["farther"] += int((dist > 2).sum())
+        counts["outside"] += int(((f_im < 0) | (f_im > n - 1)).sum())
+        counts["taps"] += f_im.numel()
+
+    layers = {layer.self_attn.sampling_offsets: layer.self_attn
+              for layer in engine.model.transformer.encoder.layers}
+    handles = [lin.register_forward_hook(hook) for lin in layers]
+    ids, attn = tokenize([CAPTIONS[i % len(CAPTIONS)] for i in range(e)])
+    try:
+        engine.trunk(feats, mask, ids, attn, sizes)
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    shares = {k: v / counts["taps"] for k, v in counts.items() if k != "taps"}
+    log(f"[path 3d bfloat16] temporal taps of the 3D encoder, trunk E={e} (N={5 * e}), "
+        f"{counts['taps']} taps: " + ", ".join(f"{k} {v:.4f}" for k, v in shares.items())
+        + " (own frame exact / within 1 / within 2 / farther; outside: partly or wholly "
+          "outside [0, N - 1])")
+    return dict(shares, taps=counts["taps"])
+
+
 def phase_path_3d(sd3, frames) -> dict:
     """The temporal-MSDA flagship (``--msda_3d``) serving path in bf16:
     run_video_batch (E = 4, two 5-frame windows) through the kernels, with
@@ -1080,6 +1241,7 @@ def phase_path_3d(sd3, frames) -> dict:
     video, mask, size = engine.preprocess(frames[:engine.window])
     sizes = torch.tensor([size], device="cuda")
     feats = engine.backbone(video, mask)
+    taps = temporal_taps(engine, feats, mask, sizes)
     trunk = {}
     for e in (1, 4):
         ids, attn = tokenize([CAPTIONS[i % len(CAPTIONS)] for i in range(e)])
@@ -1098,7 +1260,8 @@ def phase_path_3d(sd3, frames) -> dict:
     del engine
     torch.cuda.empty_cache()
     return dict(launches=counts, first_call_s=first_s, batched_vs_serial=gaps, trunk=trunk,
-                serve_ms=serve_s * 1e3, expression_windows_per_s=serve_rate, breakdown=breakdown)
+                serve_ms=serve_s * 1e3, expression_windows_per_s=serve_rate, breakdown=breakdown,
+                temporal_taps=taps)
 
 
 def bf16_against_f32(masks) -> None:

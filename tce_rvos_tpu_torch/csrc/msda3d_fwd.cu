@@ -9,8 +9,8 @@
 //     in one call).
 // The TPU kernels build each frame's bilinear taps as dense interpolation
 // matmuls (per-frame x-contractions) because the TPU has no gather. Hopper
-// has one, so this is a single gather kernel over all levels in the form of
-// msda_fwd.cu; none of the TPU tiling carries over.
+// has one, so this is a gather kernel over all levels; none of the TPU
+// tiling carries over.
 //
 // What it computes (tce_rvos_tpu/ops/msda.py::ms_deform_attn_3d, and
 // ops/msda.py::ms_deform_attn_3d_plain in the port):
@@ -22,151 +22,163 @@
 // contributing nothing. Time is the call's whole batch axis (N frames), as
 // in the JAX package. value [N, S, M, D] f32 or bf16, loc
 // [N, Q, M, L, P, 3] f32 (x, y, f), attn [N, Q, M, L, P] f32, out
-// [N, Q, M*D] in the value's dtype. D = 32. Sums are taken in f32. The
-// coordinates are rounded as the plain version rounds them (__fmul_rn,
-// __fsub_rn: no FMA contraction), so both floor to the same pixel and frame:
-// at zero temporal offset f_im is an exact integer, the query's own frame.
+// [N, Q, M*D] in the value's dtype. D = 32. Sums are taken in f32 and
+// written once in the value's dtype. The coordinates are rounded as the
+// plain version rounds them (__fmul_rn, __fsub_rn: no FMA contraction), so
+// both floor to the same pixel and frame: at zero temporal offset f_im is
+// an exact integer, the query's own frame. A frame whose lerp weight is 0
+// (an exact-integer f_im) is not read.
 //
-// What bounds it: memory, as for the 2D forward. Each output row (n, q, m)
-// reads L*P*3 location floats and L*P weights once and writes D outputs;
-// each tap gathers up to 2 frames x 4 corners of 64-byte (bf16) value rows,
-// re-read by many queries through the 50 MB L2. The design follows
-// msda_fwd.cu: one warp per output row, lane = channel d, the level shapes as
-// kernel arguments, no shared memory and no atomics. A frame whose lerp
-// weight is 0 (an exact-integer f_im: every tap at zero temporal offset) is
-// not read.
-// Not done yet (later work, measured first): caching a query's value window
-// in shared memory, wider vector loads, fusing the softmax of the weights.
+// What bounds it: at the serving encoder call (N = 20, Q = S = 5100,
+// M = 8, L = P = 4, bf16) the compulsory traffic is about 313 MB (locations
+// 157 MB, weights 52 MB, value and output 52 MB each), some 94 us at
+// 3.35 TB/s; the gathers read up to 2 frames x 4 corners x 64 bytes a tap,
+// 5-6 GB in all, re-reading rows that many queries share through L1 and
+// L2. The first design of this kernel (one warp per row, lane = channel,
+// one 2-byte load a lane per corner) ran at 2.4% of the bound (PERF.md).
+// This design is the 2D forward's mapping (msda_fwd.cu, msda2d_common.cuh,
+// msda3d_common.cuh): 16 lanes a row, 4 channel groups of 8 channels (one
+// 16-byte load a corner and frame in bf16) x 4 tap groups of 4 taps; a
+// tap's two frames are read one after the other; the tap groups' sums meet
+// through 2 shuffle steps. With L = P = 4 at compile time a lane's 4
+// locations and weights are loaded ahead of the gathers; other L (1..8) and
+// P take the runtime-loop instantiation. Every call, from the decoder's
+// Q = 5 to the encoder's Q = 5100, takes one path: rows in (n, q, m)
+// order, 16 to a block of 256 threads, every tap from device memory.
+// Staging a block's small levels in shared memory, as the 2D forward does,
+// was measured 1-21% slower here (frame n's levels 1-3, or levels 2-3 of
+// frames n-1..n+1 or n-2..n+2, on four tap distributions; PERF.md).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "msda3d_common.cuh"
 
 #include <cmath>
+#include <type_traits>
 
 namespace {
 
-constexpr int kMaxLevels = 8;
-constexpr int kChannels = 32;  // D: one lane per channel
-constexpr int kThreads = 256;  // 8 output rows per block
+using namespace msda3d;
 
-struct Levels {
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  long long start[kMaxLevels];
-};
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
+// One tap, added into this lane's 8 channels: the bilinear taps of its two
+// frames, each with its lerp weight. v_l: the level's value rows of frame 0
+// for this head and channel group.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-msda3d_fwd_kernel(const T* __restrict__ value, const Levels lv, const int n_levels,
-                  const float* __restrict__ loc, const float* __restrict__ attn,
-                  T* __restrict__ out, const long long n_rows, const int N, const int S,
-                  const int M, const int P) {
-  const long long row = (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (row >= n_rows) return;
-  const int lane = threadIdx.x & 31;
-  const int m = (int)(row % M);
-  const int taps = n_levels * P;
-  const float* loc_r = loc + row * taps * 3;
-  const float* attn_r = attn + row * taps;
-  const long long pix = (long long)M * kChannels;    // stride of one pixel
-  const long long frame = (long long)S * pix;        // stride of one frame
-  const T* v_m = value + (long long)m * kChannels + lane;
-  const float fN = (float)N;
-
-  float acc = 0.f;
-  // unrolled so that lv.* is indexed statically: a dynamic index into a
-  // kernel argument would copy the struct to local memory
+__device__ __forceinline__ void tap_forward(int h, int w, const T* __restrict__ v_l,
+                                            long long pix, long long frame, int N, float3 xyf,
+                                            float a_t, float acc[8]) {
+  const float x = pixel_coord(xyf.x, w);
+  const float y = pixel_coord(xyf.y, h);
+  const float f = pixel_coord(xyf.z, N);
+  // some corner inside and some frame inside; also false for NaN
+  const bool live = x > -1.f && x < (float)w && y > -1.f && y < (float)h && f > -1.f &&
+                    f < (float)N;
+  const Corners c = corners(x, y, h, w, live);
+  const TapFrames tf = tap_frames(f, live);
+  const float wc[4] = {(1.f - c.dy) * (1.f - c.dx), (1.f - c.dy) * c.dx, c.dy * (1.f - c.dx),
+                       c.dy * c.dx};
 #pragma unroll
-  for (int l = 0; l < kMaxLevels; ++l) {
-    if (l >= n_levels) break;
-    const int h = lv.h[l];
-    const int w = lv.w[l];
-    const T* v_l = v_m + lv.start[l] * pix;
-    for (int p = 0; p < P; ++p) {
-      const int t = l * P + p;
-      const float* c = loc_r + 3 * t;
-      const float x = __fsub_rn(__fmul_rn(__ldg(c), (float)w), 0.5f);
-      const float y = __fsub_rn(__fmul_rn(__ldg(c + 1), (float)h), 0.5f);
-      const float f = __fsub_rn(__fmul_rn(__ldg(c + 2), fN), 0.5f);
-      // some corner inside and some frame inside; also false for NaN
-      if (!(x > -1.f && x < (float)w && y > -1.f && y < (float)h && f > -1.f && f < fN))
-        continue;
-      const float a = __ldg(attn_r + t);
-      const float x0f = floorf(x);
-      const float y0f = floorf(y);
-      const float f0f = floorf(f);
-      const int x0 = (int)x0f;  // in [-1, w - 1]
-      const int y0 = (int)y0f;  // in [-1, h - 1]
-      const int f0 = (int)f0f;  // in [-1, N - 1]
-      const float dx = x - x0f;
-      const float dy = y - y0f;
-      const float df = f - f0f;
-      float s = 0.f;
+  for (int k = 0; k < 2; ++k) {
+    const int fr = tf.f0 + k;
+    const float wf = k ? tf.df : 1.f - tf.df;
+    if (!live || fr < 0 || fr >= N || wf == 0.f) continue;  // a zero-weight frame is not read
+    Row8<T> v[4];
+    load_corners(at_frame(h, w, v_l, fr, frame), pix, c, v);
+    const float af = a_t * wf;
 #pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int fr = f0 + k;
-        const float wf = k ? df : 1.f - df;
-        if (fr < 0 || fr >= N || wf == 0.f) continue;
-        const T* v_f = v_l + fr * frame;
-        float sf = 0.f;
-        if (y0 >= 0) {
-          const T* r = v_f + (long long)y0 * w * pix;
-          if (x0 >= 0) sf += (1.f - dy) * (1.f - dx) * to_float(r[x0 * pix]);
-          if (x0 + 1 < w) sf += (1.f - dy) * dx * to_float(r[(x0 + 1) * pix]);
-        }
-        if (y0 + 1 < h) {
-          const T* r = v_f + (long long)(y0 + 1) * w * pix;
-          if (x0 >= 0) sf += dy * (1.f - dx) * to_float(r[x0 * pix]);
-          if (x0 + 1 < w) sf += dy * dx * to_float(r[(x0 + 1) * pix]);
-        }
-        s += wf * sf;
-      }
-      acc += a * s;
+    for (int i = 0; i < 4; ++i) {
+      float fv[8];
+      v[i].to_float(fv);
+      const float wgt = af * wc[i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] += wgt * fv[j];
     }
   }
-  store(out + row * kChannels + lane, acc);
+}
+
+// One row (n, q, m): this lane's taps, summed over the row's tap groups
+// and written by tap group 0. v_m: the value of this head and channel
+// group at frame 0, pixel 0.
+template <typename T, int kL, int kP>
+__device__ __forceinline__ void row_forward(const T* __restrict__ v_m, const Levels& lv,
+                                            int n_levels, int P, long long pix, long long frame,
+                                            int N, const float* __restrict__ loc_r,
+                                            const float* __restrict__ attn_r,
+                                            T* __restrict__ out_r, const Lane& ln) {
+  const auto tap = [&](int l, float3 xyf, float a, float acc[8]) {
+    tap_forward(lv.h[l], lv.w[l], v_m + lv.start[l] * pix, pix, frame, N, xyf, a, acc);
+  };
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (kL) {  // point tg of every level; locations and weights ahead
+    constexpr int kN = kL > 0 ? kL : 1;  // no zero-sized arrays in device code
+    float3 xyf[kN];
+    float a[kN];
+#pragma unroll
+    for (int l = 0; l < kL; ++l) {
+      xyf[l] = load_xyf(loc_r + 3 * (l * kP + ln.tg));
+      a[l] = __ldg(attn_r + l * kP + ln.tg);
+    }
+#pragma unroll
+    for (int l = 0; l < kL; ++l) tap(l, xyf[l], a[l], acc);
+  } else {
+    for (int t = ln.tg; t < n_levels * P; t += kTapGroups)
+      tap(t / P, load_xyf(loc_r + 3 * t), __ldg(attn_r + t), acc);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {  // sum over the 4 tap groups (lane bits 2-3)
+    acc[j] += __shfl_xor_sync(ln.row_mask, acc[j], kChannelGroups);
+    acc[j] += __shfl_xor_sync(ln.row_mask, acc[j], 2 * kChannelGroups);
+  }
+  if (ln.tg == 0) store8(out_r, acc);
+}
+
+template <typename T, int kL, int kP>
+__global__ void __launch_bounds__(kThreads, 2)
+msda3d_fwd_kernel(const T* __restrict__ value, const __grid_constant__ Levels lv,
+                  const int n_levels, const float* __restrict__ loc,
+                  const float* __restrict__ attn, T* __restrict__ out, const int N, const int S,
+                  const int Q, const int M, const int P) {
+  const Lane ln = lane_of_row();
+  const long long row = (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / kLanesPerRow;
+  if (row >= (long long)N * Q * M) return;  // whole rows: the 16 lanes stay together
+  const int m = (int)(row % M);
+  const int taps = n_levels * P;
+  const long long pix = (long long)M * kChannels;  // stride of one pixel
+  row_forward<T, kL, kP>(value + m * kChannels + ln.cg * 8, lv, n_levels, P, pix, S * pix, N,
+                         loc + row * taps * 3, attn + row * taps,
+                         out + row * kChannels + ln.cg * 8, ln);
+}
+
+// L = P = 4 (the flagship's) unrolled; other L and P take the runtime loops.
+template <typename T>
+int launch(const T* value, const Levels& lv, int n_levels, const float* loc, const float* attn,
+           T* out, int N, int S, int Q, int M, int P, cudaStream_t stream) {
+  auto* kernel = n_levels == 4 && P == 4 ? msda3d_fwd_kernel<T, 4, 4> : msda3d_fwd_kernel<T, 0, 0>;
+  kernel<<<blocks_for(N, Q, M), kThreads, 0, stream>>>(value, lv, n_levels, loc, attn, out, N,
+                                                        S, Q, M, P);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // value_dtype: 0 = float32, 1 = bfloat16. level_hw: host array of
-// n_levels (H, W) pairs. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for arguments the kernel does not take).
+// n_levels (H, W) pairs. value and out must start on a 16-byte boundary.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// arguments the kernel does not take).
 extern "C" int tce_msda3d_fwd(const void* value, int value_dtype, const int* level_hw,
                               int n_levels, const void* loc, const void* attn, void* out,
                               int N, int S, int Q, int M, int D, int P, void* stream) {
   if (D != kChannels || n_levels < 1 || n_levels > kMaxLevels || P < 1 ||
-      (value_dtype != 0 && value_dtype != 1))
+      (value_dtype != 0 && value_dtype != 1) ||
+      reinterpret_cast<uintptr_t>(value) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
     return (int)cudaErrorInvalidValue;
   Levels lv;
-  long long start = 0;
-  for (int l = 0; l < n_levels; ++l) {
-    lv.h[l] = level_hw[2 * l];
-    lv.w[l] = level_hw[2 * l + 1];
-    lv.start[l] = start;
-    start += (long long)lv.h[l] * lv.w[l];
-  }
-  if (start != S) return (int)cudaErrorInvalidValue;
-  const long long n_rows = (long long)N * Q * M;
-  if (n_rows == 0) return (int)cudaSuccess;
-  const long long rows_per_block = kThreads / 32;
-  const dim3 grid((unsigned)((n_rows + rows_per_block - 1) / rows_per_block));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* loc_f = static_cast<const float*>(loc);
-  const float* attn_f = static_cast<const float*>(attn);
-  if (value_dtype == 0) {
-    msda3d_fwd_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(value), lv, n_levels, loc_f, attn_f,
-        static_cast<float*>(out), n_rows, N, S, M, P);
-  } else {
-    msda3d_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(value), lv, n_levels, loc_f, attn_f,
-        static_cast<__nv_bfloat16*>(out), n_rows, N, S, M, P);
-  }
-  return (int)cudaGetLastError();
+  if (!make_levels(level_hw, n_levels, S, &lv)) return (int)cudaErrorInvalidValue;
+  if ((long long)N * Q * M == 0) return (int)cudaSuccess;
+  const auto call = [&](auto* typed_out) {
+    using T = std::remove_pointer_t<decltype(typed_out)>;
+    return launch(static_cast<const T*>(value), lv, n_levels, static_cast<const float*>(loc),
+                  static_cast<const float*>(attn), typed_out, N, S, Q, M, P,
+                  static_cast<cudaStream_t>(stream));
+  };
+  return value_dtype == 0 ? call(static_cast<float*>(out))
+                          : call(static_cast<__nv_bfloat16*>(out));
 }

@@ -148,11 +148,13 @@ def _check(value, spatial_shapes, loc, attn, coords: int = 2) -> None:
                          f"got {tuple(loc.shape)}")
     if tuple(attn.shape) != tuple(loc.shape[:5]):
         raise ValueError(f"attention_weights must be {tuple(loc.shape[:5])}, got {tuple(attn.shape)}")
-    if coords == 2:  # the 2D kernels read value rows in 16 bytes, locations in 8
-        for name, t, nbytes in (("value", value, 16), ("sampling_locations", loc, 8)):
-            if t.data_ptr() % nbytes:
-                raise ValueError(f"{name} must start on a {nbytes}-byte boundary "
-                                 f"(pointer {t.data_ptr():#x}); pass a fresh tensor")
+    # the kernels read value rows in 16 bytes; the 2D ones read locations in
+    # 8 (a 3D location, 12 bytes, is read a float at a time)
+    aligned = [("value", value, 16)] + ([("sampling_locations", loc, 8)] if coords == 2 else [])
+    for name, t, nbytes in aligned:
+        if t.data_ptr() % nbytes:
+            raise ValueError(f"{name} must start on a {nbytes}-byte boundary "
+                             f"(pointer {t.data_ptr():#x}); pass a fresh tensor")
 
 
 def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:

@@ -21,7 +21,8 @@
   those comparisons on the GPU);
 * what surrounds the 2D kernels on the CPU: their launch plan
   (``launch_plan``: path, queries per block, staged levels, shared-memory
-  bytes) and the alignment ``_check`` demands of the pointers;
+  bytes) and the alignment ``_check`` demands of the pointers (of the 3D
+  kernels' too);
 * the port imports no JAX, Flax or ``tce_rvos_tpu`` module.
 """
 
@@ -366,25 +367,32 @@ def test_launch_plan_stages_whole_levels_within_budget(backward):
         assert plan["blocks"] * plan["run"] >= n * 8 * q
 
 
-def test_check_rejects_misaligned_pointers():
-    """The 2D kernels read value rows in 16 bytes and locations in 8: a
-    view that starts elsewhere is refused, never sent to the plain
-    version; a misaligned upstream gradient is copied to an aligned one."""
+@pytest.mark.parametrize("coords", [2, 3], ids=["2d", "3d"])
+def test_check_rejects_misaligned_pointers(coords):
+    """The kernels read value rows in 16 bytes, and the 2D ones locations
+    in 8: a view that starts elsewhere is refused, never sent to the plain
+    version (a 3D location, read a float at a time, may start on any
+    float); a misaligned upstream gradient is copied to an aligned one."""
     shapes = SHAPES_FLAT
     value, loc, attn = (torch.from_numpy(a) for a in _op_inputs(shapes, d=32))
-    _check(value, shapes, loc, attn)
+    if coords == 3:
+        loc = torch.cat([loc, torch.rand(*loc.shape[:-1], 1)], -1)
+    _check(value, shapes, loc, attn, coords)
     off_value = torch.cat([torch.zeros(1), value.reshape(-1)])[1:].view(value.shape)  # 4 B off
     assert off_value.is_contiguous() and off_value.data_ptr() % 16 != 0
     with pytest.raises(ValueError, match="16-byte"):
-        _check(off_value, shapes, loc, attn)
+        _check(off_value, shapes, loc, attn, coords)
     bf16 = value.to(torch.bfloat16)
     off_bf16 = torch.cat([torch.zeros(1, dtype=torch.bfloat16), bf16.reshape(-1)])[1:].view(
         value.shape)
     with pytest.raises(ValueError, match="16-byte"):
-        _check(off_bf16, shapes, loc, attn)
+        _check(off_bf16, shapes, loc, attn, coords)
     off_loc = torch.cat([torch.zeros(1), loc.reshape(-1)])[1:].view(loc.shape)  # 4 B off
-    with pytest.raises(ValueError, match="8-byte"):
-        _check(value, shapes, off_loc, attn)
+    if coords == 2:
+        with pytest.raises(ValueError, match="8-byte"):
+            _check(value, shapes, off_loc, attn, coords)
+    else:
+        _check(value, shapes, off_loc, attn, coords)
     g = torch.randn(value.shape[0], loc.shape[1], 2 * 32)
     off_g = torch.cat([torch.zeros(2), g.reshape(-1)])[2:].view(g.shape)
     fixed = _aligned(off_g, 16)
