@@ -63,6 +63,10 @@ class ModelConfig:
     f_token: int = 0                      # FTF: > 0 learnable frame tokens
     msda_3d: bool = False                 # temporal MSDA in encoder and decoder
 
+    # context frames on both sides of an inference window, outputs dropped
+    # (defined here; the reference reads it but never defines it)
+    f_extra: int = 0
+
     compute_dtype: str = "float32"        # "bfloat16" for the fast path
 
 

@@ -1,23 +1,46 @@
-"""Inference engine of the port (counterpart of ``tce_rvos_tpu/infer.py``):
-``InferenceEngine`` with ``preprocess``, ``run_window``, ``run_video`` and
-the serving path ``run_video_batch``, plus ``select_query`` and
-``masks_to_original``.
+"""Inference of the port (counterpart of ``tce_rvos_tpu/infer.py``): the
+engine, the Ref-YouTube-VOS / Ref-DAVIS17 / MeViS protocols and the
+command line.
 
-The serving path runs the text-independent backbone once per clip window,
-then the text-conditioned trunk with the expressions stacked on the batch
-axis (``exp_batch`` at a time, the last chunk padded up to a power of two).
-Unlike the JAX engine there is no compile per shape, and no memory envelope
-caps ``exp_batch`` yet: the caller's value is taken as given.
+``InferenceEngine`` holds the model on one device. Its serving path
+``run_video_batch`` runs the text-independent backbone once per clip
+window, then the text-conditioned trunk with the expressions stacked on the
+batch axis (``exp_batch`` at a time, the last chunk padded up to a power of
+two). ``trunk_frame_envelope`` caps the expressions x frames of one trunk
+dispatch by a peak-memory fit made on an H100. Windows are ``window``
+frames with ``f_extra`` context frames on both sides (clamped at the
+video's ends, their outputs dropped), or, with ``whole_video``, the whole
+video rounded up to a multiple of ``t_bucket`` frames by repeating the
+last one.
 
-Not ported yet: the ytvos / davis / mevis protocols (``run_ytvos``,
-``run_davis``, ``run_mevis``) with the context frames (``f_extra``) and
-whole-video windows they use, the per-device fan-out (``make_engines`` /
-``_fanout``) and ``save_visualization``.
+The protocols, as in the JAX package:
+  * ytvos: the valid split minus the test split's videos; per expression
+    one query for the whole video (``select_query``), masks upsampled to
+    the original size, thresholded, binary PNGs under
+    ``<out>/<split>/<video>/<exp_id>/``; whole-video windows by default;
+    ``visualize`` adds overlays under ``<out>/<split>_vis/``;
+  * davis: expressions in groups of 4 annotators, objects merged per
+    annotator by argmax over [0.1 background, object scores], palette PNGs
+    under ``<out>/<split>/anno_<k>/<video>/`` named after the frames;
+  * mevis: the ytvos windowed protocol over the MeViS split (the fixed
+    body, not the reference's broken one).
+
+Videos go round-robin over one engine per GPU (``make_engines``,
+``_fanout``), each worker thread under its engine's device.
+
+    python -m tce_rvos_tpu_torch.infer --dataset_file ytvos \\
+        --ytvos_path data/Refer_YouTube_VOS/rvos --resume ckpt.pth \\
+        --binary --with_box_refine --f_token 8 --qtrans [--device cpu]
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+import contextlib
+import json
+import os
+import time
+import zlib
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,6 +56,27 @@ IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 OUTPUT_KEYS = ("pred_logits", "pred_masks", "pred_boxes", "reference_points",
                "inter_samples")
+
+
+def davis_palette() -> List[int]:
+    """The standard VOC/DAVIS 256-colour palette."""
+    palette = []
+    for i in range(256):
+        r = g = b = 0
+        c = i
+        for j in range(8):
+            r |= (c & 1) << (7 - j)
+            g |= ((c >> 1) & 1) << (7 - j)
+            b |= ((c >> 2) & 1) << (7 - j)
+            c >>= 3
+        palette += [r, g, b]
+    return palette
+
+
+def _load_frame(path: str) -> np.ndarray:
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
 
 
 def get_size_with_aspect_ratio(
@@ -61,11 +105,67 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy()
 
 
+# ---------------------------------------------------------------------------
+# the trunk's memory envelope: how many (expression x frame) frames one
+# text-conditioned trunk dispatch may hold.
+#
+# Peak memory of one trunk forward (torch.cuda.max_memory_allocated, the
+# weights and the window's backbone features resident) on an H100 80GB HBM3
+# at 384x640, fitted per compute dtype over (E, T) points with E x T from 5
+# to 160 by chip_smoke.py's envelope phase (PERF.md):
+#     bf16: peak_gib ~= 0.4401 + 0.18243 * (E * T), largest residual 0.1800
+#     f32:  peak_gib ~= 0.7314 + 0.35083 * (E * T), largest residual 0.3102
+# The base below adds the largest residual, the slope is rounded up.
+# Activations scale with the padded pixel count, so other buckets scale the
+# slope by (h * w) / (384 * 640).
+# ---------------------------------------------------------------------------
+
+_ENVELOPE_GIB = {  # compute dtype -> (base, per frame at 384x640)
+    "bfloat16": (0.62, 0.183),
+    "float32": (1.04, 0.352),
+}
+_MEMORY_SAFETY = 0.85
+_CPU_MEMORY_GIB = 16.0  # stated default for the CPU: caps no small test shape
+
+
+def trunk_frame_envelope(
+    hw: Tuple[int, int] = (384, 640),
+    compute_dtype: str = "bfloat16",
+    memory_gib: Optional[float] = None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> int:
+    """The most E*T frames one trunk dispatch may take at the padded size
+    ``hw``. ``memory_gib`` defaults to the CUDA device's total memory, or
+    ``_CPU_MEMORY_GIB`` on the CPU."""
+    if memory_gib is None:
+        dev = torch.device("cpu" if device is None else device)
+        memory_gib = (torch.cuda.get_device_properties(dev).total_memory / 2**30
+                      if dev.type == "cuda" else _CPU_MEMORY_GIB)
+    base, per_frame = _ENVELOPE_GIB[compute_dtype]
+    scale = (hw[0] * hw[1]) / (384.0 * 640.0)
+    return max(1, int((memory_gib * _MEMORY_SAFETY - base) / (per_frame * scale)))
+
+
+def _pow2_floor(x: int) -> int:
+    p = 1
+    while p * 2 <= x:
+        p *= 2
+    return p
+
+
+def _pow2_ceil(x: int) -> int:
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
 class InferenceEngine:
     """Holds the model on one device (``cuda`` unless ``device="cpu"``) in
     the configured compute dtype. ``state_dict`` is in the reference torch
-    layout (``utils/convert.py`` makes one from JAX variables) and loads
-    strictly."""
+    layout (``utils/convert.py`` makes one from JAX variables,
+    ``utils/checkpoint.py`` from a reference file) and loads strictly.
+    ``t_bucket``: whole-video windows are rounded up to a multiple of it."""
 
     def __init__(
         self,
@@ -76,6 +176,7 @@ class InferenceEngine:
         max_size: int = 640,
         pad_mult: int = 64,
         window: Optional[int] = None,
+        t_bucket: int = 8,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -87,6 +188,7 @@ class InferenceEngine:
         self.max_size = max_size
         self.pad_mult = pad_mult
         self.window = window or cfg.num_frames
+        self.t_bucket = t_bucket
         self._mean = torch.tensor(IMAGENET_MEAN, device=self.device)[:, None, None]
         self._std = torch.tensor(IMAGENET_STD, device=self.device)[:, None, None]
 
@@ -97,13 +199,23 @@ class InferenceEngine:
     def _text(self, ids: np.ndarray, attn: np.ndarray):
         return self._tensor(ids).long(), self._tensor(attn).long()
 
+    def on_device(self):
+        """The context a thread serving this engine runs under: its CUDA
+        device current (the kernels launch on the current device's stream)."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def model_size(self, hw: Tuple[int, int]) -> Tuple[int, int]:
+        return get_size_with_aspect_ratio(hw, self.size, self.max_size)
+
     def preprocess(self, frames: List[np.ndarray]):
         """Resize (short side ``size``, long side <= ``max_size``; bilinear,
         align_corners=False), normalise, pad to the ``pad_mult`` bucket.
         Returns (video [1, t, Hp, Wp, 3] f32, mask [1, t, Hp, Wp] True on
         padding, (oh, ow)) on the engine's device."""
         h, w = frames[0].shape[:2]
-        oh, ow = get_size_with_aspect_ratio((h, w), self.size, self.max_size)
+        oh, ow = self.model_size((h, w))
         x = self._tensor(np.stack([np.asarray(f, np.float32) for f in frames]))
         x = x.permute(0, 3, 1, 2)  # [t, 3, h, w]
         if (oh, ow) != (h, w):
@@ -138,22 +250,38 @@ class InferenceEngine:
         out = self.model(None, mask, ids, attn, sizes, precomputed_feats=feats)
         return {k: out[k] for k in OUTPUT_KEYS}
 
-    def _window_indices(self, t_total: int):
-        """(frame indices of each ``window``-frame clip, the last one padded
-        by repeating its last frame; number of real frames)."""
-        for start in range(0, t_total, self.window):
-            core = list(range(start, min(start + self.window, t_total)))
-            yield core + core[-1:] * (self.window - len(core)), len(core)
+    def window_length(self, t_total: int, whole_video: bool = False) -> int:
+        """Core frames of a window: ``window``, or the whole video rounded
+        up to a multiple of ``t_bucket``."""
+        if whole_video:
+            return max(-(-t_total // self.t_bucket) * self.t_bucket, self.t_bucket)
+        return self.window
 
-    def run_video(self, frames: List[np.ndarray], caption: str) -> Dict[str, np.ndarray]:
+    def windows(self, t_total: int, f_extra: int = 0,
+                whole_video: bool = False) -> Iterator[Tuple[List[int], int]]:
+        """(frame indices of each clip, its number of core frames). A clip
+        is ``f_extra`` context frames, the core frames and ``f_extra`` more,
+        clamped to the video, then padded to ``win + 2 * f_extra`` by
+        repeating its last frame; outputs ``f_extra .. f_extra + n_core``
+        are kept."""
+        win = self.window_length(t_total, whole_video)
+        for start in range(0, t_total, win):
+            core = list(range(start, min(start + win, t_total)))
+            ext = ([max(core[0] - k, 0) for k in range(f_extra, 0, -1)] + core
+                   + [min(core[-1] + k, t_total - 1) for k in range(1, f_extra + 1)])
+            ext += ext[-1:] * (win + 2 * f_extra - len(ext))
+            yield ext, len(core)
+
+    def run_video(self, frames: List[np.ndarray], caption: str, f_extra: int = 0,
+                  whole_video: bool = False) -> Dict[str, np.ndarray]:
         """Serial path: one expression, the full model per window."""
         text_ids, text_attn = tokenize([caption])
         acc: Dict[str, List[np.ndarray]] = {k: [] for k in OUTPUT_KEYS}
         model_size = None
-        for ext, n_core in self._window_indices(len(frames)):
+        for ext, n_core in self.windows(len(frames), f_extra, whole_video):
             video, mask, model_size = self.preprocess([frames[i] for i in ext])
             out = self.run_window(video, mask, text_ids, text_attn, model_size)
-            sl = slice(0, n_core)
+            sl = slice(f_extra, f_extra + n_core)
             for k in OUTPUT_KEYS:
                 if k == "inter_samples":  # [l, t, q, 30, 2] -> last layer
                     acc[k].append(_numpy(out[k][-1][sl]))
@@ -165,30 +293,33 @@ class InferenceEngine:
         self,
         frames: List[np.ndarray],
         captions: Sequence[str],
+        f_extra: int = 0,
+        whole_video: bool = False,
         exp_batch: int = 8,
     ) -> List[Dict[str, np.ndarray]]:
         """Serving path for a video with E expressions; one
-        ``run_video``-format dict per caption."""
+        ``run_video``-format dict per caption. ``exp_batch`` is capped by
+        ``trunk_frame_envelope`` at the padded size, floored to a power of
+        two (the padded chunk width), in both window modes."""
         n_exp = len(captions)
-        exp_batch = max(1, exp_batch)
+        t_clip = self.window_length(len(frames), whole_video) + 2 * f_extra
+        oh, ow = self.model_size(frames[0].shape[:2])
+        bucket = (_pad_to(oh, self.pad_mult), _pad_to(ow, self.pad_mult))
+        cap = trunk_frame_envelope(bucket, self.cfg.compute_dtype, device=self.device) // t_clip
+        exp_batch = max(1, min(exp_batch, _pow2_floor(max(cap, 1))))
         text_ids, text_attn = tokenize([str(c) for c in captions])
         chunks: List[Tuple[int, int, int]] = []  # (offset, n_real, n_padded)
-        off = 0
-        while off < n_exp:
+        for off in range(0, n_exp, exp_batch):
             n = min(exp_batch, n_exp - off)
-            npad = 1
-            while npad < n:
-                npad *= 2
-            chunks.append((off, n, npad))
-            off += n
+            chunks.append((off, n, _pow2_ceil(n)))
 
         acc = [{k: [] for k in OUTPUT_KEYS} for _ in range(n_exp)]
         model_size = None
-        for ext, n_core in self._window_indices(len(frames)):
+        for ext, n_core in self.windows(len(frames), f_extra, whole_video):
             video, mask, model_size = self.preprocess([frames[i] for i in ext])
             sizes = torch.tensor([model_size], dtype=torch.long, device=self.device)
             feats = self.backbone(video, mask)
-            sl = slice(0, n_core)
+            sl = slice(f_extra, f_extra + n_core)
             for c_off, n_real, n_pad in chunks:
                 ids = text_ids[c_off : c_off + n_real]
                 attn = text_attn[c_off : c_off + n_real]
@@ -198,7 +329,7 @@ class InferenceEngine:
                 out = self.trunk(feats, mask, ids, attn, sizes)
                 host = {k: _numpy(out[k]) for k in OUTPUT_KEYS}
                 samples = host["inter_samples"][-1]
-                samples = samples.reshape((n_pad, self.window) + samples.shape[1:])
+                samples = samples.reshape((n_pad, t_clip) + samples.shape[1:])
                 for e in range(n_real):
                     a = acc[c_off + e]
                     for k in OUTPUT_KEYS[:-1]:
@@ -208,6 +339,71 @@ class InferenceEngine:
             {**{k: np.concatenate(a[k]) for k in OUTPUT_KEYS}, "model_size": model_size}
             for a in acc
         ]
+
+
+def make_engines(
+    cfg: ModelConfig,
+    state_dict: Mapping[str, torch.Tensor],
+    num_devices: int = 0,
+    device: Optional[Union[str, torch.device]] = None,
+    **engine_kw,
+) -> List[InferenceEngine]:
+    """One engine per GPU (``cuda:0``, ``cuda:1``, ...; at most
+    ``num_devices``, 0 = all), or one on the named device. On the CPU,
+    ``num_devices`` engines (at least one) share it."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        devices = devices[:num_devices] if num_devices else devices
+    elif dev.type == "cuda":
+        devices = [dev]
+    else:
+        devices = [dev] * max(1, num_devices)
+    return [InferenceEngine(cfg, state_dict, device=d, **engine_kw) for d in devices]
+
+
+def _fanout(engines: Sequence[InferenceEngine], jobs: Sequence, fn) -> None:
+    """Round-robin ``jobs`` over the engines, one worker thread each, under
+    its engine's device; the host work (decoding, PNG encoding) of one
+    worker overlaps the device work of the others. The first error is
+    raised in the caller."""
+    if len(engines) == 1:
+        with engines[0].on_device():
+            for job in jobs:
+                fn(engines[0], job)
+        return
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue()
+    for job in jobs:
+        q.put(job)
+    errors: List[BaseException] = []
+
+    def worker(engine):
+        with engine.on_device():
+            while not errors:
+                try:
+                    job = q.get_nowait()
+                except queue.Empty:
+                    return
+                try:
+                    fn(engine, job)
+                except BaseException as e:  # noqa: BLE001 - raised in the caller
+                    errors.append(e)
+                    return
+
+    threads = [threading.Thread(target=worker, args=(e,), daemon=True) for e in engines]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
+def _as_engines(engine) -> List[InferenceEngine]:
+    return [engine] if isinstance(engine, InferenceEngine) else list(engine)
 
 
 def select_query(pred_logits: np.ndarray) -> int:
@@ -232,3 +428,291 @@ def masks_to_original(
     up = F.interpolate(x[:, None, :h4, :w4], size=(int(orig_size[0]), int(orig_size[1])),
                        mode="bilinear", align_corners=False)
     return _numpy(torch.sigmoid(up[:, 0]))
+
+
+def save_visualization(
+    frames: List[np.ndarray],       # raw RGB floats in [0, 1], original size
+    frame_names: Sequence[str],
+    scores: np.ndarray,             # [T, H, W] sigmoid mask scores
+    boxes: np.ndarray,              # [T, 4] normalized cxcywh
+    ref_points: np.ndarray,         # [T, 2] normalized (x, y)
+    samples: np.ndarray,            # [T, S, 2] normalized sampling locations
+    out_dir: str,
+    color=(255, 144, 30),
+    threshold: float = 0.5,
+) -> None:
+    """Qualitative overlay per frame: the mask blended in, the predicted
+    box, the decoder's reference point as a cross and the top-30 deformable
+    sampling locations as dots."""
+    from PIL import Image, ImageDraw
+
+    os.makedirs(out_dir, exist_ok=True)
+    col = np.asarray(color, np.float32)
+    for t, (frame, name) in enumerate(zip(frames, frame_names)):
+        h, w = frame.shape[:2]
+        img = (frame * 255).astype(np.uint8).copy()
+        m = scores[t] > threshold
+        img[m] = (0.5 * img[m] + 0.5 * col).astype(np.uint8)
+        pil = Image.fromarray(img)
+        draw = ImageDraw.Draw(pil)
+        cx, cy, bw, bh = boxes[t]
+        x0, y0 = (cx - bw / 2) * w, (cy - bh / 2) * h
+        x1, y1 = (cx + bw / 2) * w, (cy + bh / 2) * h
+        draw.rectangle((x0, y0, x1, y1), outline=tuple(color), width=2)
+        rx, ry = ref_points[t][0] * w, ref_points[t][1] * h
+        draw.line((rx - 10, ry, rx + 10, ry), fill=tuple(color), width=4)
+        draw.line((rx, ry - 10, rx, ry + 10), fill=tuple(color), width=4)
+        for sx, sy in samples[t]:
+            px, py = sx * w, sy * h
+            draw.ellipse((px - 2, py - 2, px + 2, py + 2), fill=tuple(color))
+        pil.save(os.path.join(out_dir, name + ".png"))
+
+
+# ---------------------------------------------------------------------------
+# protocols
+# ---------------------------------------------------------------------------
+
+
+def ytvos_video_list(ytvos_path: str, split: str = "valid") -> Tuple[List[str], Dict]:
+    """(the split's videos minus those the test split lists, sorted; the
+    split's meta_expressions ``videos`` dict)."""
+    meta_file = os.path.join(ytvos_path, "meta_expressions", split, "meta_expressions.json")
+    with open(meta_file) as fh:
+        data = json.load(fh)["videos"]
+    test_meta = os.path.join(ytvos_path, "meta_expressions", "test", "meta_expressions.json")
+    if os.path.exists(test_meta):
+        with open(test_meta) as fh:
+            test_videos = set(json.load(fh)["videos"].keys())
+        videos = sorted(set(data.keys()) - test_videos)
+    else:
+        videos = sorted(data.keys())
+    return videos, data
+
+
+def _load_video(img_root: str, video: str, frame_names: Sequence[str]) -> List[np.ndarray]:
+    return [_load_frame(os.path.join(img_root, video, f + ".jpg")) for f in frame_names]
+
+
+def _caption(exp: str) -> str:
+    return " ".join(exp.lower().split())
+
+
+def _save_binary(scores: np.ndarray, frame_names: Sequence[str], save_dir: str,
+                 threshold: float) -> None:
+    from PIL import Image
+
+    os.makedirs(save_dir, exist_ok=True)
+    for i, name in enumerate(frame_names):
+        m = (scores[i] > threshold).astype(np.uint8) * 255
+        Image.fromarray(m).save(os.path.join(save_dir, name + ".png"))
+
+
+def _query_scores(eng: InferenceEngine, out: Dict[str, np.ndarray], orig_hw) -> Tuple[int, np.ndarray]:
+    """(the query chosen for the video, its scores at the original size)."""
+    q = select_query(out["pred_logits"])
+    return q, masks_to_original(out["pred_masks"][:, q], out["model_size"], orig_hw,
+                                device=eng.device)
+
+
+def run_ytvos(
+    engine,
+    ytvos_path: str,
+    output_dir: str,
+    split: str = "valid",
+    threshold: float = 0.5,
+    f_extra: int = 0,
+    videos: Optional[Sequence[str]] = None,
+    whole_video: bool = True,
+    visualize: bool = False,
+    exp_batch: int = 8,
+):
+    """Write per-frame binary PNGs to ``<out>/<split>/<video>/<exp_id>/``.
+    ``whole_video`` (the default) runs each video in one window; False is
+    the windowed protocol. ``engine`` is one engine or a list from
+    ``make_engines``. ``visualize`` also writes overlays under
+    ``<out>/<split>_vis/``, in a colour chosen by the expression id."""
+    from tce_rvos_tpu_torch.tools.colormap import colormap
+
+    engines = _as_engines(engine)
+    video_list, data = ytvos_video_list(ytvos_path, split)
+    if videos is not None:
+        allowed = set(videos)
+        video_list = [v for v in video_list if v in allowed]
+    img_root = os.path.join(ytvos_path, split, "JPEGImages")
+    save_root = os.path.join(output_dir, split)
+    colors = colormap(rgb=True)
+    t0 = time.time()
+    n_frames = [0]
+
+    def one_video(eng, video):
+        frame_names = data[video]["frames"]
+        frames = _load_video(img_root, video, frame_names)
+        orig_hw = frames[0].shape[:2]
+        exps = list(data[video]["expressions"].items())
+        outs = eng.run_video_batch(frames, [_caption(d["exp"]) for _, d in exps],
+                                   f_extra=f_extra, whole_video=whole_video,
+                                   exp_batch=exp_batch)
+        for (exp_id, _), out in zip(exps, outs):
+            q, scores = _query_scores(eng, out, orig_hw)
+            _save_binary(scores, frame_names, os.path.join(save_root, video, exp_id), threshold)
+            if visualize:
+                # crc32 rather than hash(): the same colour in every process
+                ci = int(exp_id) if exp_id.isdigit() else zlib.crc32(exp_id.encode())
+                save_visualization(
+                    frames, frame_names, scores, out["pred_boxes"][:, q],
+                    out["reference_points"][:, q], out["inter_samples"][:, q],
+                    os.path.join(output_dir, f"{split}_vis", video, exp_id),
+                    color=tuple(int(c) for c in colors[ci % len(colors)]),
+                    threshold=threshold,
+                )
+            n_frames[0] += len(frame_names)
+
+    _fanout(engines, video_list, one_video)
+    print(f"Total inference time: {time.time() - t0:.4f} s ({n_frames[0]} frames)")
+
+
+def run_davis(
+    engine,
+    davis_path: str,
+    output_dir: str,
+    split: str = "valid",
+    threshold: float = 0.5,
+    videos: Optional[Sequence[str]] = None,
+    exp_batch: int = 8,
+):
+    """The 4-annotator protocol: per annotator, every object's expression,
+    objects merged by argmax over [0.1 background, scores below the
+    threshold set to 0], palette PNGs under
+    ``<out>/<split>/anno_<k>/<video>/<frame>.png``."""
+    from PIL import Image
+
+    meta_file = os.path.join(davis_path, "meta_expressions", split, "meta_expressions.json")
+    with open(meta_file) as fh:
+        data = json.load(fh)["videos"]
+    engines = _as_engines(engine)
+    video_list = sorted(data.keys()) if videos is None else sorted(videos)
+    img_root = os.path.join(davis_path, split, "JPEGImages")
+    palette = davis_palette()
+    t0 = time.time()
+
+    def one_video(eng, video):
+        frame_names = data[video]["frames"]
+        frames = _load_video(img_root, video, frame_names)
+        orig_hw = frames[0].shape[:2]
+        expressions = data[video]["expressions"]
+        exp_ids = sorted(expressions.keys(), key=int)
+        num_obj = len(exp_ids) // 4
+        # one batched pass over all num_obj x 4 annotator expressions
+        outs = eng.run_video_batch(frames, [_caption(expressions[e]["exp"]) for e in exp_ids],
+                                   exp_batch=exp_batch)
+        for anno_id in range(4):
+            anno = np.stack([_query_scores(eng, outs[obj_id * 4 + anno_id], orig_hw)[1]
+                             for obj_id in range(num_obj)])  # [num_obj, T, H, W]
+            anno[anno < threshold] = 0.0
+            bg = np.full((1,) + anno.shape[1:], 0.1, anno.dtype)
+            merged = np.argmax(np.concatenate([bg, anno]), axis=0).astype(np.uint8)
+            save_dir = os.path.join(output_dir, split, f"anno_{anno_id}", video)
+            os.makedirs(save_dir, exist_ok=True)
+            for i in range(merged.shape[0]):
+                img = Image.fromarray(merged[i])
+                img.putpalette(palette)
+                # named after the frame (the reference numbers them 00000, ...:
+                # the same on the standard layout)
+                img.save(os.path.join(save_dir, f"{frame_names[i]}.png"))
+
+    _fanout(engines, video_list, one_video)
+    print(f"Total inference time: {time.time() - t0:.4f} s")
+
+
+def run_mevis(
+    engine,
+    mevis_path: str,
+    output_dir: str,
+    split: str = "valid",
+    threshold: float = 0.5,
+    videos: Optional[Sequence[str]] = None,
+    exp_batch: int = 8,
+):
+    """MeViS inference with the ytvos windowed protocol: binary PNGs under
+    ``<out>/<split>/<video>/<exp_id>/``."""
+    meta_file = os.path.join(mevis_path, split, "meta_expressions.json")
+    with open(meta_file) as fh:
+        data = json.load(fh)["videos"]
+    engines = _as_engines(engine)
+    video_list = sorted(data.keys()) if videos is None else sorted(videos)
+    img_root = os.path.join(mevis_path, split, "JPEGImages")
+    t0 = time.time()
+
+    def one_video(eng, video):
+        frame_names = data[video]["frames"]
+        frames = _load_video(img_root, video, frame_names)
+        orig_hw = frames[0].shape[:2]
+        exps = list(data[video]["expressions"].items())
+        outs = eng.run_video_batch(frames, [_caption(d["exp"]) for _, d in exps],
+                                   exp_batch=exp_batch)
+        for (exp_id, _), out in zip(exps, outs):
+            _, scores = _query_scores(eng, out, orig_hw)
+            _save_binary(scores, frame_names, os.path.join(output_dir, split, video, exp_id),
+                         threshold)
+
+    _fanout(engines, video_list, one_video)
+    print(f"Total inference time: {time.time() - t0:.4f} s")
+
+
+def main(argv=None):
+    """The inference command line (the JAX package's flags and defaults,
+    plus ``--device``)."""
+    import argparse
+
+    from tce_rvos_tpu_torch.cli import add_model_args, model_config_from_args
+    from tce_rvos_tpu_torch.models.build import build_model
+    from tce_rvos_tpu_torch.models.text_encoder import require_real_tokenizer
+    from tce_rvos_tpu_torch.utils.checkpoint import convert_state_dict, load_torch_file
+
+    p = argparse.ArgumentParser("tce_rvos_tpu_torch inference")
+    add_model_args(p)
+    p.add_argument("--dataset_file", default="ytvos", choices=["ytvos", "davis", "mevis"])
+    p.add_argument("--ytvos_path", default="data/Refer_YouTube_VOS/rvos")
+    p.add_argument("--davis_path", default="/data/davis17")
+    p.add_argument("--mevis_path", default="data/MeViS")
+    p.add_argument("--output_dir", default="output")
+    p.add_argument("--split", default="valid")
+    p.add_argument("--threshold", type=float, default=0.5)
+    p.add_argument("--resume", default="")
+    p.add_argument("--window", type=int, default=0,
+                   help="frames per clip window (0 = num_frames; davis default 32)")
+    p.add_argument("--num_devices", "--ngpu", type=int, default=0, dest="num_devices",
+                   help="GPUs to fan videos out over (0 = all)")
+    p.add_argument("--visualize", action="store_true",
+                   help="save qualitative overlays (mask/box/ref/sampling points)")
+    p.add_argument("--exp_batch", type=int, default=8,
+                   help="expressions batched per trunk forward (backbone runs "
+                        "once per window either way); 1 disables batching")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default; raises without a GPU) or cpu")
+    args = p.parse_args(argv)
+
+    cfg = model_config_from_args(args)
+    device = resolve_device(args.device)
+    if args.resume:
+        require_real_tokenizer("--resume checkpoint")
+    # the model's own init from a fixed seed, then the checkpoint over it
+    state_dict = build_model(cfg, device="cpu", seed=0).state_dict()
+    if args.resume:
+        state_dict, _, _ = convert_state_dict(load_torch_file(args.resume), state_dict)
+
+    window = args.window or (32 if args.dataset_file == "davis" else cfg.num_frames)
+    engines = make_engines(cfg, state_dict, args.num_devices, device=device, window=window)
+    if args.dataset_file == "ytvos":
+        run_ytvos(engines, args.ytvos_path, args.output_dir, args.split, args.threshold,
+                  cfg.f_extra, visualize=args.visualize, exp_batch=args.exp_batch)
+    elif args.dataset_file == "davis":
+        run_davis(engines, args.davis_path, args.output_dir, args.split, args.threshold,
+                  exp_batch=args.exp_batch)
+    else:
+        run_mevis(engines, args.mevis_path, args.output_dir, args.split, args.threshold,
+                  exp_batch=args.exp_batch)
+
+
+if __name__ == "__main__":
+    main()

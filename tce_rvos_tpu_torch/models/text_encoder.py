@@ -5,7 +5,8 @@
 ``tokenize`` is a copy of the JAX package's: the real BPE tokenizer when
 ``transformers`` and its cached files are present, otherwise the
 deterministic hash fallback (fine for random weights, not for pretrained
-ones).
+ones). ``require_real_tokenizer`` refuses to go on with pretrained weights
+without the real one.
 """
 
 from __future__ import annotations
@@ -162,6 +163,29 @@ def _try_hf_tokenizer(name: str = "roberta-base"):
     except Exception:  # noqa: BLE001 - any load failure means "no tokenizer"
         return None
     return _TokenizerCache.tokenizer
+
+
+ROBERTA_VOCAB_SIZE = 50265
+
+
+def require_real_tokenizer(context: str = "pretrained weights") -> None:
+    """Refuse to go on with the hash-bucket fallback when real checkpoint
+    weights are in play: its token ids are not RoBERTa BPE ids, so a
+    pretrained text encoder would embed garbage. Also refuses a cached
+    tokenizer whose vocabulary is not roberta-base's."""
+    tok = _try_hf_tokenizer()
+    if tok is None:
+        raise RuntimeError(
+            f"Loading {context} requires the real RoBERTa BPE tokenizer, but "
+            "only the hash-bucket fallback is available (transformers missing "
+            "or 'roberta-base' tokenizer files not downloadable/cached). "
+            "Install/cache the tokenizer before running with real weights."
+        )
+    if tok.vocab_size != ROBERTA_VOCAB_SIZE:
+        raise RuntimeError(
+            f"Loading {context} requires the roberta-base tokenizer; the cached "
+            f"one has {tok.vocab_size} tokens, not {ROBERTA_VOCAB_SIZE}."
+        )
 
 
 def tokenize(

@@ -31,6 +31,7 @@ from tce_rvos_tpu_torch.models.text_encoder import RobertaModel
 from tce_rvos_tpu_torch.models.transformer import DeformableTransformer
 from tce_rvos_tpu_torch.utils import interpolate
 from tce_rvos_tpu_torch.utils.convert import state_dict_from_jax
+from torch_parity_helpers import torch_threads  # noqa: F401 (autouse fixture)
 from torch_parity_helpers import assert_close, prefixed, random_variables, sub_state_dict
 
 SHALLOW = dict(rtol=1e-5, atol=1e-5)

@@ -16,14 +16,16 @@
   shape of the trunk (encoder pixel queries, FTF Q = 8, decoder Q = 5 with
   2-d and 4-d reference points), on shared seeded weights: outputs, and
   the gradients of every parameter;
-* the CUDA kernels against the plain version, forward and gradients, on
-  their flat and staged paths (skip without a card; ``chip_smoke.py`` runs
-  those comparisons on the GPU);
 * what surrounds the 2D kernels on the CPU: their launch plan
   (``launch_plan``: path, queries per block, staged levels, shared-memory
   bytes) and the alignment ``_check`` demands of the pointers (of the 3D
   kernels' too);
-* the port imports no JAX, Flax or ``tce_rvos_tpu`` module.
+* the port imports no JAX, Flax or ``tce_rvos_tpu`` module: an AST scan of
+  every module and of ``chip_smoke.py``, and a fresh process that imports
+  every module.
+
+The CUDA kernels against the plain version are in
+``tests/test_torch_cuda_kernels.py``.
 """
 
 import ast
@@ -57,30 +59,16 @@ from tce_rvos_tpu_torch.ops.msda_cuda import (
     ms_deform_attn,
 )
 from tce_rvos_tpu_torch.utils.convert import state_dict_from_jax
+from test_torch_cuda_kernels import FLAGSHIP
+from test_torch_cuda_kernels import cotangent as _cotangent
+from test_torch_cuda_kernels import op_inputs_2d as _op_inputs
+from torch_parity_helpers import torch_threads  # noqa: F401 (autouse fixture)
 from torch_parity_helpers import assert_close, prefixed, random_variables, sub_state_dict
 
 REPO = Path(__file__).resolve().parent.parent
 SHAPES_SEP = ((40, 64), (4, 8))       # 2560-pixel level: the Pallas sep kernel
 SHAPES_FLAT = ((8, 16), (4, 8), (2, 4))
-FLAGSHIP = ((48, 80), (24, 40), (12, 20), (6, 10))  # 384x640 clip
 MAX_SMEM = 232_448  # the most shared memory a block may ask for on Hopper
-
-
-def _op_inputs(shapes, n=2, q=12, m=2, d=8, p=3, seed=0):
-    rng = np.random.RandomState(seed)
-    s = sum(h * w for h, w in shapes)
-    l = len(shapes)
-    value = rng.randn(n, s, m, d).astype(np.float32)
-    loc = (rng.rand(n, q, m, l, p, 2) * 1.4 - 0.2).astype(np.float32)  # outside [0, 1] too
-    # exact pixel centres for the first point of every level and head
-    for lvl, (h, w) in enumerate(shapes):
-        px = rng.randint(0, w, (n, q, m))
-        py = rng.randint(0, h, (n, q, m))
-        loc[:, :, :, lvl, 0, 0] = (px + 0.5) / w
-        loc[:, :, :, lvl, 0, 1] = (py + 0.5) / h
-    attn = rng.rand(n, q, m, l, p).astype(np.float32) + 1e-3
-    attn /= attn.reshape(n, q, m, l * p).sum(-1)[..., None, None]
-    return value, loc, attn
 
 
 @pytest.mark.parametrize("shapes", [SHAPES_SEP, SHAPES_FLAT], ids=["sep", "flat"])
@@ -96,11 +84,6 @@ def _plain_grads(value, shapes, loc, attn, g):
     ins = [torch.from_numpy(a).requires_grad_(True) for a in (value, loc, attn)]
     out = ms_deform_attn_plain(ins[0], shapes, ins[1], ins[2])
     return torch.autograd.grad(out, ins, torch.from_numpy(g))
-
-
-def _cotangent(value, loc, seed):
-    n, _, m, d = value.shape
-    return np.random.RandomState(seed).randn(n, loc.shape[1], m * d).astype(np.float32)
 
 
 @pytest.mark.parametrize("shapes", [SHAPES_SEP, SHAPES_FLAT], ids=["sep", "flat"])
@@ -252,60 +235,6 @@ def test_msdeformattn_module_matches_jax(kind):
         assert_close(g, w, rtol=1e-5, atol=1e-5, name=f"{kind} {name}")
 
 
-# flat path (q = 64) and staged path (q = 600 >= 512) of the 2D kernels, at
-# two levels (the runtime loop) and at the flagship's L = P = 4
-CUDA_CASES = ((SHAPES_SEP, 64, 4), (SHAPES_SEP, 600, 3), (FLAGSHIP, 600, 4))
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain():
-    """The hand-written kernel against the plain version on the card, f32
-    (rtol = atol = 1e-5) and bf16 value (both round one f32 sum to bf16:
-    at most one bf16 step apart), on the flat and the staged path."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; chip_smoke.py runs this comparison on the GPU")
-    for shapes, q, p in CUDA_CASES:
-        value, loc, attn = (torch.from_numpy(a).cuda()
-                            for a in _op_inputs(shapes, n=3, q=q, m=8, d=32, p=p))
-        for dtype, rtol, atol in ((torch.float32, 1e-5, 1e-5), (torch.bfloat16, 8e-3, 1e-2)):
-            v = value.to(dtype)
-            got = ms_deform_attn(v, shapes, loc, attn)
-            torch.cuda.synchronize()
-            want = ms_deform_attn_plain(v, shapes, loc, attn)
-            torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
-
-
-@pytest.mark.cuda
-def test_cuda_backward_matches_plain_gradients():
-    """The backward kernel (through ``MSDeformAttnFunction``) against
-    autograd through the plain version on the card, on the flat and the
-    staged path. d_loc and d_attn are f32 sums of the same products in
-    another order in both dtypes (rtol 1e-4 plus 1e-5 of the largest
-    magnitude); d_value is summed with atomics in an order that changes
-    from run to run, then cast to the value's dtype: f32 as above, bf16
-    within one bf16 step (rtol 1e-2 plus 1e-3 of the largest magnitude)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; chip_smoke.py runs this comparison on the GPU")
-    for shapes, q, p in CUDA_CASES:
-        arrays = _op_inputs(shapes, n=3, q=q, m=8, d=32, p=p)
-        g = torch.from_numpy(_cotangent(arrays[0], arrays[1], seed=8)).cuda()
-        for dtype in (torch.float32, torch.bfloat16):
-            grads = {}
-            for which, fn in (("kernel", ms_deform_attn), ("plain", ms_deform_attn_plain)):
-                ins = [torch.from_numpy(a).cuda() for a in arrays]
-                ins[0] = ins[0].to(dtype)
-                for t in ins:
-                    t.requires_grad_(True)
-                before = ms_deform_attn.backward_launches
-                fn(ins[0], shapes, ins[1], ins[2]).backward(g.to(dtype))
-                torch.cuda.synchronize()
-                assert ms_deform_attn.backward_launches - before == (which == "kernel")
-                grads[which] = [t.grad.float() for t in ins]
-            for i, (a, b) in enumerate(zip(grads["kernel"], grads["plain"])):
-                rtol, atol = (1e-2, 1e-3) if (i == 0 and dtype == torch.bfloat16) else (1e-4, 1e-5)
-                torch.testing.assert_close(a, b, rtol=rtol, atol=atol * float(b.abs().max()))
-
-
 # ---- what surrounds the 2D kernels: launch plan and alignment ----------
 
 
@@ -424,10 +353,16 @@ def test_port_imports_no_jax_or_jax_package():
 
 
 def test_importing_the_port_loads_no_jax():
-    # only modules that importing the port adds count (an interpreter's
-    # start-up hooks may load others first)
-    code = ("import sys; before = set(sys.modules);"
-            "import tce_rvos_tpu_torch, tce_rvos_tpu_torch.infer;"
+    # every module of the package (the command line, the tools and the
+    # checkpoint reader included); only modules that importing the port
+    # adds count (an interpreter's start-up hooks may load others first)
+    package = REPO / "tce_rvos_tpu_torch"
+    modules = sorted(".".join(f.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+                     for f in package.rglob("*.py"))
+    assert {"tce_rvos_tpu_torch.cli", "tce_rvos_tpu_torch.tools.colormap",
+            "tce_rvos_tpu_torch.utils.checkpoint"} <= set(modules)
+    code = ("import importlib, sys; before = set(sys.modules);"
+            f"[importlib.import_module(m) for m in {modules!r}];"
             "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in "
             f"{FORBIDDEN!r});"
             "print(bad); sys.exit(1 if bad else 0)")

@@ -19,9 +19,10 @@ CPU.
   attention weights and every parameter's gradient; with zero temporal
   offsets the 3D module gives the 2D module's output;
 * time is the call's whole batch axis, in both packages: with two clips
-  stacked on it, clip 0's output depends on clip 1's features;
-* the 3D CUDA kernels against the plain version, forward and gradients
-  (skip without a card; ``chip_smoke.py`` runs those comparisons on the GPU).
+  stacked on it, clip 0's output depends on clip 1's features.
+
+The 3D CUDA kernels against the plain version are in
+``tests/test_torch_cuda_kernels.py``.
 """
 
 import numpy as np
@@ -41,40 +42,14 @@ from tce_rvos_tpu_torch.ops import msda_cuda
 from tce_rvos_tpu_torch.ops.msda import ms_deform_attn_3d_plain
 from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn, ms_deform_attn_3d
 from tce_rvos_tpu_torch.utils.convert import state_dict_from_jax
+from test_torch_cuda_kernels import cotangent as _cotangent
+from test_torch_cuda_kernels import op_inputs_3d as _op_inputs
+from torch_parity_helpers import torch_threads  # noqa: F401 (autouse fixture)
 from torch_parity_helpers import assert_close, prefixed, random_variables, sub_state_dict
 
 SHAPES_SEP = ((40, 32), (4, 8))                # 1280-pixel level: the Pallas sep kernel
 SHAPES_TINY = ((8, 12), (4, 6), (2, 3), (1, 2))  # the tiny model's levels at 64x96
 SHAPES = {"sep": SHAPES_SEP, "tiny": SHAPES_TINY}
-
-
-def _op_inputs(shapes, n=3, q=12, m=2, d=8, p=4, seed=0):
-    """value, loc [N, Q, M, L, P, 3], attn. Points 0: pixel centres on the
-    query's own frame ((n + 0.5) / N, an exact-integer f_im); points 1:
-    halfway between two frames; the rest: x, y in [-0.2, 1.2] and frames
-    in [-0.3, 1.3] (outside [0, N - 1] too)."""
-    rng = np.random.RandomState(seed)
-    s = sum(h * w for h, w in shapes)
-    l = len(shapes)
-    value = rng.randn(n, s, m, d).astype(np.float32)
-    loc = (rng.rand(n, q, m, l, p, 3) * 1.4 - 0.2).astype(np.float32)
-    loc[..., 2] = rng.rand(n, q, m, l, p) * 1.6 - 0.3
-    for lvl, (h, w) in enumerate(shapes):
-        px = rng.randint(0, w, (n, q, m))
-        py = rng.randint(0, h, (n, q, m))
-        loc[:, :, :, lvl, 0, 0] = (px + 0.5) / w
-        loc[:, :, :, lvl, 0, 1] = (py + 0.5) / h
-    own = (np.arange(n, dtype=np.float32) + np.float32(0.5)) / np.float32(n)
-    loc[..., 0, 2] = own[:, None, None, None]
-    loc[..., 1, 2] = (rng.randint(0, n - 1, (n, q, m, l)) + 1).astype(np.float32) / n
-    attn = rng.rand(n, q, m, l, p).astype(np.float32) + 1e-3
-    attn /= attn.reshape(n, q, m, l * p).sum(-1)[..., None, None]
-    return value, loc.astype(np.float32), attn
-
-
-def _cotangent(value, loc, seed):
-    n, _, m, d = value.shape
-    return np.random.RandomState(seed).randn(n, loc.shape[1], m * d).astype(np.float32)
 
 
 def _plain_grads(value, shapes, loc, attn, g):
@@ -343,109 +318,3 @@ def test_temporal_taps_cross_clips():
         outs[which] = got[:N_FRAMES]
     leak = float((outs["changed"] - outs["same"]).abs().max())
     assert leak > 1e-3 * float(outs["same"].abs().max()), leak
-
-
-# ---- the CUDA kernels (skip without a card) -----------------------------------
-
-FLAGSHIP = ((48, 80), (24, 40), (12, 20), (6, 10))  # 384x640 clip
-
-
-def _cuda_cases():
-    """(name, level shapes, value, loc, attn) for the 3D kernels: the
-    runtime loops (two levels, 64 and 600 queries), the flagship's
-    L = P = 4 (600 queries), and on that the edge cases: a ragged query
-    count, shuffled queries, offsets of about 25 pixels and 6 frames,
-    x = -1 or y = -1, f_im exactly -1 or N - 1, integer frames other than
-    the own one and halfway frames, frames past both ends, N = 1, and L = 3
-    with P = 2 at 600 and at 5 queries. N = 8, so f_im = f * N - 0.5 is
-    exact at the chosen f."""
-    rng = np.random.RandomState(21)
-    yield ("runtime_loop_q64", SHAPES_SEP, *_op_inputs(SHAPES_SEP, n=6, q=64, m=8, d=32, p=4))
-    yield ("runtime_loop_q600", SHAPES_SEP,
-           *_op_inputs(SHAPES_SEP, n=6, q=600, m=8, d=32, p=3))
-    n, q = 8, 600
-    value, loc, attn = _op_inputs(FLAGSHIP, n=n, q=q, m=8, d=32, p=4, seed=1)
-    yield "flagship", FLAGSHIP, value, loc, attn
-    yield "ragged", FLAGSHIP, value, loc[:, :q - 37].copy(), attn[:, :q - 37].copy()
-    perm = rng.permutation(q)
-    yield "shuffled", FLAGSHIP, value, loc[:, perm].copy(), attn[:, perm].copy()
-    wh = np.array([[w, h] for h, w in FLAGSHIP], np.float32)[:, None, :]
-    far = loc.copy()
-    far[..., :2] += rng.randn(*loc.shape[:-1], 2).astype(np.float32) * 25 / wh
-    far[..., 2] += rng.randn(*loc.shape[:-1]).astype(np.float32) * 6 / n
-    yield "far", FLAGSHIP, value, far, attn
-    half = q // 2
-    edge = loc.copy()
-    for lvl, (h, w) in enumerate(FLAGSHIP):
-        edge[:, :half, :, lvl, 1, 0] = np.float32(-0.5 / w)  # pixel coordinate exactly -1
-        edge[:, half:, :, lvl, 1, 1] = np.float32(-0.5 / h)
-    yield "x_or_y_at_-1", FLAGSHIP, value, edge, attn
-    edge = loc.copy()
-    edge[:, :half, :, :, 2, 2] = np.float32(-0.5 / n)        # f_im exactly -1
-    edge[:, half:, :, :, 2, 2] = np.float32((n - 0.5) / n)   # f_im exactly N - 1
-    yield "f_at_-1_and_N-1", FLAGSHIP, value, edge, attn
-    edge = loc.copy()
-    shape = edge.shape[:4]
-    edge[..., 2, 2] = (rng.randint(0, n, shape) + np.float32(0.5)) / np.float32(n)
-    edge[..., 3, 2] = rng.randint(1, n, shape).astype(np.float32) / np.float32(n)
-    yield "integer_and_halfway_frames", FLAGSHIP, value, edge, attn
-    edge = loc.copy()
-    edge[..., 2, 2] = rng.rand(*shape) * -0.4 - 0.05   # f_im -4.1..-0.9
-    edge[..., 3, 2] = rng.rand(*shape) * 0.4 + 1.0     # f_im 7.5..10.7
-    yield "past_both_ends", FLAGSHIP, value, edge, attn
-    one = loc[:1].copy()
-    one[..., 0, 2] = 0.5  # the own frame of N = 1
-    yield "N1", FLAGSHIP, value[:1].copy(), one, attn[:1].copy()
-    shapes3 = FLAGSHIP[:3]
-    yield ("L3_P2_q600", shapes3, *_op_inputs(shapes3, n=n, q=q, m=8, d=32, p=2, seed=2))
-    yield ("L3_P2_q5", shapes3, *_op_inputs(shapes3, n=n, q=5, m=8, d=32, p=2, seed=3))
-
-
-@pytest.mark.cuda
-def test_cuda_3d_kernel_matches_plain():
-    """The 3D forward kernel against the plain version on the card, f32
-    (rtol = atol = 1e-5) and bf16 value (both round one f32 sum to bf16: at
-    most one bf16 step apart), on the cases of ``_cuda_cases``."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; chip_smoke.py runs this comparison on the GPU")
-    for name, shapes, *arrays in _cuda_cases():
-        value, loc, attn = (torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays)
-        for dtype, rtol, atol in ((torch.float32, 1e-5, 1e-5), (torch.bfloat16, 8e-3, 1e-2)):
-            v = value.to(dtype)
-            before = ms_deform_attn_3d.launches
-            got = ms_deform_attn_3d(v, shapes, loc, attn)
-            torch.cuda.synchronize()
-            assert ms_deform_attn_3d.launches == before + 1
-            want = ms_deform_attn_3d_plain(v, shapes, loc, attn)
-            torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol,
-                                       msg=lambda m: f"{name} {dtype}: {m}")
-
-
-@pytest.mark.cuda
-def test_cuda_3d_backward_matches_plain_gradients():
-    """The 3D backward kernel (through ``MSDeformAttn3DFunction``) against
-    autograd through the plain version on the card, on the cases of
-    ``_cuda_cases``, with the 2D backward's tolerances: d_loc and d_attn
-    rtol 1e-4 plus 1e-5 of the largest magnitude; d_value (atomics, then a
-    cast) the same in f32 and rtol 1e-2 plus 1e-3 of it in bf16."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; chip_smoke.py runs this comparison on the GPU")
-    for name, shapes, *arrays in _cuda_cases():
-        arrays = [np.ascontiguousarray(a) for a in arrays]
-        g = torch.from_numpy(_cotangent(arrays[0], arrays[1], seed=8)).cuda()
-        for dtype in (torch.float32, torch.bfloat16):
-            grads = {}
-            for which, fn in (("kernel", ms_deform_attn_3d), ("plain", ms_deform_attn_3d_plain)):
-                ins = [torch.from_numpy(a).cuda() for a in arrays]
-                ins[0] = ins[0].to(dtype)
-                for t in ins:
-                    t.requires_grad_(True)
-                before = ms_deform_attn_3d.backward_launches
-                fn(ins[0], shapes, ins[1], ins[2]).backward(g.to(dtype))
-                torch.cuda.synchronize()
-                assert ms_deform_attn_3d.backward_launches - before == (which == "kernel")
-                grads[which] = [t.grad.float() for t in ins]
-            for i, (a, b) in enumerate(zip(grads["kernel"], grads["plain"])):
-                rtol, atol = (1e-2, 1e-3) if (i == 0 and dtype == torch.bfloat16) else (1e-4, 1e-5)
-                torch.testing.assert_close(a, b, rtol=rtol, atol=atol * float(b.abs().max()),
-                                           msg=lambda m: f"{name} {dtype}: {m}")

@@ -23,6 +23,7 @@ from tce_rvos_tpu_torch.config import ModelConfig
 from tce_rvos_tpu_torch.infer import InferenceEngine, masks_to_original, select_query
 from tce_rvos_tpu_torch.models.referformer import ReferFormer
 from tce_rvos_tpu_torch.utils.convert import state_dict_from_jax
+from torch_parity_helpers import torch_threads  # noqa: F401 (autouse fixture)
 from torch_parity_helpers import FLAGSHIP_TINY, VARIANTS, assert_close, tiny_model
 
 TOL = dict(rtol=2e-3, atol=2e-3)

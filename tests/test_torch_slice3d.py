@@ -25,6 +25,7 @@ from tce_rvos_tpu_torch.infer import InferenceEngine
 from tce_rvos_tpu_torch.models.referformer import ReferFormer
 from tce_rvos_tpu_torch.models.transformer import MSDeformAttn
 from tce_rvos_tpu_torch.utils.convert import state_dict_from_jax
+from torch_parity_helpers import torch_threads  # noqa: F401 (autouse fixture)
 from torch_parity_helpers import FLAGSHIP_3D_TINY, assert_close, tiny_model
 
 TOL = dict(rtol=2e-3, atol=2e-3)

@@ -8,13 +8,11 @@
 * ``param_group`` gives every parameter of the tiny model the JAX tier of
   its flax path (names mapped by ``utils/convert.py``), and the per-tier
   schedules equal the JAX ones exactly (float32) at steps 0-20.
-* The slice as a whole: two steps of ``make_train_step`` on the tiny
-  flagship-shaped model (FTF, IQT, box refinement, binary, f32, dropout
-  off) against ``jax.value_and_grad`` of the JAX model's loss and the
-  optax chain of ``make_optimizer``, from the same weights and batch. The
-  JAX package's ``make_train_step`` always draws dropout, so its loss is
-  built here from ``model.apply(..., deterministic=True)`` and
-  ``criterion``.
+* Recomputation gives the gradients without it, and the epoch loop.
+
+The slice as a whole (two train steps against the JAX package) is in
+``tests/test_torch_train_steps.py``, a file of its own so that each file
+stays under 90 s alone on one worker.
 """
 
 import numpy as np
@@ -46,8 +44,9 @@ from tce_rvos_tpu_torch.models.referformer import ReferFormer
 from tce_rvos_tpu_torch.parallel import train_step
 from tce_rvos_tpu_torch.utils import boxes
 from tce_rvos_tpu_torch.utils.convert import torch_key
-from torch_parity_helpers import (FLAGSHIP_TINY, assert_close, check_two_train_steps, model_inputs,
-                                  random_boxes, tiny_model, train_targets)
+from torch_parity_helpers import torch_threads  # noqa: F401 (autouse fixture)
+from torch_parity_helpers import (FLAGSHIP_TINY, assert_close, model_inputs, random_boxes,
+                                  tiny_model, train_targets)
 
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -217,14 +216,6 @@ def test_schedules_match_jax_exactly():
         base = train_step.base_lr_schedule(tcfg, spe)
         jbase = jax_ts.base_lr_schedule(jcfg, spe)
         assert [np.float32(base(s)) for s in range(21)] == [np.float32(jbase(s)) for s in range(21)]
-
-
-# ---- the slice: two train steps --------------------------------------------------
-
-def test_two_train_steps_match_jax():
-    """Two steps of the tiny flagship against JAX (f32, dropout off), held
-    as ``torch_parity_helpers.check_two_train_steps`` says."""
-    check_two_train_steps("flagship")
 
 
 # ---- recomputation and the epoch loop ---------------------------------------------

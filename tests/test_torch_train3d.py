@@ -9,6 +9,7 @@ packages. Held as ``torch_parity_helpers.check_two_train_steps`` says, as the
 ``tests/test_torch_slice3d.py`` so that each stays well under 90 s on one
 worker."""
 
+from torch_parity_helpers import torch_threads  # noqa: F401 (autouse fixture)
 from torch_parity_helpers import check_two_train_steps
 
 

@@ -9,6 +9,7 @@ the top-k sample export a tie, and the parity tests weak.
 from __future__ import annotations
 
 import functools
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Tuple
 
 import jax
@@ -30,6 +31,25 @@ from tce_rvos_tpu_torch.models.criterion import criterion_from_configs
 from tce_rvos_tpu_torch.models.referformer import ReferFormer
 from tce_rvos_tpu_torch.parallel import train_step
 from tce_rvos_tpu_torch.utils.convert import state_dict_from_jax
+
+
+# The test run gives each of several workers a process on one host, and
+# torch's OpenMP pool of one thread per core in each of them spins at every
+# op's barrier: with the pools oversubscribed, most of the host's time went
+# to spinning (the port's test files took 3.4x as long under 6 workers as
+# with 2 threads a worker). Each port test module runs with at most
+# TORCH_THREADS and gives the worker back its count afterwards.
+TORCH_THREADS = 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_threads():
+    """At most TORCH_THREADS torch threads while the importing test module
+    runs (import it into the module for it to apply)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, TORCH_THREADS))
+    yield
+    torch.set_num_threads(n)
 
 
 # tests/test_checkpoint.py's TINY (binary, the port's only class head) plus
@@ -111,8 +131,11 @@ def sub_state_dict(sd: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.
 
 def assert_close(got, want, rtol: float, atol: float, name: str = "") -> None:
     got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
-    np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=rtol, atol=atol,
-                               err_msg=name)
+    want = np.asarray(want, np.float32)
+    # numpy's own check only where the quick one fails (it is slow, and the
+    # two-step checks call this for every parameter): it decides and reports
+    if got.shape != want.shape or not (np.abs(got - want) <= atol + rtol * np.abs(want)).all():
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=name)
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,9 +150,22 @@ def tiny_model(variant: str):
     return jcfg, model, variables, flat, inputs
 
 
-# ---- the training slice: two train steps against the JAX package ------------------
-
 SLICE_TOL = 2e-3  # the model-level bar of the JAX package's parity with the reference
+
+
+def engine_pair(**engine_kw):
+    """The JAX package's and the port's ``InferenceEngine`` (CPU) on the
+    tiny flagship's shared weights."""
+    from tce_rvos_tpu.infer import InferenceEngine as JaxInferenceEngine
+    from tce_rvos_tpu_torch.infer import InferenceEngine
+
+    jcfg, _, variables, flat, _ = tiny_model("flagship")
+    return (JaxInferenceEngine(jcfg, variables, **engine_kw),
+            InferenceEngine(ModelConfig(**FLAGSHIP_TINY), state_dict_from_jax(flat),
+                            device="cpu", **engine_kw))
+
+
+# ---- the training slice: two train steps against the JAX package ------------------
 
 
 def random_boxes(rng, *shape):
@@ -224,7 +260,10 @@ def check_two_train_steps(variant: str) -> None:
     _, _, _, flat, inputs = tiny
     kw = dict(lr_drop=(1,))
     targets = train_targets()
-    want = jax_train_steps(tiny, JaxTrainConfig(**kw), targets, n_steps=2)
+    # the JAX steps (mostly XLA's compile, which releases the GIL) in a
+    # thread, while the port builds its model and takes its first step
+    jax_steps = ThreadPoolExecutor(1)
+    want = jax_steps.submit(jax_train_steps, tiny, JaxTrainConfig(**kw), targets, 2)
 
     tcfg = TrainConfig(**kw)
     cfg = ModelConfig(**VARIANTS[variant])
@@ -237,9 +276,13 @@ def check_two_train_steps(variant: str) -> None:
     lr0 = {"base": tcfg.lr, "backbone": tcfg.lr_backbone, "text_encoder": tcfg.lr_text_encoder,
            "linear_proj": tcfg.lr * tcfg.lr_linear_proj_mult}
     batch = dict(inputs, targets=targets)
-    for k, (losses, gnorm, grads, params_after) in enumerate(want):
+    for k in range(2):
         before = {n: p.detach().clone() for n, p in port.named_parameters()}
         state, metrics = step(state, batch)
+        if k == 0:
+            want = want.result()
+            jax_steps.shutdown()
+        losses, gnorm, grads, params_after = want[k]
         assert metrics["lr"] == pytest.approx(tcfg.lr * 0.1 ** k, rel=1e-6)
         assert sorted(k_ for k_ in metrics if k_.startswith("loss_")) == sorted(losses)
         for name, v in losses.items():
@@ -260,8 +303,8 @@ def check_two_train_steps(variant: str) -> None:
             strong = np.abs(grads[name]) > 0.01 * np.abs(grads[name]).max()
             strong &= g_scale >= 1e-6 * g_all
             new, old = p.detach().numpy(), before[name].numpy()
-            np.testing.assert_allclose(new[strong], params_after[name][strong], rtol=1e-3,
-                                       atol=0.5 * lr, err_msg=f"step {k} param {name}")
+            assert_close(new[strong], params_after[name][strong], rtol=1e-3, atol=0.5 * lr,
+                         name=f"step {k} param {name}")
             weak = np.abs(old[~strong])
             bound = 1.01 * lr * (1 + tcfg.weight_decay * weak) + 2 * np.spacing(weak)
             assert (np.abs(new - old)[~strong] <= bound).all(), f"step {k} param {name}"
