@@ -69,7 +69,23 @@ Phases (each one fails the run, nothing is caught and carried on from):
                mevis, windowed f32 PNGs GPU against CPU, a ``--msda_3d``
                windowed run; wall seconds, frames/s, expression-windows/s
                and peak memory per protocol;
-  9. numbers - card name and power limit, clips/s and ms per trunk
+  9. main    - ``train.main`` at full width and depth, bf16, on a
+               synthetic 720x1280 Ref-YouTube-VOS train tree (3 videos x 20
+               frames x 2 expressions = 24 samples an epoch; an object that
+               leaves some frames): two epochs (12 + 12 MSDA launches per
+               step); a resume from ``checkpoint/`` for a third (starts at
+               epoch 2, parameters and AdamW state bitwise the saved ones,
+               the schedule's LR); a resume from a reference-format
+               ``.pth`` for a third (AdamW empty, the schedules
+               fast-forwarded, then an epoch of steps);
+               ``--msda_3d --batch_size 2`` for one epoch (8 + 8 3D and
+               4 + 4 2D launches per step); the 2D kernels held against
+               plain at the largest padded shape of the 2D runs (N = 5)
+               and, with the 3D kernels, at that of the ``--msda_3d`` run
+               (N = 10); ms/step and the step thread's CPU time, the
+               logger's data share, padded shapes, peak memory, checkpoint
+               seconds and bytes;
+ 10. numbers - card name and power limit, clips/s and ms per trunk
                forward, peak memory per E, and a JSON ``kernels`` line.
 
 The last line of standard output is the device JSON line. Without a CUDA
@@ -79,6 +95,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -247,7 +264,7 @@ def msda_inputs(kind: str, n: int, q: int, dtype, gen, device, frames: bool = Fa
     return value, loc.contiguous().to(device), attn.contiguous().to(device)
 
 
-def msda_traffic(value, loc, zero_weight_reads: bool) -> dict:
+def msda_traffic(value, loc, zero_weight_reads: bool, shapes=FLAGSHIP_SHAPES) -> dict:
     """What one MSDA call's taps touch on this call's data: the bytes of
     the value rows (one pixel of one frame and one head, D channels) that
     some live corner reads, and the counts of live corners, live (tap,
@@ -273,7 +290,7 @@ def msda_traffic(value, loc, zero_weight_reads: bool) -> dict:
         own = own.expand(loc.shape[:-1])
         frames = ((own, torch.ones_like(own)),)
     corners = frame_taps = taps = start = 0
-    for lvl, (h, w) in enumerate(FLAGSHIP_SHAPES):
+    for lvl, (h, w) in enumerate(shapes):
         x = loc[:, :, :, lvl, :, 0] * w - 0.5  # [n, q, m, p]
         y = loc[:, :, :, lvl, :, 1] * h - 0.5
         x0, y0 = torch.floor(x), torch.floor(y)
@@ -308,7 +325,7 @@ def _bound(nbytes: int, ops: int, value, value_bytes: int) -> dict:
                 value_bytes_all=value.numel() * value.element_size())
 
 
-def msda_bound(value, loc, attn, out) -> dict:
+def msda_bound(value, loc, attn, out, shapes=FLAGSHIP_SHAPES) -> dict:
     """The least time of one MSDA forward call (2D or 3D) on this call's
     data: the larger of its compulsory bytes over the HBM rate and its
     operations over the f32 peak. Bytes: locations (2 or 3 floats a tap),
@@ -317,13 +334,13 @@ def msda_bound(value, loc, attn, out) -> dict:
     shapes the taps touch a small part of the value. Operations: one FMA per
     channel for each such corner, one for each tap that has one, and in 3D
     one for each live (tap, frame) pair (the frame lerp)."""
-    tr = msda_traffic(value, loc, zero_weight_reads=False)
+    tr = msda_traffic(value, loc, zero_weight_reads=False, shapes=shapes)
     nbytes = tr["value_bytes"] + sum(t.numel() * t.element_size() for t in (loc, attn, out))
     fmas = tr["corners"] + tr["taps"] + (tr["frame_taps"] if tr["lerp"] else 0)
     return _bound(nbytes, 2 * value.shape[-1] * fmas, value, tr["value_bytes"])
 
 
-def msda_bwd_bound(value, loc, attn, grad_out) -> dict:
+def msda_bwd_bound(value, loc, attn, grad_out, shapes=FLAGSHIP_SHAPES) -> dict:
     """The least time of one MSDA backward call (2D or 3D) on this call's
     data. Bytes: the (frame, pixel) value rows that live corners read
     (zero-weight corners and frames included: the location gradient reads
@@ -336,7 +353,7 @@ def msda_bwd_bound(value, loc, attn, grad_out) -> dict:
     (2); in 3D for each live (tap, frame) pair the frame weight's products
     into the tap and the two location terms and the frame gradient's term
     (8)."""
-    tr = msda_traffic(value, loc, zero_weight_reads=True)
+    tr = msda_traffic(value, loc, zero_weight_reads=True, shapes=shapes)
     f32 = 4
     nbytes = (tr["value_bytes"] + sum(t.numel() * t.element_size() for t in (loc, attn, grad_out))
               + value.numel() * value.element_size() + (loc.numel() + attn.numel()) * f32)
@@ -421,12 +438,13 @@ def hold_plan(backward: bool, label: str, value, shapes, loc) -> dict:
     return got
 
 
-def phase_kernels(e: int, is_3d: bool = False) -> dict:
+def phase_kernels(e: int, is_3d: bool = False, shapes=FLAGSHIP_SHAPES) -> dict:
     """Forward kernel against plain at the serving trunk's MSDA call shapes
-    (N = 5 frames x E expressions): 2D at the encoder, FTF and decoder
-    shapes; 3D (the ``--msda_3d`` trunk) at the encoder and decoder shapes,
-    with frames past both ends of the axis, exact-integer and halfway
-    frames. Returns per-shape numbers."""
+    (N = 5 frames x E expressions, levels ``shapes``, the 384x640 clip's
+    unless given): 2D at the encoder, FTF and decoder shapes; 3D (the
+    ``--msda_3d`` trunk) at the encoder and decoder shapes, with frames past
+    both ends of the axis, exact-integer and halfway frames. Returns
+    per-shape numbers."""
     import torch
 
     from tce_rvos_tpu_torch.ops.msda import ms_deform_attn_3d_plain, ms_deform_attn_plain
@@ -434,7 +452,7 @@ def phase_kernels(e: int, is_3d: bool = False) -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(2 if is_3d else 0)
-    s = sum(h * w for h, w in FLAGSHIP_SHAPES)
+    s = sum(h * w for h, w in shapes)
     n = 5 * e
     op, plain = ((ms_deform_attn_3d, ms_deform_attn_3d_plain) if is_3d
                  else (ms_deform_attn, ms_deform_attn_plain))
@@ -445,15 +463,16 @@ def phase_kernels(e: int, is_3d: bool = False) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             key = f"{name}/{dtype_name(dtype)}"
             label = f"{kname} {key} N={nn_} Q={q}"
-            value, loc, attn = msda_inputs(name, nn_, q, dtype, gen, dev, frames=is_3d)
-            plan = {} if is_3d else {"plan": hold_plan(False, label, value, FLAGSHIP_SHAPES, loc)}
-            got, max_err = hold_forward(op, plain, label, value, FLAGSHIP_SHAPES, loc, attn)
-            ms = graph_ms(lambda: op(value, FLAGSHIP_SHAPES, loc, attn))
-            plain_ms = cuda_ms(lambda: plain(value, FLAGSHIP_SHAPES, loc, attn), reps=5)
-            bound = msda_bound(value, loc, attn, got)
+            value, loc, attn = msda_inputs(name, nn_, q, dtype, gen, dev, frames=is_3d,
+                                           shapes=shapes)
+            plan = {} if is_3d else {"plan": hold_plan(False, label, value, shapes, loc)}
+            got, max_err = hold_forward(op, plain, label, value, shapes, loc, attn)
+            ms = graph_ms(lambda: op(value, shapes, loc, attn))
+            plain_ms = cuda_ms(lambda: plain(value, shapes, loc, attn), reps=5)
+            bound = msda_bound(value, loc, attn, got, shapes)
             rtol, atol = FWD_TOL[dtype_name(dtype)]
             results[key] = dict(N=nn_, Q=q, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                                rtol=rtol, atol=atol, **plan, **bound)
+                                rtol=rtol, atol=atol, levels=shapes, **plan, **bound)
             log(f"[kernels] {kname} {key:18s} N={nn_} Q={q}: max|err|={max_err:.3e} "
                 f"(rtol {rtol}, atol {atol}) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                 f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}; {bound['bytes']} bytes, "
@@ -462,7 +481,7 @@ def phase_kernels(e: int, is_3d: bool = False) -> dict:
     return results
 
 
-def phase_backward_kernels(n: int = 5, is_3d: bool = False) -> dict:
+def phase_backward_kernels(n: int = 5, is_3d: bool = False, shapes=FLAGSHIP_SHAPES) -> dict:
     """The backward kernel (through its autograd function, as the model
     calls it) against autograd through the plain version at the training
     step's MSDA call shapes (b = 1 clip of 5 frames: N = 5): 2D at the
@@ -481,7 +500,7 @@ def phase_backward_kernels(n: int = 5, is_3d: bool = False) -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(3 if is_3d else 1)
-    s = sum(h * w for h, w in FLAGSHIP_SHAPES)
+    s = sum(h * w for h, w in shapes)
     op, plain, backward = ((ms_deform_attn_3d, ms_deform_attn_3d_plain, msda3d_backward) if is_3d
                            else (ms_deform_attn, ms_deform_attn_plain, msda_backward))
     kname = "msda3d_bwd" if is_3d else "msda_bwd"
@@ -491,17 +510,18 @@ def phase_backward_kernels(n: int = 5, is_3d: bool = False) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             key = f"{name}/{dtype_name(dtype)}"
             label = f"{kname} {key} N={n} Q={q}"
-            value, loc, attn = msda_inputs(name, n, q, dtype, gen, dev, frames=is_3d)
+            value, loc, attn = msda_inputs(name, n, q, dtype, gen, dev, frames=is_3d,
+                                           shapes=shapes)
             g = torch.randn(n, q, M * D, generator=gen).to(device=dev, dtype=dtype)
-            plan = {} if is_3d else {"plan": hold_plan(True, label, value, FLAGSHIP_SHAPES, loc)}
-            errs = hold_backward(op, plain, label, value, FLAGSHIP_SHAPES, loc, attn, g)
-            ms = graph_ms(lambda: backward(value, FLAGSHIP_SHAPES, loc, attn, g))
+            plan = {} if is_3d else {"plan": hold_plan(True, label, value, shapes, loc)}
+            errs = hold_backward(op, plain, label, value, shapes, loc, attn, g)
+            ms = graph_ms(lambda: backward(value, shapes, loc, attn, g))
             ins = [t.detach().clone().requires_grad_(True) for t in (value, loc, attn)]
-            out = plain(ins[0], FLAGSHIP_SHAPES, ins[1], ins[2])
+            out = plain(ins[0], shapes, ins[1], ins[2])
             plain_ms = cuda_ms(lambda: torch.autograd.grad(out, ins, g, retain_graph=True), reps=5)
-            bound = msda_bwd_bound(value, loc, attn, g)
+            bound = msda_bwd_bound(value, loc, attn, g, shapes)
             results[key] = dict(N=n, Q=q, max_abs_err=max(errs.values()), errors=errs, ms=ms,
-                                plain_ms=plain_ms, library_ms=None, **plan, **bound)
+                                plain_ms=plain_ms, library_ms=None, levels=shapes, **plan, **bound)
             log(f"[kernels] {kname} {key:18s} N={n} Q={q}: max|err| " + ", ".join(
                 f"{k} {v:.3e}" for k, v in errs.items())
                 + f"; kernel {ms:.4f} ms  plain (autograd) {plain_ms:.4f} ms  bound "
@@ -1993,11 +2013,15 @@ PROTO_MEVIS = {"m10": (10, CAPTIONS[:3])}
 PROTO_SMALL = {"v6": (6, CAPTIONS[:2])}  # windows of 5 with a context frame a side
 
 
-def write_tree(root: str, kind: str, videos: dict, test_only: dict = None, seed: int = 0) -> str:
-    """A synthetic dataset on disk in the ``kind`` (ytvos, davis, mevis)
-    layout: smooth random JPEG frames at PROTO_HW and meta_expressions;
-    ``test_only`` videos are listed in the valid split and in the test split
-    (so ytvos must skip them)."""
+def write_tree(root: str, kind: str, videos: dict, test_only: dict = None, seed: int = 0,
+               absent: dict = None) -> str:
+    """A synthetic dataset on disk in the ``kind`` layout: smooth random JPEG
+    frames at PROTO_HW and meta_expressions. ytvos, davis, mevis: the valid
+    split; ``test_only`` videos are listed in the valid split and in the test
+    split (so ytvos must skip them). train: the Ref-YouTube-VOS train split,
+    captions given as (expression, object id), with meta.json (object 1 a
+    person, 2 a dog) and palette PNG annotations of the two objects moving;
+    object 2 leaves the frames ``absent[video]``."""
     import os
 
     import numpy as np
@@ -2006,19 +2030,32 @@ def write_tree(root: str, kind: str, videos: dict, test_only: dict = None, seed:
     rng = np.random.RandomState(seed)
     h, w = PROTO_HW
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    split = "train" if kind == "train" else "valid"
+    palette = [c for i in range(256) for c in (i, i, i)]
     meta = {}
     for video, (n, caps) in {**videos, **(test_only or {})}.items():
-        d = os.path.join(root, "valid", "JPEGImages", video)
+        d = os.path.join(root, split, "JPEGImages", video)
         os.makedirs(d)
         names = [f"{i:05d}" for i in range(n)]
-        for name in names:
+        for i, name in enumerate(names):
             f = np.stack([0.5 + 0.5 * np.sin((xx * a + yy * b) / 80.0 + c)
                           for a, b, c in rng.rand(3, 3)], -1)
             Image.fromarray((f * 255).astype(np.uint8)).save(os.path.join(d, name + ".jpg"))
-        meta[video] = {"frames": names,
-                       "expressions": {str(i): {"exp": c} for i, c in enumerate(caps)}}
+            if kind == "train":
+                mask = np.zeros((h, w), np.uint8)
+                mask[100 + 8 * i: 400 + 8 * i, 200 + 20 * i: 420 + 20 * i] = 1
+                if i not in (absent or {}).get(video, ()):
+                    mask[450 - 5 * i: 650 - 5 * i, 900 - 10 * i: 1200 - 10 * i] = 2
+                png = Image.fromarray(mask, mode="P")
+                png.putpalette(palette)
+                a_dir = os.path.join(root, split, "Annotations", video)
+                os.makedirs(a_dir, exist_ok=True)
+                png.save(os.path.join(a_dir, name + ".png"), bits=8)
+        meta[video] = {"frames": names, "expressions": {
+            str(i): ({"exp": c[0], "obj_id": c[1]} if kind == "train" else {"exp": c})
+            for i, c in enumerate(caps)}}
     split_dir = (os.path.join(root, "valid") if kind == "mevis"
-                 else os.path.join(root, "meta_expressions", "valid"))
+                 else os.path.join(root, "meta_expressions", split))
     os.makedirs(split_dir, exist_ok=True)
     with open(os.path.join(split_dir, "meta_expressions.json"), "w") as fh:
         json.dump({"videos": meta}, fh)
@@ -2027,6 +2064,10 @@ def write_tree(root: str, kind: str, videos: dict, test_only: dict = None, seed:
         with open(os.path.join(root, "meta_expressions", "test", "meta_expressions.json"),
                   "w") as fh:
             json.dump({"videos": {v: meta[v] for v in test_only}}, fh)
+    if kind == "train":
+        objects = {"1": {"category": "person"}, "2": {"category": "dog"}}
+        with open(os.path.join(root, "train", "meta.json"), "w") as fh:
+            json.dump({"videos": {v: {"objects": objects} for v in videos}}, fh)
     return root
 
 
@@ -2313,6 +2354,339 @@ def phase_protocols(sd, sd3, root: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training through train.main
+# ---------------------------------------------------------------------------
+
+# 3 videos x 20 frames x 2 expressions, anchors every 5 frames: 24 samples.
+# The dog leaves video t0 for frames 6-13 (frames with valid = 0) and is in
+# frame 0 only of t2, whose later clips mostly see no dog and resample.
+MAIN_VIDEOS = {f"t{v}": (20, (("a person walking on the left", "1"),
+                              ("the dog running to the right", "2"))) for v in range(3)}
+MAIN_ABSENT = {"t0": range(6, 14), "t2": range(1, 20)}
+MAIN_FLAGS = ["--binary", "--with_box_refine", "--f_token", "8", "--qtrans",
+              "--compute_dtype", "bfloat16", "--lr_drop", "1", "--num_workers", "4",
+              "--device", "cuda"]
+MAIN_WARMUP = 2
+
+
+@contextlib.contextmanager
+def main_probe():
+    """Instruments the runs of ``train.main``: each train step timed to its
+    end on the device, with the CPU time of the thread that runs it (with
+    its base LR, padded (H, W) and invisible frames), the state handed to the first step (to ``rec["on_first"]``),
+    checkpoint saves and loads (seconds, bytes) and the dataset's sampling
+    attempts (more attempts than samples = resamples of empty clips)."""
+    import os
+    import threading
+
+    import torch
+
+    from tce_rvos_tpu_torch.data import ytvos
+    from tce_rvos_tpu_torch.parallel import train_step
+    from tce_rvos_tpu_torch.utils import native_ckpt
+
+    rec = {"steps": [], "on_first": None, "saves": [], "loads": [], "attempts": 0, "samples": 0}
+    lock = threading.Lock()
+    make, save, load = (train_step.make_train_step, native_ckpt.save_checkpoint,
+                        native_ckpt.load_any_checkpoint)
+    sample_indices, getitem = ytvos.YTVOSDataset._sample_indices, ytvos.YTVOSDataset.__getitem__
+
+    def make_probed(*args, **kw):
+        step = make(*args, **kw)
+
+        def probed(state, batch):
+            if rec["on_first"] is not None:
+                rec["on_first"](state)
+                rec["on_first"] = None
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), time.thread_time()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            rec["steps"].append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                                     cpu_ms=(time.thread_time() - c0) * 1e3, lr=metrics["lr"],
+                                     loss=float(metrics["loss"]),
+                                     hw=tuple(int(x) for x in batch["video"].shape[2:4]),
+                                     invisible=int((batch["targets"]["valid"] == 0).sum())))
+            return state, metrics
+
+        return probed
+
+    def save_probed(path, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(path, *args, **kw)
+        rec["saves"].append(dict(path=path, s=time.perf_counter() - t0, bytes=sum(
+            os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))))
+
+    def load_probed(*args, **kw):
+        t0 = time.perf_counter()
+        out = load(*args, **kw)
+        rec["loads"].append(time.perf_counter() - t0)
+        return out
+
+    def count(key, fn):
+        def counted(*args, **kw):
+            with lock:
+                rec[key] += 1
+            return fn(*args, **kw)
+        return counted
+
+    train_step.make_train_step = make_probed
+    native_ckpt.save_checkpoint, native_ckpt.load_any_checkpoint = save_probed, load_probed
+    ytvos.YTVOSDataset._sample_indices = count("attempts", sample_indices)
+    ytvos.YTVOSDataset.__getitem__ = count("samples", getitem)
+    try:
+        yield rec
+    finally:
+        train_step.make_train_step = make
+        native_ckpt.save_checkpoint, native_ckpt.load_any_checkpoint = save, load
+        ytvos.YTVOSDataset._sample_indices = sample_indices
+        ytvos.YTVOSDataset.__getitem__ = getitem
+
+
+def read_log(out: str) -> list:
+    import os
+
+    with open(os.path.join(out, "log.txt")) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def main_run(rec: dict, argv: list, label: str, launches_per_step: dict) -> tuple:
+    """One ``train.main`` run under ``main_probe``: the launch counts set to
+    0 before it and read after, held at ``launches_per_step`` per step;
+    finite losses. Returns (the final TrainState, the run's numbers)."""
+    import torch
+
+    from tce_rvos_tpu_torch import train
+
+    first = len(rec["steps"])
+    n_saves, n_loads, attempts, samples = (len(rec["saves"]), len(rec["loads"]),
+                                           rec["attempts"], rec["samples"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state = train.main(argv)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    steps = rec["steps"][first:]
+    want = {k: v * len(steps) for k, v in launches_per_step.items()}
+    if counts != want:
+        raise AssertionError(f"{label}: MSDA launches {counts} over {len(steps)} steps, expected "
+                             f"{launches_per_step} per step")
+    losses = [s["loss"] for s in steps]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: a loss is not finite: {losses}")
+    out = dict(steps=len(steps), wall_s=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=counts, saves=rec["saves"][n_saves:], loads=rec["loads"][n_loads:],
+               attempts=rec["attempts"] - attempts, samples=rec["samples"] - samples,
+               invisible_frames=sum(s["invisible"] for s in steps),
+               hw=sorted({s["hw"] for s in steps}))
+    if len(steps) > MAIN_WARMUP:
+        timed = steps[MAIN_WARMUP:]
+        ms = statistics.median(s["ms"] for s in timed)
+        # steps slower than 1.5x the median against the rest: wall and the
+        # step thread's CPU time (CPU time flat while wall grows: the thread
+        # waits; CPU time grows with it: the step itself works more)
+        slow = [s for s in timed if s["ms"] > 1.5 * ms]
+        rest = [s for s in timed if s["ms"] <= 1.5 * ms]
+        split = {k: dict(steps=len(g), ms=statistics.median(s["ms"] for s in g),
+                         cpu_ms=statistics.median(s["cpu_ms"] for s in g))
+                 for k, g in (("slow", slow), ("rest", rest)) if g}
+        out.update(ms_per_step=ms, steps_per_s=1e3 / ms, step_ms=[s["ms"] for s in steps],
+                   step_cpu_ms=[s["cpu_ms"] for s in steps], slow_split=split)
+    log(f"{label}: {len(steps)} steps in {wall:.1f} s of wall time; "
+        + (f"{out['ms_per_step']:.3f} ms/step (median after {MAIN_WARMUP} warm-up steps) = "
+           f"{out['steps_per_s']:.3f} steps/s; steps over 1.5x the median against the rest "
+           "(count, median wall ms, median CPU ms of the step's thread): " + ", ".join(
+               f"{k} {v['steps']}, {v['ms']:.3f}, {v['cpu_ms']:.3f}"
+               for k, v in out["slow_split"].items()) + "; " if "ms_per_step" in out else "")
+        + f"max_memory_allocated {out['peak_gib']:.3f} GiB; MSDA launches {counts}; padded "
+        f"(H, W) {out['hw']}; {out['invisible_frames']} invisible frames; "
+        f"{out['attempts'] - out['samples']} resamples in {out['samples']} samples; checkpoint "
+        + ", ".join(f"save {s['s']:.3f} s ({s['bytes']} bytes)" for s in out["saves"])
+        + "".join(f", load {x:.3f} s" for x in out["loads"]))
+    return state, out
+
+
+def assert_state_saved(state, path: str, label: str) -> None:
+    """Every parameter, buffer and AdamW state tensor of ``state`` bitwise
+    equal to the checkpoint directory ``path``."""
+    from tce_rvos_tpu_torch.utils.native_ckpt import load_checkpoint
+
+    sd, opt_sd, _ = load_checkpoint(path)
+    for name, value in state.model.state_dict().items():
+        if not value.cpu().equal(sd[name]):
+            raise AssertionError(f"{label}: {name} is not the saved tensor")
+    live = state.optimizer.state_dict()["state"]
+    if sorted(live) != sorted(opt_sd["state"]) or not live:
+        raise AssertionError(f"{label}: AdamW holds state for {len(live)} parameters, the "
+                             f"checkpoint for {len(opt_sd['state'])}")
+    for i, entry in opt_sd["state"].items():
+        for k, v in entry.items():
+            if not live[i][k].cpu().equal(v):
+                raise AssertionError(f"{label}: AdamW's {k} of parameter {i} is not the saved one")
+
+
+def data_share(logs: list) -> list:
+    """Per epoch: the logger's seconds per step, of it the wait for data,
+    and the share."""
+    return [dict(epoch=x["epoch"], time_s=x["train_time"], data_s=x["train_data"],
+                 share=x["train_data"] / x["train_time"]) for x in logs]
+
+
+def main_levels(hw) -> tuple:
+    """The MSDA level shapes of a padded (H, W): strides 8, 16, 32, 64."""
+    return tuple((-(-hw[0] // s), -(-hw[1] // s)) for s in (8, 16, 32, 64))
+
+
+def phase_main(root: str) -> dict:
+    """``train.main`` on the card at full width and depth (ResNet-50,
+    RoBERTa-base, f_token 8, IQT, box refinement, binary, bf16 over f32
+    masters) on a synthetic 720x1280 Ref-YouTube-VOS train tree, 24
+    samples an epoch:
+    1. two epochs with ``--lr_drop 1 --num_workers 4`` (12 + 12 MSDA
+       launches per step);
+    2. a resume from ``checkpoint/`` for a third epoch: it starts at epoch 2
+       with the saved parameters and AdamW state (bitwise) and the
+       schedule's LR at step 2 x steps_per_epoch;
+    3. a resume from a reference-format ``.pth`` (``{"model", "epoch": 1}``)
+       for a third epoch: before its first step AdamW's state is empty and
+       ``TrainState.step`` = 2 x steps_per_epoch, its first LR is the
+       schedule's there, and after the epoch AdamW's own step counters
+       hold steps_per_epoch;
+    4. ``--msda_3d --batch_size 2`` for one epoch (8 + 8 3D and 4 + 4 2D
+       launches per step, N = 10).
+    Gates: one log line per epoch with finite losses, the checkpoint
+    directories, the launch counts, frames with valid = 0 and resamples;
+    then the 2D forward and backward kernels held against their plain
+    versions at the largest padded shape of run 1 (N = 5), and the 2D and
+    3D forward and backward at N = 10 at run 4's. Readings: ms/step,
+    steps/s, the step thread's CPU time a step, the logger's data time and
+    its share, the padded shapes, peak memory, checkpoint seconds and
+    bytes."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    label = "[main]"
+    tree = write_tree(os.path.join(root, "tree"), "train", MAIN_VIDEOS, seed=20,
+                      absent=MAIN_ABSENT)
+    out = os.path.join(root, "out")
+    flags = ["--dataset_file", "ytvos", "--ytvos_path", tree, *MAIN_FLAGS]
+    per_step_2d = {"msda_fwd": 12, "msda_bwd": 12, "msda3d_fwd": 0, "msda3d_bwd": 0}
+    res = {}
+    with main_probe() as rec:
+        _, res["run1"] = main_run(rec, flags + ["--output_dir", out, "--epochs", "2"],
+                                  f"{label} run 1, 2 epochs", per_step_2d)
+        spe = res["run1"]["steps"] // 2
+        logs = read_log(out)
+        for name in ("checkpoint", "checkpoint0000", "checkpoint0001"):
+            if sorted(os.listdir(os.path.join(out, name))) != ["meta.json", "model.pt",
+                                                             "optimizer.pt"]:
+                raise AssertionError(f"{label} {name}: {os.listdir(os.path.join(out, name))}")
+        shutil.rmtree(os.path.join(out, "checkpoint0000"))  # disk: 2 GB a checkpoint
+
+        def resumed(state):
+            if state.step != 2 * spe:
+                raise AssertionError(f"{label} run 2 starts at step {state.step}, not {2 * spe}")
+            assert_state_saved(state, os.path.join(out, "checkpoint"), f"{label} run 2")
+
+        rec["on_first"] = resumed
+        _, res["run2"] = main_run(rec, flags + ["--output_dir", out, "--epochs", "3", "--resume",
+                                                os.path.join(out, "checkpoint")],
+                                  f"{label} run 2, resumed for epoch 2", per_step_2d)
+        if rec["on_first"] is not None:
+            raise AssertionError(f"{label} run 2 took no step")
+        logs = read_log(out)
+        if [x["epoch"] for x in logs] != [0, 1, 2]:
+            raise AssertionError(f"{label} log.txt epochs {[x['epoch'] for x in logs]}")
+        bad = [x for x in logs if not all(math.isfinite(v) for k, v in x.items()
+                                          if k.startswith("train_loss"))]
+        if bad:
+            raise AssertionError(f"{label} log.txt holds a loss that is not finite: {bad}")
+        first_lr = rec["steps"][-res["run2"]["steps"]]["lr"]
+        want_lr = float(np.float32(np.float32(0.1) * np.float32(1e-4)))  # one drop, at spe
+        if first_lr != want_lr:
+            raise AssertionError(f"{label} run 2's first LR {first_lr}, the schedule's at step "
+                                 f"{2 * spe} is {want_lr}")
+        shutil.rmtree(os.path.join(out, "checkpoint0001"))
+
+        pth = os.path.join(root, "reference.pth")
+        torch.save({"model": torch.load(os.path.join(out, "checkpoint", "model.pt"),
+                                        weights_only=True), "epoch": 1}, pth)
+        shutil.rmtree(out)
+
+        def pth_resumed(state):
+            if state.step != 2 * spe or state.optimizer.state:
+                raise AssertionError(
+                    f"{label} run 3 starts at step {state.step} (expected {2 * spe}) with AdamW "
+                    f"state for {len(state.optimizer.state)} parameters (expected 0)")
+
+        rec["on_first"] = pth_resumed
+        out_pth = os.path.join(root, "out_pth")
+        state, res["run3"] = main_run(rec, flags + ["--output_dir", out_pth, "--epochs", "3",
+                                                    "--resume", pth],
+                                      f"{label} run 3, resumed from a .pth for epoch 2",
+                                      per_step_2d)
+        if rec["on_first"] is not None:
+            raise AssertionError(f"{label} run 3 took no step")
+        first_lr = rec["steps"][-res["run3"]["steps"]]["lr"]
+        if first_lr != want_lr:
+            raise AssertionError(f"{label} run 3's first LR {first_lr}, the schedule's at step "
+                                 f"{2 * spe} is {want_lr}")
+        # a fresh AdamW: its own counters count this epoch's steps only
+        adam_steps = {float(v["step"]) for v in state.optimizer.state.values()}
+        if state.step != 3 * spe or adam_steps != {float(spe)}:
+            raise AssertionError(f"{label} run 3 ends at step {state.step} (expected {3 * spe}) "
+                                 f"with AdamW step counters {sorted(adam_steps)} (expected {spe})")
+        if [x["epoch"] for x in read_log(out_pth)] != [2]:
+            raise AssertionError(f"{label} run 3's log.txt epochs "
+                                 f"{[x['epoch'] for x in read_log(out_pth)]}")
+        del state
+        os.remove(pth)
+        shutil.rmtree(out_pth)
+        torch.cuda.empty_cache()
+
+        out3 = os.path.join(root, "out_3d")
+        _, res["run4"] = main_run(
+            rec, flags + ["--output_dir", out3, "--epochs", "1", "--msda_3d", "--batch_size", "2"],
+            f"{label} run 4, --msda_3d --batch_size 2",
+            {"msda_fwd": 4, "msda_bwd": 4, "msda3d_fwd": 8, "msda3d_bwd": 8})
+        logs3 = read_log(out3)
+        shutil.rmtree(out3)
+    torch.cuda.empty_cache()
+    if not res["run1"]["invisible_frames"] + res["run2"]["invisible_frames"]:
+        raise AssertionError(f"{label} no batch held a frame with valid = 0")
+    resamples = sum(r["attempts"] - r["samples"] for r in res.values())
+    if not resamples:
+        raise AssertionError(f"{label} no clip was resampled")
+    res.update(data=data_share(logs), data_3d=data_share(logs3), resamples=resamples,
+               steps_per_epoch=spe)
+    for row in res["data"] + res["data_3d"]:
+        log(f"{label} epoch {row['epoch']}: {row['time_s']:.4f} s a step by the logger, "
+            f"{row['data_s']:.4f} s of it waiting for data ({100 * row['share']:.1f}%)")
+
+    hw = max(res["run1"]["hw"], key=lambda x: x[0] * x[1])
+    hw3 = max(res["run4"]["hw"], key=lambda x: x[0] * x[1])
+    lv, lv3 = main_levels(hw), main_levels(hw3)
+    res["hold"] = {"hw": hw, "levels": lv,
+                   "fwd": phase_kernels(e=1, shapes=lv),
+                   "bwd": phase_backward_kernels(5, shapes=lv),
+                   "hw_3d": hw3, "levels_3d": lv3,
+                   "fwd_n10": phase_kernels(e=2, shapes=lv3),
+                   "bwd_n10": phase_backward_kernels(10, shapes=lv3),
+                   "fwd_3d": phase_kernels(e=2, is_3d=True, shapes=lv3),
+                   "bwd_3d": phase_backward_kernels(10, is_3d=True, shapes=lv3)}
+    log(f"{label} the 2D forward and backward held against plain at run 1's largest padded "
+        f"(H, W) {hw}, levels {lv}, N = 5; the 2D and 3D forward and backward at N = 10 at "
+        f"run 4's {hw3}, levels {lv3}")
+    return res
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2322,14 +2696,17 @@ def nvidia_smi_line() -> str:
 
 
 def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, train: dict,
-                 serve3: dict, train3: dict) -> dict:
+                 serve3: dict, train3: dict, main_runs: dict) -> dict:
     """The JSON ``kernels`` record: each kernel's main shape in its
     deployment dtype (the encoder call in bf16: E = 4 for the forwards'
     serving paths, N = 5 for the training steps' backwards) in the top-level
     numbers, every measured shape under ``shapes``. ``launches`` counts the
     launches of the kernel's own main path (flagship serving for msda_fwd,
     flagship training for msda_bwd, the --msda_3d serving and training paths
-    for the 3D kernels); ``launches_by_path`` gives every path's count."""
+    for the 3D kernels); ``launches_by_path`` gives every path's count,
+    ``train.main``'s two runs (phase 9: 2D, two epochs; ``--msda_3d``) among
+    them, and ``shapes`` the calls held at those runs' largest padded
+    shapes (``main_HxW`` N = 5, ``main_3d_HxW`` N = 10)."""
     def entry(name, source, replaces, also, main, launches, by_path, shapes):
         return {"name": name, "route": "cuda", "source": f"tce_rvos_tpu_torch/csrc/{source}",
                 "replaces": f"tce_rvos_tpu/ops/{replaces}",
@@ -2343,26 +2720,44 @@ def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, tr
         return {f"{outer}/{k}": v for outer, inner in d.items() for k, v in inner.items()}
 
     s3 = serve3["launches"]
+    m2, m3 = main_runs["run1"]["launches"], main_runs["run4"]["launches"]
+    hold = main_runs["hold"]
+    run1, run4 = (f"main_{hold['hw'][0]}x{hold['hw'][1]}",
+                  f"main_3d_{hold['hw_3d'][0]}x{hold['hw_3d'][1]}")
+    at_main = {"fwd": {**{f"{run1}/{k}": v for k, v in hold["fwd"].items()},
+                       **{f"{run4}/{k}": v for k, v in hold["fwd_n10"].items()}},
+               "bwd": {**{f"{run1}/{k}": v for k, v in hold["bwd"].items()},
+                       **{f"{run4}/{k}": v for k, v in hold["bwd_n10"].items()}},
+               "fwd3": {f"{run4}/{k}": v for k, v in hold["fwd_3d"].items()},
+               "bwd3": {f"{run4}/{k}": v for k, v in hold["bwd_3d"].items()}}
+
+    def by_path(d, kname):
+        return {**d, "train_main": m2[kname], "train_main_3d": m3[kname]}
+
     return {"kernels": [
         entry("msda_fwd", "msda_fwd.cu", "pallas_msda.py:166", ["pallas_msda.py:265"],
               kern["e4"]["encoder/bfloat16"], serve,
-              {"serve": serve, "train": train["plain"]["launches"], "serve_3d": s3["msda_fwd"],
-               "train_3d": train3["launches"]}, flat(kern)),
+              by_path({"serve": serve, "train": train["plain"]["launches"],
+                       "serve_3d": s3["msda_fwd"], "train_3d": train3["launches"]}, "msda_fwd"),
+              {**flat(kern), **at_main["fwd"]}),
         entry("msda_bwd", "msda_bwd.cu", "pallas_msda_bwd.py:70",
               ["pallas_msda_bwd.py:157", "pallas_msda_bwd.py:232", "pallas_msda_bwd.py:311"],
               bwd["encoder/bfloat16"], train["plain"]["backward_launches"],
-              {"serve": 0, "train": train["plain"]["backward_launches"], "serve_3d": 0,
-               "train_3d": train3["backward_launches"]}, bwd),
+              by_path({"serve": 0, "train": train["plain"]["backward_launches"], "serve_3d": 0,
+                       "train_3d": train3["backward_launches"]}, "msda_bwd"),
+              {**bwd, **at_main["bwd"]}),
         entry("msda3d_fwd", "msda3d_fwd.cu", "pallas_msda_3d.py:51", ["pallas_msda_3d.py:124"],
               kern3["e4"]["encoder/bfloat16"], s3["msda3d_fwd"],
-              {"serve": 0, "train": 0, "serve_3d": s3["msda3d_fwd"],
-               "train_3d": train3["launches_3d"]}, flat(kern3)),
+              by_path({"serve": 0, "train": 0, "serve_3d": s3["msda3d_fwd"],
+                       "train_3d": train3["launches_3d"]}, "msda3d_fwd"),
+              {**flat(kern3), **at_main["fwd3"]}),
         entry("msda3d_bwd", "msda3d_bwd.cu", "pallas_msda_3d_bwd.py:48",
               ["pallas_msda_3d_bwd.py:120", "pallas_msda_3d_bwd.py:175",
                "pallas_msda_3d_bwd.py:247"],
               bwd3["n5"]["encoder/bfloat16"], train3["backward_launches_3d"],
-              {"serve": 0, "train": 0, "serve_3d": 0,
-               "train_3d": train3["backward_launches_3d"]}, flat(bwd3)),
+              by_path({"serve": 0, "train": 0, "serve_3d": 0,
+                       "train_3d": train3["backward_launches_3d"]}, "msda3d_bwd"),
+              {**flat(bwd3), **at_main["bwd3"]}),
     ]}
 
 
@@ -2422,11 +2817,15 @@ def main() -> int:
     envelope = phase_envelope(sd, videos[0])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         protocols = phase_protocols(sd, sd3, root)
-    log("[numbers] " + json.dumps({"envelope": envelope, "protocols": protocols}))
+    del sd, sd3
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_main_") as root:
+        main_runs = phase_main(root)
+    log("[numbers] " + json.dumps({"envelope": envelope, "protocols": protocols,
+                                   "main": main_runs}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels_line(kern, bwd, kern3, bwd3, paths["bfloat16"]["launches"], train,
-                                  serve3, train3)))
+                                  serve3, train3, main_runs)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

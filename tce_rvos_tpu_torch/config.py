@@ -1,6 +1,7 @@
 """Configuration of the port: its own copy of the architecture fields of
 ``tce_rvos_tpu/config.py::ModelConfig`` that the ported paths read, and of
-``TrainConfig``, with the same names and defaults, and ``flagship_config``.
+``TrainConfig`` and ``DataConfig``, with the same names and defaults, and
+``flagship_config``.
 
 ``msda_impl`` is gone: the device decides (the CUDA kernels on the card, the
 plain version on the CPU). ``compute_dtype`` stays: "bfloat16" casts the
@@ -121,6 +122,31 @@ class TrainConfig:
     freeze_text_encoder: bool = False
 
     seed: int = 42
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Dataset paths and sampling options (reference: opts.py:108-132,
+    147-152), the JAX package's fields and defaults."""
+
+    dataset_file: str = "ytvos"
+    coco_path: str = "data/coco"
+    ytvos_path: str = "data/Refer_YouTube_VOS/rvos"
+    mevis_path: str = "data/MeViS"
+    davis_path: str = "/data/davis17"
+    a2d_path: str = "/data/a2d_sentences"
+    jhmdb_path: str = "data/jhmdb_sentences"
+    max_skip: int = 3
+    max_size: int = 640
+    remove_difficult: bool = False
+    num_workers: int = 4
+    keep_fps: bool = False
+    vid_aug: bool = False
+    pretrain_enc: bool = False
+    pretrain_coco: bool = False
+    # per-node dataset sharding (reference --cache_mode +
+    # NodeDistributedSampler, datasets/samplers.py:75-139)
+    cache_mode: bool = False
 
 
 def flagship_config(**overrides) -> ModelConfig:

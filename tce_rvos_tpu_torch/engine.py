@@ -25,7 +25,9 @@ def train_one_epoch(
     """Runs ``step_fn(state, batch)`` (``parallel/train_step.py``) over
     ``loader`` with the model in train mode (dropout on). Returns the state
     and the epoch's global averages of the metrics. A loss that is not
-    finite prints the metrics and stops training (exit code 1)."""
+    finite prints the metrics and stops training (exit code 1). The
+    averages include the logger's seconds per step (``time``) and, of them,
+    the wait for the next batch (``data``)."""
     state.model.train()
     logger = MetricLogger()
     logger.add_meter("lr", SmoothedValue(window_size=1, fmt="{value:.6f}"))
@@ -44,4 +46,6 @@ def train_one_epoch(
             sys.exit(1)
         logger.update(loss=loss, **host)
 
-    return state, {k: m.global_avg for k, m in logger.meters.items()}
+    stats = {k: m.global_avg for k, m in logger.meters.items()}
+    stats.update(time=logger.iter_time.global_avg, data=logger.data_time.global_avg)
+    return state, stats

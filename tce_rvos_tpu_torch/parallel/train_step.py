@@ -26,9 +26,11 @@ gradients to the masters; the video is cast to bf16; the outputs are
 upcast to float32 before the criterion. No loss scaling: bf16 has
 float32's exponent range.
 
+A resume from a checkpoint without optimizer state fast-forwards only the
+schedules' counter (``seed_schedule_step``).
+
 Not ported yet: the fused flat AdamW (a TPU launch-count optimisation with
-the same update), ``seed_schedule_step`` (with checkpoints and resume), and
-data parallelism.
+the same update) and data parallelism.
 """
 
 from __future__ import annotations
@@ -199,26 +201,46 @@ def make_train_step(crit_cfg: CriterionConfig, compute_dtype: Optional[str] = No
     module's mode: ``train()`` draws dropout, ``eval()`` does not."""
 
     def step(state: TrainState, batch: Mapping):
-        model, opt = state.model, state.optimizer
+        model = state.model
         batch = batch_to_device(batch, next(model.parameters()).device)
-        opt.zero_grad(set_to_none=True)
+        state.optimizer.zero_grad(set_to_none=True)
         total, losses = forward_losses(model, batch, crit_cfg, compute_dtype)
         total.backward()
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        torch._foreach_mul_(grads, torch.where(gnorm < state.clip_max_norm, 1.0,
-                                               state.clip_max_norm / gnorm))
-        for group in opt.param_groups:
-            group["lr"] = state.schedules[group["tier"]](state.step)
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        opt.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
-        metrics["grad_norm"] = gnorm
         metrics["lr"] = state.schedules["base"](state.step)
-        state.step += 1
+        metrics["grad_norm"] = apply_gradients(state)
         return state, metrics
 
     return step
+
+
+def apply_gradients(state: TrainState) -> torch.Tensor:
+    """The update from the gradients in ``p.grad``: the global-norm clip,
+    each tier's LR at ``state.step``, one AdamW step, then ``state.step``
+    advanced. Returns the norm before the clip."""
+    grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+    gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    torch._foreach_mul_(grads, torch.where(gnorm < state.clip_max_norm, 1.0,
+                                           state.clip_max_norm / gnorm))
+    for group in state.optimizer.param_groups:
+        group["lr"] = state.schedules[group["tier"]](state.step)
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    state.optimizer.step()
+    state.step += 1
+    return gnorm
+
+
+def seed_schedule_step(state: TrainState, step: int) -> TrainState:
+    """Fast-forward ONLY the schedules' counter (``state.step``) after a
+    resume that carried no optimizer state (a reference-format ``.pth``):
+    the reference restores its lr_scheduler on resume (main.py:195-211), so
+    MultiStep ``lr_drop`` boundaries count from epoch 0, while its Adam
+    starts fresh. AdamW's per-parameter ``step`` stays absent (0): a
+    bias-correction counter fast-forwarded over zero moments would scale
+    the first updates after the resume by about
+    (1/(1-b1)) / sqrt(1/(1-b2)) = 3.2x."""
+    state.step = int(step)
+    return state

@@ -1,12 +1,13 @@
 """Checkpoint ingestion of the port (counterpart of
-``tce_rvos_tpu/utils/checkpoint.py::load_torch_file`` and
-``convert_state_dict``).
+``tce_rvos_tpu/utils/checkpoint.py::load_torch_file``,
+``convert_state_dict`` and ``drop_class_heads``).
 
 The port's parameters already carry the reference torch layout and names
 (``utils/convert.py``), so a reference ``.pth`` needs no conversion: it is
 laid over the state_dict of a freshly built model with the reference's
 ``strict=False`` semantics (missing and unexpected keys are reported, a
-shape mismatch raises). Saving and restoring training state is not here.
+shape mismatch raises). Saving and restoring training state is in
+``utils/native_ckpt.py``.
 """
 
 from __future__ import annotations
@@ -67,3 +68,15 @@ def convert_state_dict(
               f"{len(missing)} model tensors left at init, "
               f"{len(unexpected)} checkpoint keys unused")
     return out, missing, unexpected
+
+
+def drop_class_heads(state_dict: Mapping[str, torch.Tensor], num_layers: int = 4
+                     ) -> Dict[str, torch.Tensor]:
+    """A copy without the class heads of the first ``num_layers`` decoder
+    layers, which a fine-tune with another class count re-initialises
+    (the reference's tools/load_pretrained_weights.py:3-11)."""
+    out = dict(state_dict)
+    for layer in range(num_layers):
+        out.pop(f"class_embed.{layer}.weight", None)
+        out.pop(f"class_embed.{layer}.bias", None)
+    return out

@@ -76,8 +76,9 @@ class MetricLogger:
         i = 0
         start = time.time()
         end = time.time()
-        iter_time = SmoothedValue(fmt="{avg:.4f}")
-        data_time = SmoothedValue(fmt="{avg:.4f}")
+        # kept on the logger: seconds per iteration, and of it the wait for data
+        iter_time = self.iter_time = SmoothedValue(fmt="{avg:.4f}")
+        data_time = self.data_time = SmoothedValue(fmt="{avg:.4f}")
         try:
             total = len(iterable)
         except TypeError:

@@ -20,9 +20,9 @@
   (``launch_plan``: path, queries per block, staged levels, shared-memory
   bytes) and the alignment ``_check`` demands of the pointers (of the 3D
   kernels' too);
-* the port imports no JAX, Flax or ``tce_rvos_tpu`` module: an AST scan of
-  every module and of ``chip_smoke.py``, and a fresh process that imports
-  every module.
+* the port imports no JAX, Flax, ``tce_rvos_tpu`` or cv2 module: an AST
+  scan of every module (the data pipeline and the trainer included) and of
+  ``chip_smoke.py``, and a fresh process that imports every module.
 
 The CUDA kernels against the plain version are in
 ``tests/test_torch_cuda_kernels.py``.
@@ -331,7 +331,8 @@ def test_check_rejects_misaligned_pointers(coords):
 
 # ---- import rule ---------------------------------------------------------
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tce_rvos_tpu")
+# cv2 too: the port's data pipeline must run on hosts that do not have it
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tce_rvos_tpu", "cv2")
 
 
 def _imported_roots(path: Path):
@@ -347,6 +348,8 @@ def _imported_roots(path: Path):
 def test_port_imports_no_jax_or_jax_package():
     files = sorted((REPO / "tce_rvos_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    assert {"train.py", "native_ckpt.py", "nested.py", "transforms.py", "ytvos.py",
+            "registry.py", "loader.py", "categories.py"} <= {f.name for f in files}
     bad = [(str(f.relative_to(REPO)), name) for f in files for name in _imported_roots(f)
            if name.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -360,7 +363,11 @@ def test_importing_the_port_loads_no_jax():
     modules = sorted(".".join(f.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
                      for f in package.rglob("*.py"))
     assert {"tce_rvos_tpu_torch.cli", "tce_rvos_tpu_torch.tools.colormap",
-            "tce_rvos_tpu_torch.utils.checkpoint"} <= set(modules)
+            "tce_rvos_tpu_torch.utils.checkpoint", "tce_rvos_tpu_torch.train",
+            "tce_rvos_tpu_torch.utils.native_ckpt", "tce_rvos_tpu_torch.utils.nested",
+            "tce_rvos_tpu_torch.data.categories", "tce_rvos_tpu_torch.data.transforms",
+            "tce_rvos_tpu_torch.data.ytvos", "tce_rvos_tpu_torch.data.registry",
+            "tce_rvos_tpu_torch.data.loader"} <= set(modules)
     code = ("import importlib, sys; before = set(sys.modules);"
             f"[importlib.import_module(m) for m in {modules!r}];"
             "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in "

@@ -9,6 +9,8 @@ the top-k sample export a tie, and the parity tests weak.
 from __future__ import annotations
 
 import functools
+import json
+import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Tuple
 
@@ -185,12 +187,14 @@ def train_targets(seed=0):
             "masks": (rng.rand(b, t, h, w) > 0.5).astype(np.float32), "valid": valid}
 
 
-def jax_train_steps(tiny, tcfg, targets, n_steps):
+def jax_train_steps(tiny, tcfg, targets, n_steps, inputs=None):
     """Per step: (losses, grad norm, grads, params after), as numpy with the
-    port's names and layouts. The JAX package's ``make_train_step`` always
+    port's names and layouts, on ``inputs`` (the tiny model's own unless
+    given) and ``targets``. The JAX package's ``make_train_step`` always
     draws dropout, so the loss is built here from ``model.apply(...,
     deterministic=True)`` and ``criterion``."""
-    jcfg, model, variables, _, inputs = tiny
+    jcfg, model, variables, _, own_inputs = tiny
+    inputs = own_inputs if inputs is None else inputs
     params = variables["params"]
     frozen = {k: v for k, v in variables.items() if k != "params"}
     crit = jax_criterion_from_configs(jcfg, tcfg)
@@ -204,12 +208,24 @@ def jax_train_steps(tiny, tcfg, targets, n_steps):
 
     tx = jax_ts.make_optimizer(params, tcfg, steps_per_epoch=1)
 
-    @jax.jit  # one compile for the whole step: eager optax ops compile per leaf shape
-    def jax_step(params, opt_state):
-        (_, losses), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    def update(grads, opt_state, params):
         updates, opt_state = tx.update(grads, opt_state, params)
-        return (losses, optax.global_norm(grads), grads, optax.apply_updates(params, updates),
-                opt_state)
+        return optax.global_norm(grads), optax.apply_updates(params, updates), opt_state
+
+    # jitted, as eager optax ops compile per leaf shape; the gradient and the
+    # update compile at once in two threads (XLA releases the GIL)
+    opt_shapes = jax.eval_shape(tx.init, params)
+    with ThreadPoolExecutor(2) as pool:
+        grad_fn = pool.submit(
+            lambda: jax.jit(jax.value_and_grad(loss_fn, has_aux=True)).lower(params).compile())
+        update_fn = pool.submit(
+            lambda: jax.jit(update).lower(params, opt_shapes, params).compile())
+        grad_fn, update_fn = grad_fn.result(), update_fn.result()
+
+    def jax_step(params, opt_state):
+        (_, losses), grads = grad_fn(params)
+        gnorm, params, opt_state = update_fn(grads, opt_state, params)
+        return losses, gnorm, grads, params, opt_state
 
     def port_layout(tree):
         flat = traverse_util.flatten_dict(tree, sep="/")
@@ -225,11 +241,13 @@ def jax_train_steps(tiny, tcfg, targets, n_steps):
     return steps
 
 
-def check_two_train_steps(variant: str) -> None:
-    """Two steps of the port's ``make_train_step`` on the tiny model of
-    ``VARIANTS[variant]`` (f32, dropout off) against ``jax.value_and_grad``
-    of the JAX model's loss and the optax chain of ``make_optimizer``, from
-    the same weights and batch.
+def check_two_train_steps(variant: str, batch=None, jax_batch=None, n_steps: int = 2) -> None:
+    """Two steps (or ``n_steps``) of the port's ``make_train_step`` on the
+    tiny model of ``VARIANTS[variant]`` (f32, dropout off) against
+    ``jax.value_and_grad`` of the JAX model's loss and the optax chain of
+    ``make_optimizer``, from the same weights, on ``batch`` (model inputs
+    and ``targets``; by default the tiny model's inputs and
+    ``train_targets()``), the JAX side on ``jax_batch`` if given.
 
     Losses and the pre-clip grad norm at 2e-3. Each parameter's (clipped)
     gradient: its difference within 2e-3 of the tensor's gradient in L2
@@ -259,11 +277,15 @@ def check_two_train_steps(variant: str) -> None:
     tiny = tiny_model(variant)
     _, _, _, flat, inputs = tiny
     kw = dict(lr_drop=(1,))
-    targets = train_targets()
+    if batch is None:
+        batch = dict(inputs, targets=train_targets())
+    jax_batch = batch if jax_batch is None else jax_batch
+    jax_inputs = {k: v for k, v in jax_batch.items() if k in inputs}
     # the JAX steps (mostly XLA's compile, which releases the GIL) in a
     # thread, while the port builds its model and takes its first step
     jax_steps = ThreadPoolExecutor(1)
-    want = jax_steps.submit(jax_train_steps, tiny, JaxTrainConfig(**kw), targets, 2)
+    want = jax_steps.submit(jax_train_steps, tiny, JaxTrainConfig(**kw), jax_batch["targets"],
+                            n_steps, jax_inputs)
 
     tcfg = TrainConfig(**kw)
     cfg = ModelConfig(**VARIANTS[variant])
@@ -275,8 +297,7 @@ def check_two_train_steps(variant: str) -> None:
     tiers = {name: train_step.param_group(name, tcfg) for name, _ in port.named_parameters()}
     lr0 = {"base": tcfg.lr, "backbone": tcfg.lr_backbone, "text_encoder": tcfg.lr_text_encoder,
            "linear_proj": tcfg.lr * tcfg.lr_linear_proj_mult}
-    batch = dict(inputs, targets=targets)
-    for k in range(2):
+    for k in range(n_steps):
         before = {n: p.detach().clone() for n, p in port.named_parameters()}
         state, metrics = step(state, batch)
         if k == 0:
@@ -311,4 +332,53 @@ def check_two_train_steps(variant: str) -> None:
         with torch.no_grad():  # the next step starts where the JAX one does
             for name, p in port.named_parameters():
                 p.copy_(torch.from_numpy(params_after[name]))
-    assert state.step == 2
+    assert state.step == n_steps
+
+
+# ---- synthetic Ref-YouTube-VOS train trees ------------------------------------------
+
+
+def write_ytvos_tree(root, n_videos: int = 2, n_frames: int = 6, hw=(48, 64),
+                     second_object: bool = False, seed: int = 0):
+    """A Ref-YouTube-VOS train split under ``root`` (tests/test_data.py's
+    layout): random JPEG frames, palette PNG annotations, meta.json and
+    meta_expressions. Object 2 ("the cat on the left") moves a pixel a frame
+    and is in every frame. ``second_object`` adds object 3 ("the dog on the
+    right"), present only in the last two frames of the first video and in
+    no frame of the others, so clips with valid = 0 frames and the
+    resample-on-empty loop both occur. Returns ``root``."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    meta, meta_exp = {"videos": {}}, {"videos": {}}
+    palette = [c for i in range(256) for c in (i, i, i)]
+    for v in range(n_videos):
+        vid = f"vid_{v}"
+        frames = [f"{i:05d}" for i in range(n_frames)]
+        for sub in ("JPEGImages", "Annotations"):
+            os.makedirs(os.path.join(root, "train", sub, vid))
+        for i, f in enumerate(frames):
+            img = (rng.rand(h, w, 3) * 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(root, "train", "JPEGImages", vid, f + ".jpg"))
+            mask = np.zeros((h, w), np.uint8)
+            mask[h // 5 + i: h // 5 + i + h // 3, w // 4 + 2 * i: w // 4 + 2 * i + w // 4] = 2
+            if second_object and v == 0 and i >= n_frames - 2:
+                mask[h - 12: h - 4, w - 16: w - 6] = 3
+            pal = Image.fromarray(mask, mode="P")
+            pal.putpalette(palette)
+            pal.save(os.path.join(root, "train", "Annotations", vid, f + ".png"), bits=8)
+        objects = {"2": {"category": "cat"}}
+        exps = {"0": {"exp": "the cat on the left", "obj_id": "2"}}
+        if second_object:
+            objects["3"] = {"category": "dog"}
+            exps["1"] = {"exp": "The  dog on the RIGHT", "obj_id": "3"}
+        meta["videos"][vid] = {"objects": objects}
+        meta_exp["videos"][vid] = {"frames": frames, "expressions": exps}
+    with open(os.path.join(root, "train", "meta.json"), "w") as fh:
+        json.dump(meta, fh)
+    os.makedirs(os.path.join(root, "meta_expressions", "train"))
+    with open(os.path.join(root, "meta_expressions", "train", "meta_expressions.json"),
+              "w") as fh:
+        json.dump(meta_exp, fh)
+    return root
