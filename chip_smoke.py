@@ -85,7 +85,25 @@ Phases (each one fails the run, nothing is caught and carried on from):
                (N = 10); ms/step and the step thread's CPU time, the
                logger's data share, padded shapes, peak memory, checkpoint
                seconds and bytes;
- 10. numbers - card name and power limit, clips/s and ms per trunk
+ 10. eval    - evaluation at full width, bf16, on synthetic trees at the
+               datasets' sizes: ``train.main --eval`` on JHMDB-Sentences
+               (320x240 PNG frames, puppet_mask.mat; 12 2D forward
+               launches a batch of N = 2 annotated frames; the metric keys
+               and ranges; the ground truth against itself scores 1.0; an
+               f32 GPU-against-CPU check on 2 samples) and on RefCOCO
+               (640x480 JPEGs with polygons, ``--masks``; P@K and the COCO
+               box and mask stats; the ground truth against itself scores
+               1.0); ``eval_davis`` on phase 8's davis PNGs (J&F in [0, 1],
+               1.0 for the annotations against themselves); one
+               ``train_joint`` epoch (RefCOCO/+/g pseudo-videos and phase
+               9's ytvos tree, batch 2) and one MeViS epoch (12 + 12 launches
+               a step); the 2D forward held against plain at each
+               evaluation's shape and both 2D kernels at train_joint's
+               largest; samples/s with the evaluator's wall split into the
+               loader's wait, the device forward, the device postprocess,
+               the host postprocess with RLE encoding and the metric;
+               ms/step and data share; eval_davis's seconds;
+ 11. numbers - card name and power limit, clips/s and ms per trunk
                forward, peak memory per E, and a JSON ``kernels`` line.
 
 The last line of standard output is the device JSON line. Without a CUDA
@@ -98,6 +116,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -438,10 +457,10 @@ def hold_plan(backward: bool, label: str, value, shapes, loc) -> dict:
     return got
 
 
-def phase_kernels(e: int, is_3d: bool = False, shapes=FLAGSHIP_SHAPES) -> dict:
+def phase_kernels(e: int, is_3d: bool = False, shapes=FLAGSHIP_SHAPES, n: int = None) -> dict:
     """Forward kernel against plain at the serving trunk's MSDA call shapes
-    (N = 5 frames x E expressions, levels ``shapes``, the 384x640 clip's
-    unless given): 2D at the encoder, FTF and decoder shapes; 3D (the
+    (N = 5 frames x E expressions, or ``n`` frames, levels ``shapes``, the
+    384x640 clip's unless given): 2D at the encoder, FTF and decoder shapes; 3D (the
     ``--msda_3d`` trunk) at the encoder and decoder shapes, with frames past
     both ends of the axis, exact-integer and halfway frames. Returns
     per-shape numbers."""
@@ -453,7 +472,7 @@ def phase_kernels(e: int, is_3d: bool = False, shapes=FLAGSHIP_SHAPES) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(2 if is_3d else 0)
     s = sum(h * w for h, w in shapes)
-    n = 5 * e
+    n = 5 * e if n is None else n
     op, plain = ((ms_deform_attn_3d, ms_deform_attn_3d_plain) if is_3d
                  else (ms_deform_attn, ms_deform_attn_plain))
     kname = "msda3d_fwd" if is_3d else "msda_fwd"
@@ -2452,10 +2471,11 @@ def read_log(out: str) -> list:
         return [json.loads(line) for line in fh]
 
 
-def main_run(rec: dict, argv: list, label: str, launches_per_step: dict) -> tuple:
-    """One ``train.main`` run under ``main_probe``: the launch counts set to
-    0 before it and read after, held at ``launches_per_step`` per step;
-    finite losses. Returns (the final TrainState, the run's numbers)."""
+def main_run(rec: dict, argv: list, label: str, launches_per_step: dict, entry=None) -> tuple:
+    """One ``train.main`` run (or ``entry``'s, e.g. ``train_joint.main``)
+    under ``main_probe``: the launch counts set to 0 before it and read
+    after, held at ``launches_per_step`` per step; finite losses. Returns
+    (the final TrainState, the run's numbers)."""
     import torch
 
     from tce_rvos_tpu_torch import train
@@ -2467,7 +2487,7 @@ def main_run(rec: dict, argv: list, label: str, launches_per_step: dict) -> tupl
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    state = train.main(argv)
+    state = (entry or train.main)(argv)
     wall = time.perf_counter() - t0
     counts = launch_counts()
     steps = rec["steps"][first:]
@@ -2687,6 +2707,541 @@ def phase_main(root: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 10: evaluation (train.main --eval), eval_davis, train_joint, mevis
+# ---------------------------------------------------------------------------
+
+EVAL_FLAGS = ["--binary", "--with_box_refine", "--f_token", "8", "--qtrans",
+              "--compute_dtype", "bfloat16", "--num_workers", "4", "--device", "cuda"]
+A2D_KEYS = ["AP 0.5", "AP 0.75", "P@0.5", "P@0.6", "P@0.7", "P@0.8", "P@0.9", "mAP 0.5:0.95",
+            "mean_iou", "overall_iou"]
+JHMDB_HW, JHMDB_VIDEOS, JHMDB_FRAMES = (240, 320), 6, 30   # JHMDB's frame size
+COCO_HW = (480, 640)                                         # COCO's usual image size
+REFEXP_VAL_IMAGES, REFEXP_TRAIN_IMAGES = 8, 2
+MEVIS_VIDEOS, MEVIS_FRAMES = 3, 10
+EVAL_STAGES = ("loader wait", "device forward", "device postprocess", "host postprocess",
+               "metric")
+
+
+def smooth_frame(rng, hw, period: float = 80.0):
+    """A smooth random RGB image, uint8."""
+    import numpy as np
+
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    f = np.stack([0.5 + 0.5 * np.sin((xx * a + yy * b) / period + c)
+                  for a, b, c in rng.rand(3, 3)], -1)
+    return (f * 255).astype(np.uint8)
+
+
+def write_jhmdb(root: str, seed: int = 30) -> str:
+    """A JHMDB-Sentences root at JHMDB's size: JHMDB_VIDEOS videos of
+    JHMDB_FRAMES 320x240 PNG frames (Rename_Images, 1-based),
+    puppet_mask.mat (``part_mask`` [H, W, T], a person moving) and
+    jhmdb_sentences_samples_metadata.json, two samples a video."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+    from scipy.io import savemat
+
+    rng = np.random.RandomState(seed)
+    h, w = JHMDB_HW
+    samples = []
+    for v in range(JHMDB_VIDEOS):
+        vid = f"clip_{v}"
+        fdir = os.path.join(root, "Rename_Images", "walk", vid)
+        mdir = os.path.join(root, "puppet_mask", "walk", vid)
+        os.makedirs(fdir)
+        os.makedirs(mdir)
+        masks = np.zeros((h, w, JHMDB_FRAMES), np.uint8)
+        for i in range(JHMDB_FRAMES):
+            Image.fromarray(smooth_frame(rng, JHMDB_HW, 40.0)).save(
+                os.path.join(fdir, f"{i + 1:05d}.png"))
+            masks[40 + 2 * i: 200, 60 + 4 * i + 10 * v: 140 + 4 * i + 10 * v, i] = 1
+        savemat(os.path.join(mdir, "puppet_mask.mat"), {"part_mask": masks})
+        for frame in (3, JHMDB_FRAMES - 1 - v):
+            samples.append([f"the man walking to the right {v}", vid,
+                            f"Rename_Images/walk/{vid}/{frame:05d}.png",
+                            f"puppet_mask/walk/{vid}/puppet_mask.mat", JHMDB_FRAMES])
+    with open(os.path.join(root, "jhmdb_sentences_samples_metadata.json"), "w") as fh:
+        json.dump(samples, fh)
+    return root
+
+
+def write_refexp(root: str, name: str, split: str, n_images: int, seed: int) -> str:
+    """train2014/*.jpg (640x480) and instances_<name>_<split>.json: per
+    image a caption and one polygon annotation (a 12-vertex star), with its
+    box and polygon area."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    h, w = COCO_HW
+    os.makedirs(os.path.join(root, "train2014"), exist_ok=True)
+    images, anns = [], []
+    for i in range(n_images):
+        img_id = seed * 1000 + i
+        fname = f"COCO_train2014_{img_id:012d}.jpg"
+        Image.fromarray(smooth_frame(rng, COCO_HW)).save(os.path.join(root, "train2014", fname))
+        images.append({"id": img_id, "file_name": fname, "height": h, "width": w,
+                       "caption": CAPTIONS[i % len(CAPTIONS)]})
+        ang = np.linspace(0, 2 * np.pi, 12, endpoint=False)
+        r = np.where(np.arange(12) % 2, 0.5, 1.0) * rng.uniform(60, 180)
+        c = rng.uniform(0.3, 0.7, 2) * [w, h]
+        poly = np.clip(c + np.stack([np.cos(ang), np.sin(ang)], 1) * r[:, None], 0, [w, h])
+        x0, y0 = poly.min(0)
+        x1, y1 = poly.max(0)
+        area = 0.5 * abs(np.dot(poly[:, 0], np.roll(poly[:, 1], 1))
+                         - np.dot(poly[:, 1], np.roll(poly[:, 0], 1)))
+        anns.append({"id": i, "image_id": img_id, "iscrowd": 0, "area": float(area),
+                     "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+                     "segmentation": [poly.ravel().round(2).tolist()]})
+    with open(os.path.join(root, f"instances_{name}_{split}.json"), "w") as fh:
+        json.dump({"images": images, "annotations": anns}, fh)
+    return root
+
+
+def write_mevis_train(root: str, seed: int = 31) -> str:
+    """A MeViS train split at 720x1280: MEVIS_VIDEOS videos of
+    MEVIS_FRAMES JPEG frames, mask_dict.json (RLEs of two moving objects,
+    None where one is absent) and meta_expressions.json, one expression a
+    video (the second video's refers to both objects: the union mask)."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from tce_rvos_tpu_torch.utils import rle
+
+    rng = np.random.RandomState(seed)
+    h, w = PROTO_HW
+    mask_dict, videos = {}, {}
+    for v in range(MEVIS_VIDEOS):
+        vid = f"mv{v}"
+        os.makedirs(os.path.join(root, "train", "JPEGImages", vid))
+        names = [f"{i:05d}" for i in range(MEVIS_FRAMES)]
+        tracks = {str(2 * v): [], str(2 * v + 1): []}
+        for i, name in enumerate(names):
+            Image.fromarray(smooth_frame(rng, PROTO_HW)).save(
+                os.path.join(root, "train", "JPEGImages", vid, name + ".jpg"))
+            a = np.zeros((h, w), np.uint8)
+            a[100 + 10 * i: 400 + 10 * i, 200 + 20 * i: 500 + 20 * i] = 1
+            b = np.zeros((h, w), np.uint8)
+            if i >= 3:
+                b[420: 620, 900 - 15 * i: 1150 - 15 * i] = 1
+            tracks[str(2 * v)].append(rle.encode(a))
+            tracks[str(2 * v + 1)].append(rle.encode(b) if b.any() else None)
+        mask_dict.update(tracks)
+        anno = [2 * v, 2 * v + 1] if v == 1 else [2 * v]
+        videos[vid] = {"frames": names, "expressions": {"0": {
+            "exp": CAPTIONS[v], "obj_id": list(range(len(anno))), "anno_id": anno}}}
+    with open(os.path.join(root, "train", "mask_dict.json"), "w") as fh:
+        json.dump(mask_dict, fh)
+    with open(os.path.join(root, "train", "meta_expressions.json"), "w") as fh:
+        json.dump({"videos": videos}, fh)
+    return root
+
+
+def write_davis_annotations(root: str, seqs: dict) -> str:
+    """A DAVIS 2017 root for ``eval_davis`` (the unsupervised task):
+    ImageSets/2017/val.txt and Annotations_unsupervised/480p/<seq>/*.png
+    palette PNGs at PROTO_HW with two moving objects (labels 1 and 2) and
+    the void label 255 on the border."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from tce_rvos_tpu_torch import infer
+
+    os.makedirs(os.path.join(root, "ImageSets", "2017"))
+    with open(os.path.join(root, "ImageSets", "2017", "val.txt"), "w") as fh:
+        fh.write("\n".join(seqs) + "\n")
+    h, w = PROTO_HW
+    for seq, n in seqs.items():
+        d = os.path.join(root, "Annotations_unsupervised", "480p", seq)
+        os.makedirs(d)
+        for i in range(n):
+            lab = np.zeros((h, w), np.uint8)
+            lab[150 + 5 * i: 450 + 5 * i, 100 + 15 * i: 500 + 15 * i] = 1
+            lab[300: 600, 800 - 10 * i: 1100 - 10 * i] = 2
+            lab[:4] = lab[-4:] = 255
+            png = Image.fromarray(lab, mode="P")
+            png.putpalette(infer.davis_palette())
+            png.save(os.path.join(d, f"{i:05d}.png"))
+    return root
+
+
+def msda_per_forward(cfg) -> int:
+    """2D MSDA calls of one ReferFormer forward, as the transformer makes
+    them: one self-attention per encoder layer, one frame-token attention
+    per encoder layer when f_token > 0 (FTF), one cross-attention per
+    decoder layer."""
+    return cfg.enc_layers * (2 if cfg.f_token else 1) + cfg.dec_layers
+
+
+@contextlib.contextmanager
+def eval_probe():
+    """Instruments ``train.main --eval``: the wall time of the evaluator,
+    split into the wait for the loader's next batch, the device forward,
+    the device postprocess (each ended by a synchronise), the host
+    postprocess (with RLE encoding) and the metric (the evaluators'
+    per-image matching and summaries); the padded (H, W) and size of each
+    batch; the evaluator's arguments (its ground truth)."""
+    import torch
+
+    from tce_rvos_tpu_torch import engine
+    from tce_rvos_tpu_torch.data.loader import PrefetchLoader
+    from tce_rvos_tpu_torch.eval import a2d_eval, coco_eval, refexp_eval
+    from tce_rvos_tpu_torch.models import postprocessors
+
+    rec = {"spent": dict.fromkeys(EVAL_STAGES, 0.0), "evaluate_s": 0.0, "batches": [],
+           "args": None, "gt": None}
+    spent = rec["spent"]
+
+    def timed(stage, fn, sync=False):
+        def call(*args, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+                return out
+            finally:
+                spent[stage] += time.perf_counter() - t0
+        return call
+
+    def evaluator(fn):
+        def call(*args, **kw):
+            rec["args"] = (args, kw)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                rec["evaluate_s"] += time.perf_counter() - t0
+        return call
+
+    def forward(make):
+        def wrapped(model, compute_dtype="float32"):
+            fwd = timed("device forward", make(model, compute_dtype), sync=True)
+
+            def call(batch, *args, **kw):
+                rec["batches"].append((tuple(int(x) for x in batch["video"].shape[:4])))
+                return fwd(batch, *args, **kw)
+            return call
+        return wrapped
+
+    loader_iter = PrefetchLoader.__iter__
+
+    def waited(self):
+        it = loader_iter(self)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            finally:
+                spent["loader wait"] += time.perf_counter() - t0
+            yield batch
+
+    patches = [(postprocessors, "a2d_device_postprocess",
+                lambda f: timed("device postprocess", f, sync=True))]
+    patches += [(postprocessors, n, lambda f: timed("host postprocess", f))
+                for n in ("a2d_host_postprocess", "coco_postprocess_bbox", "coco_postprocess_segm")]
+    def recording_gt(fn):
+        def call(gt_by_image, *args, **kw):
+            rec["gt"] = gt_by_image
+            return fn(gt_by_image, *args, **kw)
+        return call
+
+    patches += [(a2d_eval, "calculate_map", lambda f: recording_gt(timed("metric", f))),
+                (a2d_eval, "calculate_precision_at_k_and_iou_metrics",
+                 lambda f: timed("metric", f)),
+                (refexp_eval.RefExpEvaluator, "summarize", lambda f: timed("metric", f)),
+                (coco_eval.CocoEvaluator, "update", lambda f: timed("metric", f)),
+                (coco_eval.CocoEvaluator, "stats", lambda f: timed("metric", f)),
+                (engine, "evaluate_a2d", evaluator), (engine, "evaluate_coco_pretrain", evaluator),
+                (engine, "model_forward", forward), (PrefetchLoader, "__iter__", lambda f: waited)]
+    originals = [(owner, name, getattr(owner, name)) for owner, name, _ in patches]
+    for owner, name, wrap in patches:
+        setattr(owner, name, wrap(getattr(owner, name)))
+    try:
+        yield rec
+    finally:
+        for owner, name, fn in originals:
+            setattr(owner, name, fn)
+
+
+def eval_run(argv: list, label: str, per_batch: int) -> tuple:
+    """One ``train.main --eval`` run under ``eval_probe`` with the launch
+    counts set to 0 before it and read after, held at ``per_batch`` 2D
+    forward launches per batch. Returns (the metric dict, the run's
+    numbers, the probe's record)."""
+    import torch
+
+    from tce_rvos_tpu_torch import train
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with eval_probe() as rec:
+        t0 = time.perf_counter()
+        stats = train.main(argv)
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    batches = rec["batches"]
+    want = {"msda_fwd": per_batch * len(batches), "msda_bwd": 0, "msda3d_fwd": 0,
+            "msda3d_bwd": 0}
+    if counts != want:
+        raise AssertionError(f"{label}: MSDA launches {counts} over {len(batches)} batches, "
+                             f"expected {per_batch} forward launches a batch")
+    samples = sum(b[0] for b in batches)
+    secs = rec["evaluate_s"]
+    split = dict(rec["spent"], other=secs - sum(rec["spent"].values()))
+    out = dict(samples=samples, batches=len(batches), shapes=sorted(set(batches)),
+               evaluate_s=secs, main_wall_s=wall, samples_per_s=samples / secs,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=counts,
+               launches_per_batch=per_batch, split_s=split,
+               host_share=(split["host postprocess"] + split["metric"]) / secs)
+    log(f"{label} {samples} samples in {len(batches)} batches (shapes [b, t, H, W] "
+        f"{out['shapes']}): {secs:.3f} s in the evaluator = {out['samples_per_s']:.3f} "
+        f"samples/s ({wall:.3f} s of train.main's wall, the model's build included); "
+        f"max_memory_allocated {out['peak_gib']:.3f} GiB; MSDA forward launches "
+        f"{counts['msda_fwd']} = {per_batch} a batch (msda_per_forward); evaluator's wall split: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()))
+    return stats, out, rec
+
+
+def check_unit_metrics(stats: dict, label: str) -> None:
+    for k, v in stats.items():
+        for x in (v if isinstance(v, list) else [v]):
+            if not (math.isfinite(x) and (0.0 <= x <= 1.0 or x == -1.0)):
+                raise AssertionError(f"{label} {k} = {v}: not finite in [0, 1]")
+
+
+def jhmdb_gpu_vs_cpu(tree: str, label: str) -> dict:
+    """Two JHMDB samples (one batch) through the flagship in f32 (TF32 off)
+    on the card and on the CPU, from train.main's init at --seed 42, with
+    valid_indices: the scores within 1e-3 relative, and the device
+    postprocess's masks differing only where the CPU's upsampled mask logit
+    lies within 2e-3 of 0."""
+    import torch
+
+    from tce_rvos_tpu_torch import engine, flagship_config
+    from tce_rvos_tpu_torch.config import DataConfig
+    from tce_rvos_tpu_torch.data.registry import build_dataset, collate_batch
+    from tce_rvos_tpu_torch.models.build import build_model
+    from tce_rvos_tpu_torch.models.postprocessors import a2d_device_postprocess
+    from tce_rvos_tpu_torch.utils.interpolate import resize_bilinear
+
+    cfg = flagship_config()
+    ds = build_dataset("jhmdb", "val", DataConfig(jhmdb_path=tree), cfg)
+    batch = collate_batch([ds[0], ds[1]])
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, device=dev, seed=42)
+        out = engine.model_forward(model)(batch, valid_indices=True)
+        outs[dev] = {k: out[k].float().cpu() for k in ("pred_logits", "pred_masks")}
+        del model, out
+    torch.cuda.empty_cache()
+    g, c = (a2d_device_postprocess(outs[d]) for d in ("cuda", "cpu"))
+    rel = ((g["scores"] - c["scores"]).abs() / c["scores"].abs()).max().item()
+    if rel > 1e-3:
+        raise AssertionError(f"{label}: scores GPU against CPU {rel:.3e} relative (limit 1e-3)")
+    masks = outs["cpu"]["pred_masks"][:, 0]
+    logit = resize_bilinear(masks, (masks.shape[-2] * 4, masks.shape[-1] * 4))
+    differ = g["masks"] != c["masks"]
+    near = logit.abs() <= 2e-3
+    if bool((differ & ~near).any()):
+        raise AssertionError(f"{label}: mask pixels differ where the CPU's logit is farther than "
+                             f"2e-3 from 0")
+    res = dict(score_rel=rel, pixels_differ=int(differ.sum()), pixels_near=int(near.sum()),
+               pixels=differ.numel())
+    log(f"{label} f32 GPU against CPU, 2 samples: scores {rel:.3e} relative; {res['pixels_differ']}"
+        f" mask pixels differ, of {res['pixels_near']} whose CPU logit lies within 2e-3 of 0 "
+        f"({res['pixels']} pixels)")
+    return res
+
+
+def phase_eval(root: str, davis_results: str, ytvos_train: str) -> dict:
+    """Phase 10, on synthetic trees at the datasets' sizes under ``root``,
+    the flagship at full width from train.main's own init, bf16:
+    1. ``train.main --eval --dataset_file jhmdb --batch_size 2`` (6 videos x
+       30 frames of 320x240, 12 samples): the JAX package's metric keys,
+       every value finite in [0, 1], 12 2D forward launches a batch, the
+       run's ground truth scored against itself (mAP, P@K and IoU 1.0); the
+       2D forward held against plain at the run's shape (N = batch, t = 1);
+       an f32 GPU-against-CPU check on 2 samples;
+    2. ``--eval --dataset_file refcoco --masks`` (8 images of 640x480):
+       P@1/5/10, coco_eval_bbox and coco_eval_masks, finite; the run's
+       ground truth scored against itself gives box and mask AP 1.0 and
+       P@1 1.0; launches as for JHMDB; the 2D forward held at N = 10;
+    3. ``eval_davis`` on phase 8's davis PNGs (4 annotators) against
+       synthetic annotations: J&F finite in [0, 1], and 1.0 for the
+       annotations scored against themselves;
+    4. ``train_joint`` for one epoch (refcoco/+/g train trees of 2 images
+       each plus phase 9's ytvos train tree, ``--batch_size 2``): 12 + 12
+       MSDA launches a step, the 2D forward and backward held at the
+       epoch's largest padded shape (N = 10);
+    5. ``train.main --dataset_file mevis`` for one epoch (6 steps) on a
+       MeViS train tree at 720x1280, 12 + 12 MSDA launches a step.
+    Readings: samples/s and the evaluator's wall split, the host's share,
+    peak memory; ms/step, the logger's data share and peak memory of the
+    training runs; eval_davis's seconds."""
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    from tce_rvos_tpu_torch import eval_davis, flagship_config, train_joint
+    from tce_rvos_tpu_torch.eval import a2d_eval, coco_eval, refexp_eval
+
+    res = {}
+    per_forward = msda_per_forward(flagship_config())
+    log(f"[eval] the flagship makes {per_forward} 2D MSDA calls a forward "
+        "(msda_per_forward: encoder self-attention and FTF per encoder layer, decoder "
+        "cross-attention per layer)")
+
+    # 1. JHMDB
+    label = "[eval jhmdb bf16]"
+    tree = write_jhmdb(os.path.join(root, "jhmdb"))
+    stats, res["jhmdb"], rec = eval_run(
+        ["--eval", "--dataset_file", "jhmdb", "--jhmdb_path", tree, "--batch_size", "2",
+         "--output_dir", os.path.join(root, "out_jhmdb"), *EVAL_FLAGS], label, per_forward)
+    if sorted(stats) != A2D_KEYS:
+        raise AssertionError(f"{label} keys {sorted(stats)}, expected {A2D_KEYS}")
+    check_unit_metrics(stats, label)
+    gt = rec["gt"]
+    if len(gt) != 2 * JHMDB_VIDEOS:
+        raise AssertionError(f"{label} scored {len(gt)} samples, expected {2 * JHMDB_VIDEOS}")
+    own = [{"image_id": k, "score": 1.0, "rle": v} for k, v in gt.items()]
+    own_map = a2d_eval.calculate_map(gt, own)
+    own_p, own_o, own_m = a2d_eval.calculate_precision_at_k_and_iou_metrics(gt, own)
+    if set(own_map.values()) != {1.0} or set(own_p) != {1.0} or (own_o, own_m) != (1.0, 1.0):
+        raise AssertionError(f"{label} ground truth against itself: {own_map}, P@K {own_p}, "
+                             f"IoU {own_o} {own_m}")
+    res["jhmdb"]["metrics"] = stats
+    hw = max((b[2:] for b in res["jhmdb"]["shapes"]), key=lambda x: x[0] * x[1])
+    lv = main_levels(hw)
+    res["jhmdb"]["hold"] = {"hw": hw, "levels": lv,
+                            "fwd": phase_kernels(e=1, shapes=lv, n=2)}
+    res["jhmdb"]["gpu_vs_cpu"] = jhmdb_gpu_vs_cpu(tree, label)
+    log(f"{label} metrics {json.dumps(stats)}; the ground truth against itself: mAP, P@K and "
+        f"IoU 1.0; the 2D forward held against plain at {hw}, levels {lv}, N = 2")
+
+    # 2. RefCOCO
+    label = "[eval refcoco bf16]"
+    coco = write_refexp(os.path.join(root, "coco"), "refcoco", "val", REFEXP_VAL_IMAGES, 40)
+    stats, res["refcoco"], rec = eval_run(
+        ["--eval", "--dataset_file", "refcoco", "--coco_path", coco, "--masks",
+         "--batch_size", "2", "--output_dir", os.path.join(root, "out_refcoco"), *EVAL_FLAGS],
+        label, per_forward)
+    if sorted(stats) != ["P@1", "P@10", "P@5", "coco_eval_bbox", "coco_eval_masks"]:
+        raise AssertionError(f"{label} keys {sorted(stats)}")
+    check_unit_metrics(stats, label)
+    (_, _, gt_boxes, coco_gt), _ = rec["args"]
+    own = {i: {"scores": np.ones(len(a), np.float32),
+               "boxes": np.array([[x, y, x + w, y + h] for x, y, w, h in
+                                  (b["bbox"] for b in a)], np.float32),
+               "rle_masks": [b["segmentation"] for b in a]} for i, a in coco_gt.items()}
+    ev = coco_eval.CocoEvaluator(coco_gt, iou_types=("bbox", "segm"))
+    ev.update(own)
+    ref_ev = refexp_eval.RefExpEvaluator(gt_boxes)
+    ref_ev.update(own)
+    own_ap = (ev.stats("bbox")[0], ev.stats("segm")[0], ref_ev.summarize()["P@1"])
+    if own_ap != (1.0, 1.0, 1.0):
+        raise AssertionError(f"{label} ground truth against itself: box AP, mask AP, P@1 "
+                             f"{own_ap}")
+    res["refcoco"]["metrics"] = stats
+    hw = max((b[2:] for b in res["refcoco"]["shapes"]), key=lambda x: x[0] * x[1])
+    n = max(b[0] * b[1] for b in res["refcoco"]["shapes"])
+    lv = main_levels(hw)
+    res["refcoco"]["hold"] = {"hw": hw, "levels": lv, "N": n,
+                              "fwd": phase_kernels(e=1, shapes=lv, n=n)}
+    log(f"{label} P@1/5/10 {[stats[k] for k in ('P@1', 'P@5', 'P@10')]}, coco_eval_bbox "
+        f"{stats['coco_eval_bbox']}, coco_eval_masks {stats['coco_eval_masks']}; the ground "
+        f"truth against itself: box AP, mask AP, P@1 {own_ap}; the 2D forward held against "
+        f"plain at {hw}, levels {lv}, N = {n}")
+
+    # 3. eval_davis on phase 8's davis results
+    label = "[eval_davis]"
+    (n_frames, _), = PROTO_DAVIS.values()
+    davis17 = write_davis_annotations(os.path.join(root, "davis17"),
+                                      {seq: n_frames for seq in PROTO_DAVIS})
+    t0 = time.perf_counter()
+    jf = eval_davis.main(["--davis_path", davis17, "--results_path", davis_results])
+    secs = time.perf_counter() - t0
+    if len(jf) != 4 or not all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in jf):
+        raise AssertionError(f"{label} J&F per annotator {jf}")
+    self_dir = os.path.join(root, "davis_self")
+    anno = os.path.join(davis17, "Annotations_unsupervised", "480p")
+    for seq in PROTO_DAVIS:
+        os.makedirs(os.path.join(self_dir, seq))
+        for name in sorted(os.listdir(os.path.join(anno, seq))):
+            _, lab, pal = read_png(os.path.join(anno, seq, name))
+            png = Image.fromarray(np.where(lab == 255, 0, lab).astype(np.uint8), mode="P")
+            png.putpalette(pal)
+            png.save(os.path.join(self_dir, seq, name))
+    own_jf = eval_davis.main(["--davis_path", davis17, "--results_path", self_dir])
+    if own_jf != [1.0]:
+        raise AssertionError(f"{label} the annotations against themselves: J&F {own_jf}")
+    # a reading: how much of the protocol's PNGs the (random) model marks as an object
+    fg = [float((read_png(os.path.join(davis_results, a, seq, f))[1] > 0).mean())
+          for a in sorted(os.listdir(davis_results)) if a.startswith("anno_")
+          for seq in PROTO_DAVIS for f in os.listdir(os.path.join(davis_results, a, seq))
+          if f.endswith(".png")]
+    res["eval_davis"] = dict(seconds=secs, jf=jf, frames=n_frames, annotators=len(jf),
+                             object_share=float(np.mean(fg)))
+    log(f"{label} {secs:.3f} s for {len(jf)} annotators x {n_frames} frames of "
+        f"{PROTO_HW[0]}x{PROTO_HW[1]} (2 objects): J&F {jf} (the protocol's PNGs mark "
+        f"{100 * np.mean(fg):.3f}% of their pixels as an object); the annotations against "
+        "themselves: 1.0")
+
+    # 4. train_joint, 5. mevis
+    for name, seed in (("refcoco", 41), ("refcoco+", 42), ("refcocog", 43)):
+        write_refexp(coco, name, "train", REFEXP_TRAIN_IMAGES, seed)
+    mevis = write_mevis_train(os.path.join(root, "mevis"))
+    per_step = {"msda_fwd": per_forward, "msda_bwd": per_forward, "msda3d_fwd": 0,
+                "msda3d_bwd": 0}
+    flags = [f for f in MAIN_FLAGS if f != "--binary"]
+    with main_probe() as prec:
+        _, res["train_joint"] = main_run(
+            prec, ["--coco_path", coco, "--ytvos_path", ytvos_train, "--output_dir",
+                   os.path.join(root, "out_joint"), "--epochs", "1", "--batch_size", "2", *flags],
+            "[train_joint bf16]", per_step, entry=train_joint.main)
+        _, res["mevis"] = main_run(
+            prec, ["--dataset_file", "mevis", "--mevis_path", mevis, "--output_dir",
+                   os.path.join(root, "out_mevis"), "--epochs", "1", "--binary", *flags],
+            "[train mevis bf16]", per_step)
+    for key, out, label in (("train_joint", "out_joint", "[train_joint bf16]"),
+                            ("mevis", "out_mevis", "[train mevis bf16]")):
+        res[key]["data"] = data_share(read_log(os.path.join(root, out)))
+        shutil.rmtree(os.path.join(root, out))  # disk: 2 GB a checkpoint
+        for row in res[key]["data"]:
+            log(f"{label} epoch {row['epoch']}: {row['time_s']:.4f} s a step by the logger, "
+                f"{row['data_s']:.4f} s of it waiting for data ({100 * row['share']:.1f}%)")
+    want_steps = (3 * REFEXP_TRAIN_IMAGES + len(MAIN_VIDEOS) * 2 * 4) // 2  # batch 2
+    if res["train_joint"]["steps"] != want_steps:
+        raise AssertionError(f"[train_joint] {res['train_joint']['steps']} steps, expected "
+                             f"{want_steps}")
+    if res["mevis"]["steps"] != MEVIS_VIDEOS * -(-MEVIS_FRAMES // 5):
+        raise AssertionError(f"[train mevis] {res['mevis']['steps']} steps")
+    hw = max(res["train_joint"]["hw"], key=lambda x: x[0] * x[1])
+    lv = main_levels(hw)
+    res["train_joint"]["hold"] = {"hw": hw, "levels": lv, "N": 10,
+                                  "fwd": phase_kernels(e=2, shapes=lv),
+                                  "bwd": phase_backward_kernels(10, shapes=lv)}
+    log(f"[train_joint] the 2D forward and backward held against plain at the epoch's largest "
+        f"padded (H, W) {hw}, levels {lv}, N = 10")
+    return res
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2696,7 +3251,7 @@ def nvidia_smi_line() -> str:
 
 
 def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, train: dict,
-                 serve3: dict, train3: dict, main_runs: dict) -> dict:
+                 serve3: dict, train3: dict, main_runs: dict, evals: dict) -> dict:
     """The JSON ``kernels`` record: each kernel's main shape in its
     deployment dtype (the encoder call in bf16: E = 4 for the forwards'
     serving paths, N = 5 for the training steps' backwards) in the top-level
@@ -2706,7 +3261,10 @@ def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, tr
     for the 3D kernels); ``launches_by_path`` gives every path's count,
     ``train.main``'s two runs (phase 9: 2D, two epochs; ``--msda_3d``) among
     them, and ``shapes`` the calls held at those runs' largest padded
-    shapes (``main_HxW`` N = 5, ``main_3d_HxW`` N = 10)."""
+    shapes (``main_HxW`` N = 5, ``main_3d_HxW`` N = 10); phase 10's paths
+    (``eval_jhmdb``, ``eval_refcoco``, ``train_joint``, ``train_mevis``)
+    likewise, with the 2D calls held at their shapes (``eval_jhmdb_HxW_N2``,
+    ``eval_refcoco_HxW_N10``, ``train_joint_HxW_N10``)."""
     def entry(name, source, replaces, also, main, launches, by_path, shapes):
         return {"name": name, "route": "cuda", "source": f"tce_rvos_tpu_torch/csrc/{source}",
                 "replaces": f"tce_rvos_tpu/ops/{replaces}",
@@ -2731,8 +3289,22 @@ def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, tr
                "fwd3": {f"{run4}/{k}": v for k, v in hold["fwd_3d"].items()},
                "bwd3": {f"{run4}/{k}": v for k, v in hold["bwd_3d"].items()}}
 
+    def at(key, path, kind):
+        h = evals[key]["hold"]
+        tag = f"{path}_{h['hw'][0]}x{h['hw'][1]}_N{h.get('N', 2)}"
+        return {f"{tag}/{k}": v for k, v in h[kind].items()}
+
+    at_main["fwd"].update({**at("jhmdb", "eval_jhmdb", "fwd"),
+                           **at("refcoco", "eval_refcoco", "fwd"),
+                           **at("train_joint", "train_joint", "fwd")})
+    at_main["bwd"].update(at("train_joint", "train_joint", "bwd"))
+    p10 = {"eval_jhmdb": evals["jhmdb"]["launches"], "eval_refcoco": evals["refcoco"]["launches"],
+           "train_joint": evals["train_joint"]["launches"],
+           "train_mevis": evals["mevis"]["launches"]}
+
     def by_path(d, kname):
-        return {**d, "train_main": m2[kname], "train_main_3d": m3[kname]}
+        return {**d, "train_main": m2[kname], "train_main_3d": m3[kname],
+                **{path: counts[kname] for path, counts in p10.items()}}
 
     return {"kernels": [
         entry("msda_fwd", "msda_fwd.cu", "pallas_msda.py:166", ["pallas_msda.py:265"],
@@ -2817,15 +3389,19 @@ def main() -> int:
     envelope = phase_envelope(sd, videos[0])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         protocols = phase_protocols(sd, sd3, root)
-    del sd, sd3
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_main_") as root:
-        main_runs = phase_main(root)
+        del sd, sd3
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_main_") as main_root:
+            main_runs = phase_main(main_root)
+            # phase 10 scores phase 8's davis PNGs and trains on phase 9's ytvos tree
+            evals = phase_eval(os.path.join(root, "eval"),
+                               davis_results=os.path.join(root, "out_davis", "valid"),
+                               ytvos_train=os.path.join(main_root, "tree"))
     log("[numbers] " + json.dumps({"envelope": envelope, "protocols": protocols,
-                                   "main": main_runs}))
+                                   "main": main_runs, "eval": evals}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels_line(kern, bwd, kern3, bwd3, paths["bfloat16"]["launches"], train,
-                                  serve3, train3, main_runs)))
+                                  serve3, train3, main_runs, evals)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

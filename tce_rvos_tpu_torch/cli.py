@@ -5,8 +5,9 @@ Every flag keeps the reference's name and default, ``--vlblock`` included,
 which keeps the reference's inverted store_false meaning (passing it turns
 the V-L FPN blocks off). A flag set to a value the port does not support
 yet raises and names the flag: nothing is dropped in silence.
-``--pre_norm``, ``--masks`` and ``--backbone_pretrained`` change nothing at
-inference in either package and are accepted as they are.
+``--pre_norm`` and ``--backbone_pretrained`` change nothing at inference in
+either package and are accepted as they are; ``--masks`` adds the mask
+stats to ``--eval`` on RefCOCO(+/g), as in the JAX package.
 
 The training and data flags keep the JAX package's names and defaults too.
 ``--flat_opt`` and ``--dropout_rng_impl`` choose TPU implementations of the
@@ -131,7 +132,8 @@ def add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--pretrained_weights", default=None)
     p.add_argument("--start_epoch", default=0, type=int)
     p.add_argument("--eval", action="store_true",
-                   help="evaluation is not ported yet: raises")
+                   help="score the val split (jhmdb, refcoco, refcoco+, refcocog) "
+                        "instead of training")
     p.add_argument("--num_workers", default=4, type=int)
     return p
 

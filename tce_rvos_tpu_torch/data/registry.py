@@ -2,17 +2,22 @@
 ``tce_rvos_tpu/data/registry.py``).
 
 ``build_dataset`` dispatches over the dataset names of the reference's
-datasets/__init__.py:24-43. The port builds ``ytvos`` and ``davis``; the
-other names (a2d, jhmdb, mevis, refcoco(+/g), joint) raise ``ValueError``
-naming them as not ported yet. VidSTG: the reference ships only an
-unfinished stub (datasets/vidstg.py:108-126), so the name raises
-``NotImplementedError``, as in the JAX package.
+datasets/__init__.py:24-43: ytvos, davis, jhmdb, mevis, refcoco(+/g) and
+``joint`` (the three refexp sets plus ytvos unless ``pretrain_coco``, one
+``ConcatDataset``). ``a2d`` raises ``ValueError``: its clips are .mp4
+files and its masks .h5 files, and the port has no reader for either (no
+video decoder and no h5py on the card's machine). VidSTG: the reference
+ships only an unfinished stub (datasets/vidstg.py:108-126), so the name
+raises ``NotImplementedError``, as in the JAX package.
 
 ``collate_batch`` replaces the reference's NestedTensor collate with padded
 numpy arrays and a pad mask (size_divisibility=32, optional H/W buckets),
-tokenizing the captions with the port's ``tokenize``. The keys that only
-the unported datasets' targets carry (``valid_indices``, ``image_ids``,
-``orig_masks``) come with those datasets.
+tokenizing the captions with the port's ``tokenize``. Evaluation targets
+add ``valid_indices`` (JHMDB's annotated frame), ``orig_sizes``,
+``image_ids`` and the untransformed ``orig_masks`` (a host-side list), each
+when every target of the batch has it (the JAX package asks the first
+target only, which fails on a ``joint`` batch that mixes refexp and ytvos
+samples).
 """
 
 from __future__ import annotations
@@ -23,7 +28,12 @@ import numpy as np
 
 from tce_rvos_tpu_torch.utils.nested import batch_videos
 
-NOT_PORTED = ("a2d", "jhmdb", "mevis", "refcoco", "refcoco+", "refcocog", "joint")
+NOT_PORTED = {
+    "a2d": "A2D-Sentences decodes Release/clips320H/*.mp4 and reads its masks from .h5 "
+           "files; the port has no video decoder and no h5py reader (the card's machine has "
+           "neither cv2 nor h5py). JHMDB-Sentences (--dataset_file jhmdb) runs the same "
+           "evaluation",
+}
 
 
 class ConcatDataset:
@@ -43,15 +53,29 @@ class ConcatDataset:
 
 
 def build_dataset(name: str, image_set: str, data_cfg, model_cfg):
+    from tce_rvos_tpu_torch.data.a2d import build_jhmdb
+    from tce_rvos_tpu_torch.data.mevis import build_mevis
+    from tce_rvos_tpu_torch.data.refexp import REFEXP_NAMES, build_refexp
     from tce_rvos_tpu_torch.data.ytvos import build_davis, build_ytvos
 
     if name == "ytvos":
         return build_ytvos(image_set, data_cfg, model_cfg)
     if name == "davis":
         return build_davis(image_set, data_cfg, model_cfg)
+    if name == "jhmdb":
+        return build_jhmdb(image_set, data_cfg, model_cfg)
+    if name == "mevis":
+        return build_mevis(image_set, data_cfg, model_cfg)
+    if name in REFEXP_NAMES:
+        return build_refexp(name, image_set, data_cfg, model_cfg)
+    if name == "joint":
+        parts = [build_refexp(n, image_set, data_cfg, model_cfg) for n in REFEXP_NAMES]
+        if not data_cfg.pretrain_coco:
+            parts.append(build_ytvos(image_set, data_cfg, model_cfg))
+        return ConcatDataset(parts)
     if name in NOT_PORTED:
-        raise ValueError(f"dataset {name!r} is not ported to the PyTorch port yet "
-                         "(ytvos and davis are)")
+        raise ValueError(f"dataset {name!r} is not ported to the PyTorch port: "
+                         f"{NOT_PORTED[name]}")
     if name == "vidstg":
         raise NotImplementedError(
             "VidSTG: the reference ships an unfinished stub "
@@ -96,6 +120,18 @@ def collate_batch(
             "valid": np.stack([t_["valid"] for t_ in targets]).astype(np.int32),
         },
     }
-    if "orig_size" in targets[0]:
+    def every(key):  # a ``joint`` batch mixes refexp targets with ytvos ones
+        return all(key in t_ for t_ in targets)
+
+    if every("valid_indices"):
+        out["valid_indices"] = np.stack(
+            [t_["valid_indices"][0] for t_ in targets]).astype(np.int32)
+    if every("orig_size"):
         out["orig_sizes"] = np.stack([t_["orig_size"] for t_ in targets]).astype(np.int32)
+    if every("image_id"):
+        out["image_ids"] = [t_["image_id"] for t_ in targets]
+    if every("orig_masks"):
+        # host-side ragged list (original resolutions differ per sample);
+        # evaluation only, never copied to the device
+        out["orig_masks"] = [t_["orig_masks"] for t_ in targets]
     return out

@@ -1,8 +1,21 @@
-"""Training loop (counterpart of ``tce_rvos_tpu/engine.py::train_one_epoch``):
-one train step per batch, the loss dict logged through ``MetricLogger``,
-and a stop on a non-finite loss.
+"""Train and evaluation loops (counterpart of ``tce_rvos_tpu/engine.py``;
+parity with reference engine.py).
 
-Not ported yet: the evaluation loops (``evaluate_yvos``, ``evaluate_a2d``).
+  * ``train_one_epoch``: one train step per batch, the loss dict logged
+    through ``MetricLogger``, and a stop on a non-finite loss.
+  * ``model_forward``: the evaluators' forward, a plain function (no
+    compile step): a batch's model inputs on the model's device, the video
+    cast to the compute dtype, under ``torch.inference_mode``.
+  * ``evaluate_a2d`` (engine.py:295-357, A2D/JHMDB): the device
+    postprocess, the host postprocess with RLE encoding, then mAP and
+    P@K/IoU against the untransformed ground truth.
+  * ``evaluate_coco_pretrain`` (engine.py:98-161, RefCOCO/+/g): P@{1,5,10}
+    and the class-agnostic COCO box (and, with ``masks``, mask) mAP.
+  * ``evaluate_yvos`` (engine.py:164-286): the train-set mask-quality probe.
+
+The evaluators score one process's predictions. The JAX package's merge of
+several processes' predictions comes with data parallelism (ROADMAP A9):
+in a ``torch.distributed`` world of more than one process they raise.
 """
 
 from __future__ import annotations
@@ -10,6 +23,9 @@ from __future__ import annotations
 import math
 import sys
 from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
 
 from tce_rvos_tpu_torch.utils.logging import MetricLogger, SmoothedValue
 
@@ -49,3 +65,162 @@ def train_one_epoch(
     stats = {k: m.global_avg for k, m in logger.meters.items()}
     stats.update(time=logger.iter_time.global_avg, data=logger.data_time.global_avg)
     return state, stats
+
+
+MODEL_INPUTS = ("video", "video_mask", "text_ids", "text_attn_mask", "sizes")
+
+
+def model_forward(model: torch.nn.Module, compute_dtype: str = "float32") -> Callable:
+    """``fwd(batch, valid_indices=False) -> outputs`` for ``model`` (in eval
+    mode, already in ``compute_dtype``): the batch's model inputs (numpy, as
+    ``collate_batch`` gives them) copied to the model's device, the video
+    cast to ``compute_dtype``, the forward under ``torch.inference_mode``.
+    ``valid_indices=True`` passes the batch's annotated-frame indices
+    (A2D/JHMDB: one frame per clip from the transformer on)."""
+    from tce_rvos_tpu_torch.utils.precision import resolve_dtype
+
+    device = next(model.parameters()).device
+    dtype = resolve_dtype(compute_dtype)
+
+    def tensor(x):
+        t = torch.as_tensor(np.asarray(x))
+        return (t if t.is_floating_point() or t.dtype == torch.bool else t.long()).to(device)
+
+    @torch.inference_mode()
+    def fwd(batch, valid_indices: bool = False):
+        video, mask, ids, attn, sizes = (tensor(batch[k]) for k in MODEL_INPUTS)
+        extra = {"valid_indices": tensor(batch["valid_indices"])} if valid_indices else {}
+        return model(video.to(dtype), mask, ids, attn, sizes, **extra)
+
+    return fwd
+
+
+def _single_process(what: str) -> None:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        raise NotImplementedError(
+            f"{what}: merging the predictions of {dist.get_world_size()} processes is not "
+            "ported (it comes with data parallelism, ROADMAP A9); evaluate in one process")
+
+
+def evaluate_yvos(fwd: Callable, loader, max_batches: Optional[int] = None) -> Dict[str, float]:
+    """Train-set mask-quality probe (parity with reference
+    engine.py:164-286 evaluate_yvos): run the model on training clips,
+    select the best query by mean class score, report dice/focal of its
+    masks against GT. A sanity metric, not a benchmark."""
+    from tce_rvos_tpu_torch.models.segmentation import dice_loss, sigmoid_focal_loss
+
+    _single_process("evaluate_yvos")
+    logger = MetricLogger()
+    dices, focals = [], []
+    for bi, batch in enumerate(logger.log_every(loader, 10, "YVOS probe:")):
+        if max_batches is not None and bi >= max_batches:
+            break
+        outputs = fwd(batch)
+        logits = outputs["pred_logits"].float().cpu().numpy()  # [b, t, q, K]
+        masks = outputs["pred_masks"].float().cpu().numpy()    # [b, t, q, h, w]
+        scores = 1 / (1 + np.exp(-logits))
+        best_q = scores.mean(axis=1).max(axis=-1).argmax(axis=-1)  # [b]
+        b = masks.shape[0]
+        sel = masks[np.arange(b), :, best_q]  # [b, t, h, w]
+        gt = batch["targets"]["masks"][:, :, 2::4, 2::4]
+        sel_f = torch.from_numpy(np.ascontiguousarray(sel.reshape(b, -1)))
+        gt_f = torch.from_numpy(np.ascontiguousarray(gt.reshape(b, -1), np.float32))
+        dices.append(float(dice_loss(sel_f, gt_f, b)))
+        focals.append(float(sigmoid_focal_loss(sel_f, gt_f, b)))
+    out = {"dice_loss": float(np.mean(dices)), "focal_loss": float(np.mean(focals))}
+    print(out)
+    return out
+
+
+def evaluate_coco_pretrain(
+    fwd: Callable,
+    loader,
+    gt_boxes_by_image: Dict,
+    coco_gt_by_image: Optional[Dict] = None,
+    masks: bool = False,
+) -> Dict:
+    """COCO-pretrain eval (parity with reference engine.py:98-161): run the
+    bbox postprocessor and score P@{1,5,10} via RefExpEvaluator plus,
+    when ``coco_gt_by_image`` annotations are supplied, the class-agnostic
+    COCO box mAP the reference gets from CocoEvaluator (engine.py:143-157).
+    With ``masks=True`` the segm postprocessor runs too and the evaluator
+    additionally scores mask mAP (``coco_eval_masks``, engine.py:154-157);
+    GT annotations must then carry ``segmentation`` RLEs
+    (``data/refexp.py::coco_gt_by_image`` provides them)."""
+    from tce_rvos_tpu_torch.eval.coco_eval import CocoEvaluator
+    from tce_rvos_tpu_torch.eval.refexp_eval import RefExpEvaluator
+    from tce_rvos_tpu_torch.models import postprocessors
+
+    _single_process("evaluate_coco_pretrain")
+    iou_types = ("bbox", "segm") if masks else ("bbox",)
+    evaluator = RefExpEvaluator(gt_boxes_by_image)
+    coco_evaluator = (CocoEvaluator(coco_gt_by_image, iou_types=iou_types)
+                      if coco_gt_by_image is not None else None)
+    logger = MetricLogger()
+    for batch in logger.log_every(loader, 10, "Test:"):
+        outputs = fwd(batch)
+        orig_sizes = np.asarray(batch["orig_sizes"])
+        results = postprocessors.coco_postprocess_bbox(outputs, orig_sizes)
+        if masks:
+            results = postprocessors.coco_postprocess_segm(
+                results, outputs, orig_sizes, np.asarray(batch["sizes"]))
+        res = {
+            batch["image_ids"][i]: {
+                "scores": r["scores"],
+                "boxes": r["boxes"],
+                **({"masks": r["masks"]} if masks else {}),
+            }
+            for i, r in enumerate(results)
+        }
+        evaluator.update(res)
+        if coco_evaluator is not None:
+            coco_evaluator.update(res)
+    stats = evaluator.summarize()
+    if coco_evaluator is not None:
+        stats["coco_eval_bbox"] = coco_evaluator.stats("bbox")
+        if masks:
+            stats["coco_eval_masks"] = coco_evaluator.stats("segm")
+    return stats
+
+
+def evaluate_a2d(fwd: Callable, loader, threshold: float = 0.5) -> Dict[str, float]:
+    """A2D/JHMDB evaluation: ``fwd`` (``model_forward``) on batches with
+    ``valid_indices``, ``image_ids``, ``orig_sizes``, ``sizes`` and the
+    untransformed ``orig_masks``; the device postprocess, the host one
+    (nearest resize to the original size, RLE), then mAP@[0.5:0.95],
+    AP50/75, P@{0.5..0.9}, overall and mean IoU. ``threshold`` is the
+    JAX package's argument, which its postprocess does not read either
+    (masks binarise at sigmoid 0.5)."""
+    from tce_rvos_tpu_torch.eval import a2d_eval
+    from tce_rvos_tpu_torch.models import postprocessors
+    from tce_rvos_tpu_torch.utils import rle as rle_util
+
+    _single_process("evaluate_a2d")
+    logger = MetricLogger()
+    predictions = []
+    gt_by_image = {}
+    for batch in logger.log_every(loader, 10, "Test:"):
+        outputs = fwd(batch, valid_indices=True)
+        dev = postprocessors.a2d_device_postprocess(outputs)
+        preds = postprocessors.a2d_host_postprocess(dev, batch["sizes"], batch["orig_sizes"])
+        for i, p in enumerate(preds):
+            image_id = batch["image_ids"][i]
+            # GT at ORIGINAL resolution (the loader's untransformed
+            # 'orig_masks'): predictions are resized to orig_size by the
+            # postprocessor (reference engine.py:332-345 reads GT from the
+            # annotation json at original resolution)
+            gt_by_image[image_id] = rle_util.encode(
+                (batch["orig_masks"][i][0] > 0.5).astype(np.uint8))
+            for score, rle in zip(p["scores"], p["rle_masks"]):
+                predictions.append({"image_id": image_id, "score": float(score), "rle": rle})
+
+    metrics = a2d_eval.calculate_map(gt_by_image, predictions)
+    p_at_k, overall_iou, mean_iou = a2d_eval.calculate_precision_at_k_and_iou_metrics(
+        gt_by_image, predictions)
+    metrics.update({f"P@{k}": v for k, v in zip((0.5, 0.6, 0.7, 0.8, 0.9), p_at_k)})
+    metrics["overall_iou"] = overall_iou
+    metrics["mean_iou"] = mean_iou
+    print(metrics)
+    return metrics

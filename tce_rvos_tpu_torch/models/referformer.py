@@ -20,8 +20,11 @@ locations. ``aux_outputs=True`` (set by the train step when
 ``cfg.aux_loss``) adds the classes, boxes and masks of every other decoder
 layer under ``"aux_outputs"``, for the criterion's ``_i`` losses; serving
 never pays for them. ``cfg.freeze_text_encoder`` stops the gradient at the
-text encoder's outputs. Not ported yet: the A2D ``valid_indices`` path, ``vis_loss`` and
-``contrastive`` heads, and the non-ResNet backbones.
+text encoder's outputs. ``valid_indices`` ([b], A2D/JHMDB evaluation) keeps
+only each clip's annotated frame after the position encodings: from there
+on t = 1, as in the JAX package (reference tce_rvos.py:234-243). Not ported
+yet: the ``vis_loss`` and ``contrastive`` heads, and the non-ResNet
+backbones.
 """
 
 from __future__ import annotations
@@ -105,6 +108,7 @@ class ReferFormer(nn.Module):
         precomputed_feats: Optional[Sequence[torch.Tensor]] = None,
         backbone_only: bool = False,
         aux_outputs: bool = False,
+        valid_indices: Optional[torch.Tensor] = None,  # [b] (a2d/jhmdb: t -> 1)
     ):
         cfg = self.cfg
         c = cfg.hidden_dim
@@ -128,6 +132,15 @@ class ReferFormer(nn.Module):
         frame_mask = video_mask.reshape((b * t,) + tuple(video_mask.shape[2:]))
         feat_masks = [resize_mask_nearest(frame_mask, tuple(f.shape[-2:])) for f in feats]
         poses = [sine_pos_2d(m, num_pos_feats=c // 2) for m in feat_masks]
+        if valid_indices is not None:
+            # keep only the annotated frame of each clip, an index into (b t)
+            sel = torch.arange(b, device=frame_mask.device) * t + valid_indices.to(
+                frame_mask.device, torch.long)
+            feats = [f[sel] for f in feats]
+            feat_masks = [m[sel] for m in feat_masks]
+            poses = [p[sel] for p in poses]
+            frame_mask = frame_mask[sel]
+            t = 1
 
         # ---- text ----
         text_hidden, text_pooled = self.text_encoder(text_ids, text_attn_mask)

@@ -4,6 +4,8 @@ parity with reference main.py:30-307).
     python -m tce_rvos_tpu_torch.train --dataset_file ytvos \\
         --ytvos_path data/Refer_YouTube_VOS/rvos --binary --with_box_refine \\
         --f_token 8 --qtrans [--compute_dtype bfloat16] [--device cpu]
+    python -m tce_rvos_tpu_torch.train --eval --dataset_file jhmdb \\
+        --jhmdb_path data/jhmdb_sentences --binary ... [--resume <checkpoint>]
 
 Flow, in the JAX package's order: parse the flags -> configs -> the model
 from ``--seed`` -> optional pretrained weights (class heads dropped,
@@ -11,11 +13,17 @@ tools/load_pretrained_weights.py:3-11) -> dataset, sampler and prefetching
 loader (padded sizes bucketed) -> optimizer and train step -> resume ->
 per-epoch loop with the keep_fps meta refresh (main.py:225-249), a
 checkpoint after every epoch and one JSON line per epoch in ``log.txt``
-(main.py:292-294).
+(main.py:292-294). Training runs on ytvos, davis, mevis, refcoco(+/g)
+and ``joint`` (``train_joint.py``).
+
+``--eval`` (main.py:150-176) scores the val split instead: ``run_eval``
+gives JHMDB its mask mAP / P@K / IoU and RefCOCO(+/g) P@{1,5,10} with the
+COCO box (and, with ``--masks``, mask) mAP; ytvos, davis and mevis are
+scored from mask dumps (``python -m tce_rvos_tpu_torch.infer``, then
+``eval_davis`` for davis).
 
 The model runs on ``--device`` (``cuda`` by default, which raises without
-a GPU). ``--eval`` raises: evaluation is not ported yet. Data parallelism
-is not ported yet either.
+a GPU). Data parallelism is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +33,48 @@ import functools
 import json
 import os
 import time
+
+
+def run_eval(args, model_cfg, data_cfg, model):
+    """Eval-only dispatch (reference main.py:150-176) with ``model`` on its
+    device: A2D/JHMDB get the mask mAP + P@K protocol, RefCOCO(+/g) get
+    P@{1,5,10} and the class-agnostic COCO box mAP (and the mask mAP with
+    ``--masks``). ytvos/davis/mevis are server-scored mask dumps: use
+    ``tce_rvos_tpu_torch.infer`` for those (as the reference uses
+    inference_*.py). ``--resume`` loads a checkpoint directory or a
+    reference ``.pth`` over the model; ``--compute_dtype`` casts the
+    weights and the video."""
+    from tce_rvos_tpu_torch import engine
+    from tce_rvos_tpu_torch.data.loader import PrefetchLoader, ShardedSampler
+    from tce_rvos_tpu_torch.data.refexp import REFEXP_NAMES
+    from tce_rvos_tpu_torch.data.registry import build_dataset, collate_batch
+    from tce_rvos_tpu_torch.utils.precision import resolve_dtype
+
+    if args.dataset_file not in ("a2d", "jhmdb", *REFEXP_NAMES):
+        raise ValueError(
+            f"--eval has no metric protocol for {args.dataset_file!r}; "
+            "use `python -m tce_rvos_tpu_torch.infer` (ytvos/davis/mevis dump masks)"
+        )
+    if args.resume:
+        from tce_rvos_tpu_torch.models.text_encoder import require_real_tokenizer
+        from tce_rvos_tpu_torch.utils.native_ckpt import load_any_checkpoint
+
+        require_real_tokenizer("--resume checkpoint")
+        # a checkpoint directory or a reference torch .pth / URL
+        state_dict, _, _ = load_any_checkpoint(args.resume, model.state_dict())
+        model.load_state_dict(state_dict)
+    model.to(dtype=resolve_dtype(model_cfg.compute_dtype)).eval()
+    dataset_val = build_dataset(args.dataset_file, "val", data_cfg, model_cfg)
+
+    sampler = ShardedSampler(len(dataset_val), shuffle=False)
+    loader = PrefetchLoader(dataset_val, sampler, args.batch_size, collate_batch,
+                            num_workers=args.num_workers, drop_last=False)
+    fwd = engine.model_forward(model, model_cfg.compute_dtype)
+    if args.dataset_file in ("a2d", "jhmdb"):
+        return engine.evaluate_a2d(fwd, loader, args.threshold)
+    return engine.evaluate_coco_pretrain(
+        fwd, loader, dataset_val.gt_boxes_by_image(), dataset_val.coco_gt_by_image(),
+        masks=args.masks)
 
 
 def restore_train_state(state, resume_path, ckpt_manager, steps_per_epoch):
@@ -54,7 +104,8 @@ def restore_train_state(state, resume_path, ckpt_manager, steps_per_epoch):
 
 
 def main(argv=None):
-    """The training command line; returns the final ``TrainState``."""
+    """The training command line; returns the final ``TrainState``, or with
+    ``--eval`` the metric dict."""
     import argparse
 
     from tce_rvos_tpu_torch import cli
@@ -63,10 +114,6 @@ def main(argv=None):
     # (main.py:303); the child parser provides -h/--help
     parser = argparse.ArgumentParser("tce_rvos_tpu_torch training", parents=[cli.get_args_parser()])
     args = parser.parse_args(argv)
-    if args.eval:
-        raise NotImplementedError(
-            "--eval: evaluation is not ported to tce_rvos_tpu_torch yet; the ytvos, davis "
-            "and mevis protocols are `python -m tce_rvos_tpu_torch.infer`")
 
     model_cfg = cli.model_config_from_args(args)
     train_cfg = cli.train_config_from_args(args)
@@ -102,6 +149,16 @@ def main(argv=None):
         sd, _, _ = convert_state_dict(sd, model.state_dict())
         model.load_state_dict(sd)
     model.to(device)
+
+    # ---- eval-only mode (reference main.py:150-176) ----
+    if args.eval:
+        stats = run_eval(args, model_cfg, data_cfg, model)
+        print(json.dumps(stats, default=float))
+        if args.output_dir and process_rank() == 0:
+            os.makedirs(args.output_dir, exist_ok=True)
+            with open(os.path.join(args.output_dir, "log.txt"), "a") as fh:
+                fh.write(json.dumps(stats, default=float) + "\n")
+        return stats
 
     # ---- data ----
     # bucket the padded (H, W): the train pipeline samples short sides

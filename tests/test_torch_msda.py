@@ -331,8 +331,15 @@ def test_check_rejects_misaligned_pointers(coords):
 
 # ---- import rule ---------------------------------------------------------
 
-# cv2 too: the port's data pipeline must run on hosts that do not have it
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tce_rvos_tpu", "cv2")
+# cv2, pandas, pycocotools, skimage and h5py too: the port's data pipeline
+# and evaluation must run on hosts that do not have them
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tce_rvos_tpu", "cv2", "pandas",
+             "pycocotools", "skimage", "h5py")
+# the evaluation slice's modules, each scanned and imported
+EVAL_MODULES = ("eval/a2d_eval.py", "eval/coco_eval.py", "eval/davis_eval.py",
+                "eval/refexp_eval.py", "eval_davis.py", "models/postprocessors.py",
+                "utils/rle.py", "data/a2d.py", "data/refexp.py", "data/mevis.py",
+                "train_joint.py")
 
 
 def _imported_roots(path: Path):
@@ -350,6 +357,9 @@ def test_port_imports_no_jax_or_jax_package():
     assert len(files) > 10
     assert {"train.py", "native_ckpt.py", "nested.py", "transforms.py", "ytvos.py",
             "registry.py", "loader.py", "categories.py"} <= {f.name for f in files}
+    scanned = {f.relative_to(REPO / "tce_rvos_tpu_torch").as_posix() for f in files
+               if f.is_relative_to(REPO / "tce_rvos_tpu_torch")}
+    assert set(EVAL_MODULES) <= scanned
     bad = [(str(f.relative_to(REPO)), name) for f in files for name in _imported_roots(f)
            if name.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -368,6 +378,8 @@ def test_importing_the_port_loads_no_jax():
             "tce_rvos_tpu_torch.data.categories", "tce_rvos_tpu_torch.data.transforms",
             "tce_rvos_tpu_torch.data.ytvos", "tce_rvos_tpu_torch.data.registry",
             "tce_rvos_tpu_torch.data.loader"} <= set(modules)
+    assert {"tce_rvos_tpu_torch." + m.removesuffix(".py").replace("/", ".")
+            for m in EVAL_MODULES} <= set(modules)
     code = ("import importlib, sys; before = set(sys.modules);"
             f"[importlib.import_module(m) for m in {modules!r}];"
             "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in "

@@ -139,8 +139,8 @@ def test_parser_matches_jax(argv):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--eval"], NotImplementedError, "evaluation is not ported"),
-    (["--dataset_file", "mevis"], ValueError, "not ported"),
+    (["--eval"], ValueError, "no metric protocol for 'ytvos'.*tce_rvos_tpu_torch.infer"),
+    (["--dataset_file", "a2d"], ValueError, r"not ported.*\.mp4.*h5py"),
     (["--dataset_file", "vidstg"], NotImplementedError, "VidSTG"),
     (["--device", "cuda"], RuntimeError, "CUDA is not available"),
     (["--pretrained_weights", "weights.pth"], RuntimeError, "tokenizer"),

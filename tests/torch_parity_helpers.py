@@ -382,3 +382,133 @@ def write_ytvos_tree(root, n_videos: int = 2, n_frames: int = 6, hw=(48, 64),
               "w") as fh:
         json.dump(meta_exp, fh)
     return root
+
+
+# ---- synthetic JHMDB-Sentences, RefCOCO and MeViS trees -----------------------------
+
+
+def _smooth_image(rng, h, w):
+    """A smooth random RGB image, uint8 (JPEG-friendly)."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    f = np.stack([0.5 + 0.5 * np.sin((xx * a + yy * b) / 9.0 + c)
+                  for a, b, c in rng.rand(3, 3)], -1)
+    return (f * 255).astype(np.uint8)
+
+
+def write_jhmdb_tree(root, videos=(("pour", "v0", 9), ("pour", "v1", 7)), hw=(48, 64),
+                     seed: int = 0):
+    """A JHMDB-Sentences root: Rename_Images/<class>/<video>/%05d.png frames
+    (1-based), puppet_mask/<class>/<video>/puppet_mask.mat (``part_mask``
+    [H, W, T], a person moving a pixel a frame) and
+    jhmdb_sentences_samples_metadata.json, two samples a video (annotated
+    frames near both ends, so the window is edge-padded). Returns ``root``."""
+    from PIL import Image
+    from scipy.io import savemat
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    samples = []
+    for cls, vid, n in videos:
+        fdir = os.path.join(root, "Rename_Images", cls, vid)
+        mdir = os.path.join(root, "puppet_mask", cls, vid)
+        os.makedirs(fdir)
+        os.makedirs(mdir)
+        masks = np.zeros((h, w, n), np.uint8)
+        for i in range(n):
+            Image.fromarray(_smooth_image(rng, h, w)).save(os.path.join(fdir, f"{i + 1:05d}.png"))
+            masks[h // 4 + i: h // 4 + i + h // 2, w // 3 + i: w // 3 + i + w // 4, i] = 1
+        savemat(os.path.join(mdir, "puppet_mask.mat"), {"part_mask": masks})
+        for frame in (2, n - 1):
+            samples.append([f"the man  POURING {vid}", vid,
+                            f"Rename_Images/{cls}/{vid}/{frame:05d}.png",
+                            f"puppet_mask/{cls}/{vid}/puppet_mask.mat", n])
+    with open(os.path.join(root, "jhmdb_sentences_samples_metadata.json"), "w") as fh:
+        json.dump(samples, fh)
+    return root
+
+
+def write_refexp_tree(root, names=("refcoco",), splits=("train", "val"), n_images: int = 3,
+                      hw=(48, 64), seed: int = 0):
+    """A COCO-format refexp root: train2014/*.jpg and
+    instances_<name>_<split>.json for each name and split; each image one
+    caption and one annotation (a polygon segmentation, the last image's
+    touching the frame's right edge at x = W), the first image also a
+    second, crowd, annotation. Returns ``root``."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    os.makedirs(os.path.join(root, "train2014"), exist_ok=True)
+    for name in names:
+        for split in splits:
+            images, anns = [], []
+            for i in range(n_images):
+                img_id = 1000 * len(name) + 10 * len(split) + i
+                fname = f"COCO_train2014_{img_id:012d}.jpg"
+                Image.fromarray(_smooth_image(rng, h, w)).save(
+                    os.path.join(root, "train2014", fname))
+                images.append({"id": img_id, "file_name": fname, "height": h, "width": w,
+                               "caption": f"The {name} thing on the Left {i}"})
+                cx, cy = w * (0.3 + 0.4 * rng.rand()), h * (0.3 + 0.4 * rng.rand())
+                ang = np.sort(rng.uniform(0, 2 * np.pi, 7))
+                r = rng.uniform(0.3, 1.0, 7) * min(h, w) / 3
+                poly = np.stack([cx + r * np.cos(ang), cy + r * np.sin(ang)], 1)
+                if i == n_images - 1:
+                    poly[0] = (w, cy)   # on the right edge: rounds to x = W
+                poly = np.clip(poly, 0, [w, h])
+                x0, y0 = poly.min(0)
+                x1, y1 = poly.max(0)
+                anns.append({"id": len(anns), "image_id": img_id, "iscrowd": 0,
+                             "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+                             "area": float((x1 - x0) * (y1 - y0)) / 2,
+                             "segmentation": [poly.ravel().round(2).tolist()]})
+                if i == 0:
+                    anns.append({"id": len(anns), "image_id": img_id, "iscrowd": 1,
+                                 "bbox": [2.0, 3.0, 10.0, 8.0], "area": 80.0,
+                                 "segmentation": [[2, 3, 12, 3, 12, 11, 2, 11]]})
+            with open(os.path.join(root, f"instances_{name}_{split}.json"), "w") as fh:
+                json.dump({"images": images, "annotations": anns}, fh)
+    return root
+
+
+def write_mevis_tree(root, split="train", n_videos: int = 2, n_frames: int = 6, hw=(48, 64),
+                     seed: int = 0):
+    """A MeViS split under ``root/<split>``: JPEGImages, mask_dict.json
+    (RLEs, None where an object is absent) and meta_expressions.json; the
+    second expression of a video refers to both objects (the union mask),
+    the third to an object absent from most frames. Returns ``root``."""
+    from PIL import Image
+
+    from tce_rvos_tpu.utils import rle as jax_rle
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    mask_dict, videos = {}, {}
+    for v in range(n_videos):
+        vid = f"m{v}"
+        os.makedirs(os.path.join(root, split, "JPEGImages", vid))
+        frames = [f"{i:05d}" for i in range(n_frames)]
+        rles = {str(3 * v + k): [] for k in range(3)}
+        for i, f in enumerate(frames):
+            Image.fromarray(_smooth_image(rng, h, w)).save(
+                os.path.join(root, split, "JPEGImages", vid, f + ".jpg"))
+            for k in range(3):
+                m = np.zeros((h, w), np.uint8)
+                if k == 0:
+                    m[5 + i: 20 + i, 4 + 2 * i: 24 + 2 * i] = 1
+                elif k == 1:
+                    m[h - 18: h - 4, w - 20 - i: w - 6 - i] = 1
+                elif i == n_frames - 1:
+                    m[2:8, 2:9] = 1
+                rles[str(3 * v + k)].append(jax_rle.encode(m) if m.any() else None)
+        mask_dict.update(rles)
+        videos[vid] = {"frames": frames, "expressions": {
+            "0": {"exp": "the Car moving left", "obj_id": [0], "anno_id": [3 * v]},
+            "1": {"exp": "two cars", "obj_id": [0, 1], "anno_id": [3 * v, 3 * v + 1]},
+            "2": {"exp": "the bird arriving at the end", "obj_id": [2],
+                  "anno_id": [3 * v + 2]}}}
+    with open(os.path.join(root, split, "mask_dict.json"), "w") as fh:
+        json.dump(mask_dict, fh)
+    with open(os.path.join(root, split, "meta_expressions.json"), "w") as fh:
+        json.dump({"videos": videos}, fh)
+    return root
