@@ -103,7 +103,28 @@ Phases (each one fails the run, nothing is caught and carried on from):
                loader's wait, the device forward, the device postprocess,
                the host postprocess with RLE encoding and the metric;
                ms/step and data share; eval_davis's seconds;
- 11. numbers - card name and power limit, clips/s and ms per trunk
+ 11. backbones - the other backbone families at full width, from seeded
+               random weights: the 2D forward kernel held against plain at
+               the DC5 levels (48x80, 24x40, 24x40, 12x20: S = 6000) and
+               at Video-Swin-B's serving shapes, the backward at its
+               training shapes; the Video-Swin-B flagship
+               (``--backbone video_swin_b_p4w7``) through phase 3's path in
+               bf16 and f32 (24 MSDA forward launches per run_video_batch
+               of two windows, exact expression isolation, batched against
+               serial masks, bf16 under limits calibrated on an H100) and
+               phase 4's f32 window GPU against CPU; a whole-video ytvos run
+               through ``infer.main`` on one 34-frame 720x1280 video (one
+               40-frame window: 8-frame windows, a temporal shift of 4),
+               its PNG tree and the backbone's peak memory; 10 bf16 train
+               steps at b = 1, 5x384x640, without and with recomputation
+               (12 + 12 and 24 + 12 launches a step), ms/step, peak memory,
+               MFU over a useful-FLOP count derived from the code
+               (``video_swin_forward_flops``) and the device's busy share;
+               one bf16 forward (a 5-frame window, E = 4: finite outputs,
+               12 launches) on Video-Swin-T and -S, Swin-L, ResNet-101,
+               ResNet-50 with DC5 and X3D-M, with the backbone's ms and
+               peak memory; the phase's wall time;
+ 12. numbers - card name and power limit, clips/s and ms per trunk
                forward, peak memory per E, and a JSON ``kernels`` line.
 
 The last line of standard output is the device JSON line. Without a CUDA
@@ -909,10 +930,11 @@ def mask_gap(got, want) -> tuple:
 BF16_BATCHED_VS_SERIAL_LIMITS = (5.1e-2, 9.1e-3)
 
 
-def batched_vs_serial(engine, videos, first_outs, dtype_name: str, label: str) -> dict:
+def batched_vs_serial(engine, videos, first_outs, dtype_name: str, label: str,
+                      limits=BF16_BATCHED_VS_SERIAL_LIMITS) -> dict:
     """run_video_batch (E = 4) against run_video (E = 1) for every caption
-    of every video; returns the readings and the masks, keyed by (video,
-    caption), for the bf16-against-f32 reading."""
+    of every video, bf16 within ``limits``; returns the readings and the
+    masks, keyed by (video, caption), for the bf16-against-f32 reading."""
     import numpy as np
 
     readings, masks = [], {}
@@ -927,9 +949,9 @@ def batched_vs_serial(engine, videos, first_outs, dtype_name: str, label: str) -
             rel_rms, flip = mask_gap(got, want)
             if dtype_name == "float32":
                 compare(got, want, 1e-3, 1e-3, where)
-            elif rel_rms > BF16_BATCHED_VS_SERIAL_LIMITS[0] or flip > BF16_BATCHED_VS_SERIAL_LIMITS[1]:
+            elif rel_rms > limits[0] or flip > limits[1]:
                 raise AssertionError(f"{where}: relative RMS {rel_rms:.3e}, mask differs on "
-                                     f"{flip:.3e} of pixels; limits {BF16_BATCHED_VS_SERIAL_LIMITS}")
+                                     f"{flip:.3e} of pixels; limits {limits}")
             readings.append(dict(video=v, caption=e, rel_rms=rel_rms, flip=flip,
                                  max_abs_err=float(np.abs(got - want).max()),
                                  max_abs_logit=float(np.abs(want).max())))
@@ -1114,11 +1136,12 @@ def expression_isolation(engine, frames, label: str) -> dict:
     return dict(divergence=divergence, decoder0=inner, gemm_share_differ=gemm)
 
 
-def phase_path(dtype_name: str, sd, videos) -> dict:
+def phase_path(dtype_name: str, sd, videos, backbone: str = "resnet50", tag: str = "path",
+               limits=BF16_BATCHED_VS_SERIAL_LIMITS) -> dict:
     """run_video_batch (E = 4, two 5-frame windows) through the kernel;
     expression isolation and where batched and serial part; the batched
-    masks against serial run_video for every caption of every video;
-    times."""
+    masks against serial run_video for every caption of every video (bf16
+    within ``limits``); times. The flagship on ``backbone``."""
     import torch
 
     from tce_rvos_tpu_torch import flagship_config
@@ -1126,9 +1149,9 @@ def phase_path(dtype_name: str, sd, videos) -> dict:
     from tce_rvos_tpu_torch.models.text_encoder import tokenize
     from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn
 
-    cfg = flagship_config(compute_dtype=dtype_name)
+    cfg = flagship_config(compute_dtype=dtype_name, backbone=backbone)
     engine = InferenceEngine(cfg, sd, device="cuda")
-    label = f"[path {dtype_name}]"
+    label = f"[{tag} {dtype_name}]"
     frames = videos[0]
     n_windows = -(-N_FRAMES // engine.window)
 
@@ -1148,7 +1171,7 @@ def phase_path(dtype_name: str, sd, videos) -> dict:
         f"first call {first_s:.3f} s")
 
     isolation = expression_isolation(engine, frames, label)
-    bvs = batched_vs_serial(engine, videos, outs, dtype_name, label)
+    bvs = batched_vs_serial(engine, videos, outs, dtype_name, label, limits)
 
     # steady-state serving rate: expression-windows per second
     reps = 3
@@ -1442,7 +1465,7 @@ def profile_device(fn, label: str, top: int = 12, host_top: int = 0) -> dict:
             "top_host_ops": [(key[:100], us / 1e3, count) for us, key, count in host[:host_top]]}
 
 
-def phase_parity(sd, frames, msda_3d: bool = False) -> None:
+def phase_parity(sd, frames, msda_3d: bool = False, backbone: str = "resnet50") -> None:
     """One window, f32 with TF32 off: the GPU path (MSDA kernels) against
     the same weights on the CPU (plain MSDA); E = 1 for the flagship, E = 2
     for ``--msda_3d`` (10 frames on the batch axis, so temporal taps cross
@@ -1455,7 +1478,9 @@ def phase_parity(sd, frames, msda_3d: bool = False) -> None:
     from tce_rvos_tpu_torch.models.text_encoder import tokenize
 
     label = "[parity 3d]" if msda_3d else "[parity]"
-    cfg = flagship_config(msda_3d=msda_3d)
+    if backbone != "resnet50":
+        label = f"[parity {backbone}]"
+    cfg = flagship_config(msda_3d=msda_3d, backbone=backbone)
     ids, attn = tokenize(list(CAPTIONS[:2 if msda_3d else 1]))
     # one trunk forward; the CPU takes the plain versions
     want = ({"msda_fwd": 4, "msda3d_fwd": 8} if msda_3d else {"msda_fwd": 12, "msda3d_fwd": 0})
@@ -1601,9 +1626,15 @@ def reset_launch_counts() -> None:
         op.launches = op.backward_launches = 0
 
 
-def train_run(state, step, batches, label: str, tag: str, warmup: int = TRAIN_WARMUP) -> dict:
+FLOPS_SOURCE = "from the JAX package's count of the 2D flagship"
+
+
+def train_run(state, step, batches, label: str, tag: str, warmup: int = TRAIN_WARMUP,
+              useful_flops: float = TRAIN_USEFUL_FLOPS_PER_CLIP,
+              flops_source: str = FLOPS_SOURCE) -> dict:
     """train_one_epoch over ``batches``, each step timed to its end on the
-    device; MSDA launch counts of the run and peak memory."""
+    device; MSDA launch counts of the run and peak memory; MFU from
+    ``useful_flops`` per clip."""
     import torch
 
     from tce_rvos_tpu_torch.engine import train_one_epoch
@@ -1633,15 +1664,14 @@ def train_run(state, step, batches, label: str, tag: str, warmup: int = TRAIN_WA
                losses=losses, peak_gib=peak / 2**30, launches=counts["msda_fwd"],
                backward_launches=counts["msda_bwd"], launches_3d=counts["msda3d_fwd"],
                backward_launches_3d=counts["msda3d_bwd"],
-               mfu=TRAIN_USEFUL_FLOPS_PER_CLIP / (ms / 1e3) / BF16_DENSE_FLOPS_PER_S)
+               mfu=useful_flops / (ms / 1e3) / BF16_DENSE_FLOPS_PER_S)
     log(f"{label} {tag}: {n_steps} steps, losses {[round(x, 4) for x in losses]}; "
         f"{ms:.3f} ms/step (median after {warmup} warm-up steps) = "
         f"{out['steps_per_s']:.3f} steps/s; max_memory_allocated {out['peak_gib']:.3f} GiB; "
         f"MSDA launches forward {counts['msda_fwd']}, backward {counts['msda_bwd']}, "
         f"3D forward {counts['msda3d_fwd']}, 3D backward {counts['msda3d_bwd']}; "
-        f"MFU {100 * out['mfu']:.2f}% (useful FLOPs {TRAIN_USEFUL_FLOPS_PER_CLIP:.4e} per clip "
-        f"from the JAX package's count of the 2D flagship, over the H100 SXM bf16 dense peak "
-        f"of 989 TFLOP/s)")
+        f"MFU {100 * out['mfu']:.2f}% (useful FLOPs {useful_flops:.4e} per clip "
+        f"{flops_source}, over the H100 SXM bf16 dense peak of 989 TFLOP/s)")
     return out
 
 
@@ -3242,6 +3272,276 @@ def phase_eval(root: str, davis_results: str, ytvos_train: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the other backbones
+# ---------------------------------------------------------------------------
+
+VSWIN_B = "video_swin_b_p4w7"  # BASELINE.json's flagship WACV configuration
+# one bf16 trunk forward of the flagship on each other family: the reference
+# scripts' video_swin_t/s, BASELINE.json's swin_l (config 3) and resnet101
+# (config 2), ResNet-50 with DC5, X3D-M
+OTHER_BACKBONES = (("video_swin_t_p4w7", False), ("video_swin_s_p4w7", False),
+                   ("swin_l_p4w7", False), ("resnet101", False), ("resnet50", True),
+                   ("x3d_m", False))
+DC5_SHAPES = ((48, 80), (24, 40), (24, 40), (12, 20))  # 384x640 with DC5: S = 6000
+WHOLE_VIDEO = {"w34": (34, CAPTIONS)}  # whole-video: a 40-frame window, E = 4
+# Video-Swin-B bf16 batched against serial masks: twice the largest of the
+# 12 readings of the calibration run on an H100 (relative RMS 1.463e-2,
+# share of pixels whose mask differs 1.964e-3; PERF.md), as for ResNet-50
+VSWIN_B_BF16_LIMITS = (2.93e-2, 3.93e-3)
+
+
+def video_swin_forward_flops(name: str, t: int, hw) -> float:
+    """Useful FLOPs (2 per multiply-add) of a Video-Swin forward on one clip
+    of t frames at ``hw``, from the layer shapes of ``models/video_swin.py``:
+    the (1, 4, 4) patch embedding; per block the qkv (3C), proj (C) and MLP
+    (4C, back to C) matmuls of every token, 24 N C^2, and q k^T and attention
+    times v over the window's tokens (the shrink rule applied), 4 N n C; the
+    patch mergings, 4C to 2C. Padding tokens, softmax, norms and other
+    elementwise work are not counted."""
+    from tce_rvos_tpu_torch.models.swin import get_window_size
+    from tce_rvos_tpu_torch.models.video_swin import video_swin_spec
+
+    spec = video_swin_spec(name)
+    h, w = -(-hw[0] // 4), -(-hw[1] // 4)
+    c = spec["embed_dim"]
+    flops = 2 * t * h * w * 3 * 16 * c
+    for i, depth in enumerate(spec["depths"]):
+        n = t * h * w
+        window, _ = get_window_size((t, h, w), spec["window_size"], (0, 0, 0))
+        flops += depth * (24 * n * c * c + 4 * n * math.prod(window) * c)
+        if i < len(spec["depths"]) - 1:
+            h, w = -(-h // 2), -(-w // 2)
+            flops += 2 * t * h * w * 4 * c * 2 * c
+            c *= 2
+    return float(flops)
+
+
+def counted_flops(module, x) -> float:
+    """The matmul and convolution FLOPs of one forward of ``module`` on
+    ``x`` as ``torch.utils.flop_counter`` counts them (padding included)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        module(x)
+    return float(counter.get_total_flops())
+
+
+def whole_video_backbone(root: str) -> dict:
+    """Video-Swin-B whole-video ytvos through ``infer.main`` (bf16, the
+    model's own init) on a synthetic 720x1280 tree, one video of 34 frames:
+    one 40-frame window (8-frame windows, a temporal shift of 4), E = 4;
+    wall seconds, frames/s, the backbone's peak memory, 12 launches a trunk
+    forward, the PNG tree."""
+    import os
+
+    import torch
+
+    from tce_rvos_tpu_torch import infer
+
+    label = "[backbones video_swin_b ytvos whole-video, infer.main]"
+    tree = write_tree(os.path.join(root, "vswin_ytvos"), "ytvos", WHOLE_VIDEO, seed=14)
+    out = os.path.join(root, "out_vswin")
+    (n, caps), = WHOLE_VIDEO.values()
+    argv = ["--dataset_file", "ytvos", "--ytvos_path", tree, "--output_dir", out,
+            "--binary", "--with_box_refine", "--f_token", "8", "--qtrans",
+            "--compute_dtype", "bfloat16", "--backbone", VSWIN_B]
+    calls = []  # (frames, peak GiB, peak above what was resident before) per backbone call
+    original = infer.InferenceEngine.backbone
+
+    def backbone(self, video, mask):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        feats = original(self, video, mask)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        calls.append((int(video.shape[1]), peak / 2**30, (peak - base) / 2**30))
+        return feats
+
+    infer.InferenceEngine.backbone = backbone
+    try:
+        res = timed_protocol(label, lambda: infer.main(argv), n, len(caps))
+    finally:
+        infer.InferenceEngine.backbone = original
+    t_clip = -(-n // 8) * 8
+    trunks = expected_trunks(len(caps), t_clip)
+    if [c[0] for c in calls] != [t_clip] or res["launches"]["msda_fwd"] != 12 * len(trunks):
+        raise AssertionError(f"{label} backbone calls {calls}, launches {res['launches']}; "
+                             f"expected one {t_clip}-frame call and 12 x {len(trunks)}")
+    files = check_binary_tree(out, WHOLE_VIDEO, label)
+    res.update(t_clip=t_clip, backbone_peak_gib=calls[0][1],
+               backbone_peak_above_resident_gib=calls[0][2], pngs=files)
+    log(f"{label} {n} frames as one {t_clip}-frame window: backbone max_memory_allocated "
+        f"{calls[0][1]:.3f} GiB ({calls[0][2]:.3f} GiB above what was resident), "
+        f"{res['frames_per_s']:.2f} frames/s, {res['seconds']:.3f} s wall (the protocol's "
+        f"peak above is from the backbone's start); {files} PNGs at "
+        f"{PROTO_HW[0]}x{PROTO_HW[1]}")
+    return res
+
+
+def backbone_train(sd) -> dict:
+    """TRAIN_STEPS bf16 Video-Swin-B flagship steps (b = 1, 5x384x640,
+    dropout and DropPath on) without and with recomputation (the backbone's
+    blocks and the transformer's layers): ms/step, peak memory, MFU over a
+    useful-FLOP count, the device's busy share of one step; 12 + 12 MSDA
+    launches a step (24 + 12 with recomputation); every backbone parameter
+    gets a gradient."""
+    import torch
+
+    from tce_rvos_tpu_torch import flagship_config
+    from tce_rvos_tpu_torch.config import TrainConfig
+    from tce_rvos_tpu_torch.models.backbone_resnet import ResNet
+    from tce_rvos_tpu_torch.models.criterion import criterion_from_configs
+    from tce_rvos_tpu_torch.models.referformer import ReferFormer
+    from tce_rvos_tpu_torch.parallel.train_step import (
+        batch_to_device,
+        create_train_state,
+        forward_losses,
+        make_train_step,
+    )
+
+    label = "[backbones video_swin_b train]"
+    dev = torch.device("cuda")
+    cfg = flagship_config(compute_dtype="bfloat16", backbone=VSWIN_B)
+    tcfg = TrainConfig()
+    model = ReferFormer(cfg)
+    model.load_state_dict(sd, strict=True)
+    model.to(dev)
+    body = model.backbone[0].body
+    clip = torch.randn(1, 3, TRAIN_T, *TRAIN_HW, device=dev)
+    vsb = video_swin_forward_flops(VSWIN_B, TRAIN_T, TRAIN_HW)
+    vsb_counted = counted_flops(body, clip)
+    r50 = counted_flops(ResNet().to(dev), clip[0].transpose(0, 1))
+    useful = TRAIN_USEFUL_FLOPS_PER_CLIP + 3.0 * (vsb - r50)
+    log(f"{label} useful FLOPs of one {TRAIN_T}x{TRAIN_HW[0]}x{TRAIN_HW[1]} clip: Video-Swin-B "
+        f"forward {vsb:.4e} (video_swin_forward_flops; torch.utils.flop_counter counts "
+        f"{vsb_counted:.4e}, window padding included), ResNet-50 forward {r50:.4e} "
+        f"(flop_counter); the train step's {useful:.4e} = the 2D flagship's "
+        f"{TRAIN_USEFUL_FLOPS_PER_CLIP:.4e} + 3 x (Video-Swin-B - ResNet-50) forward")
+    source = ("(the 2D flagship's count with the backbone's forward and backward, 3 x its "
+              "forward, taken as Video-Swin-B's)")
+    state = create_train_state(model, tcfg, steps_per_epoch=1000)
+    crit = criterion_from_configs(cfg, tcfg)
+    step = make_train_step(crit, cfg.compute_dtype)
+    batches = [batch_to_device(train_batch(TRAIN_T, TRAIN_HW, seed=10 + i), dev)
+               for i in range(TRAIN_STEPS)]
+    res = {"useful_flops": useful, "backbone_forward_flops": vsb,
+           "backbone_forward_flops_counted": vsb_counted, "resnet50_forward_flops": r50}
+    res["plain"] = train_run(state, step, batches, label, "bf16 train_one_epoch, no "
+                             "recomputation", useful_flops=useful, flops_source=source)
+    if (res["plain"]["launches"], res["plain"]["backward_launches"]) != (
+            12 * TRAIN_STEPS, 12 * TRAIN_STEPS):
+        raise AssertionError(f"{label} MSDA launches {res['plain']['launches']} / "
+                             f"{res['plain']['backward_launches']}, expected 12 + 12 a step")
+    # one more bf16 step's gradients with DropPath and dropout off: at b = 1
+    # DropPath drops a whole block's branch for the step, and its
+    # parameters get no gradient in that step
+    model.eval()
+    model.zero_grad(set_to_none=True)
+    forward_losses(model, batches[0], crit, cfg.compute_dtype)[0].backward()
+    no_grad = [n for n, p in body.named_parameters()
+               if p.grad is None or float(p.grad.abs().max()) == 0.0]
+    if no_grad:
+        raise AssertionError(f"{label} backbone parameters without a gradient: {no_grad}")
+    log(f"{label} every backbone parameter has a non-zero gradient in a bf16 step with "
+        f"DropPath and dropout off")
+    res["profile"] = profile_device(lambda: step(state, batches[0]),
+                                    f"{label} profiled bf16 train step (no recomputation)")
+    model.transformer.use_checkpoint = body.use_checkpoint = True
+    res["ckpt"] = train_run(state, step, batches, label, "bf16 train_one_epoch, with "
+                            "recomputation", useful_flops=useful, flops_source=source)
+    if (res["ckpt"]["launches"], res["ckpt"]["backward_launches"]) != (
+            24 * TRAIN_STEPS, 12 * TRAIN_STEPS):
+        raise AssertionError(f"{label} with recomputation: MSDA launches "
+                             f"{res['ckpt']['launches']} / {res['ckpt']['backward_launches']}")
+    del state, model, batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def family_forward(name: str, dilation: bool, frames) -> dict:
+    """One bf16 flagship forward on backbone ``name``: a 5-frame 384x640
+    window, E = 4: finite outputs, 12 MSDA forward launches, the backbone's
+    ms and the peak memory."""
+    import torch
+
+    from tce_rvos_tpu_torch import flagship_config
+    from tce_rvos_tpu_torch.infer import InferenceEngine
+    from tce_rvos_tpu_torch.models.text_encoder import tokenize
+
+    tag = name + (" dc5" if dilation else "")
+    label = f"[backbones {tag}]"
+    sd = random_state_dict(flagship_config(backbone=name, dilation=dilation), seed=0)
+    engine = InferenceEngine(flagship_config(compute_dtype="bfloat16", backbone=name,
+                                             dilation=dilation), sd, device="cuda")
+    del sd
+    video, mask, size = engine.preprocess(frames[:5])
+    sizes = torch.tensor([size], device="cuda")
+    ids, attn = tokenize(list(CAPTIONS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    feats = engine.backbone(video, mask)
+    out = engine.trunk(feats, mask, ids, attn, sizes)
+    torch.cuda.synchronize()
+    launches = launch_counts()["msda_fwd"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    bad = [k for k, v in out.items() if not bool(torch.isfinite(v.float()).all())]
+    if bad or launches != 12:
+        raise AssertionError(f"{label} outputs not finite: {bad}; MSDA launches {launches}, "
+                             f"expected 12")
+    backbone_ms = cuda_ms(lambda: engine.backbone(video, mask), reps=10)
+    levels = [tuple(f.shape[-2:]) for f in feats]
+    log(f"{label} one 5x384x640 window, E={len(CAPTIONS)}: outputs finite, msda_fwd launches "
+        f"{launches}; backbone {backbone_ms:.3f} ms/window (levels {levels}, channels "
+        f"{[f.shape[1] for f in feats]}); max_memory_allocated {peak:.3f} GiB")
+    del engine
+    torch.cuda.empty_cache()
+    return dict(launches=launches, backbone_ms=backbone_ms, peak_gib=peak,
+                levels=[list(x) for x in levels])
+
+
+def phase_backbones(videos, root: str) -> dict:
+    """Phase 11: the 2D kernels held at the DC5 levels and at Video-Swin-B's
+    serving and training shapes; the Video-Swin-B flagship served in bf16
+    and f32 (phase 3's gates: 24 launches per run_video_batch of two
+    windows, exact expression isolation, batched against serial), its f32
+    window GPU against CPU, the whole-video ytvos run, 10 bf16 train steps
+    without and with recomputation; one forward on each other family."""
+    import torch
+
+    from tce_rvos_tpu_torch import flagship_config
+
+    t0 = time.perf_counter()
+    res = {"kernels": {"dc5_e4": phase_kernels(e=4, shapes=DC5_SHAPES),
+                       "video_swin_b_e4": phase_kernels(e=4)},
+           "backward": {"video_swin_b_train": phase_backward_kernels()}}
+    sd = random_state_dict(flagship_config(backbone=VSWIN_B), seed=0)
+    res["path"] = {dtype: phase_path(dtype, sd, videos, backbone=VSWIN_B,
+                                     tag="backbones video_swin_b", limits=VSWIN_B_BF16_LIMITS)[0]
+                   for dtype in ("bfloat16", "float32")}
+    phase_parity(sd, videos[0], backbone=VSWIN_B)
+    res["whole_video"] = whole_video_backbone(root)
+    res["train"] = backbone_train(sd)
+    del sd
+    torch.cuda.empty_cache()
+    res["families"] = {name + ("_dc5" if dil else ""): family_forward(name, dil, videos[0])
+                       for name, dil in OTHER_BACKBONES}
+    res["seconds"] = time.perf_counter() - t0
+    path = res["path"]["bfloat16"]
+    train = res["train"]["plain"]
+    log(f"[backbones] Video-Swin-B flagship: {path['expression_windows_per_s']:.2f} "
+        f"expression-windows/s bf16, backbone {path['backbone_ms']:.3f} ms/window, trunk "
+        f"E=4 {path['trunk'][4]['ms']:.3f} ms ({path['trunk'][4]['peak_gib']:.3f} GiB); train "
+        f"{train['ms_per_step']:.3f} ms/step, MFU {100 * train['mfu']:.2f}%, "
+        f"{train['peak_gib']:.3f} GiB; whole-video backbone at T = "
+        f"{res['whole_video']['t_clip']}: {res['whole_video']['backbone_peak_gib']:.3f} GiB; "
+        f"phase 11 wall {res['seconds']:.1f} s")
+    return res
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3251,7 +3551,8 @@ def nvidia_smi_line() -> str:
 
 
 def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, train: dict,
-                 serve3: dict, train3: dict, main_runs: dict, evals: dict) -> dict:
+                 serve3: dict, train3: dict, main_runs: dict, evals: dict,
+                 backbones: dict) -> dict:
     """The JSON ``kernels`` record: each kernel's main shape in its
     deployment dtype (the encoder call in bf16: E = 4 for the forwards'
     serving paths, N = 5 for the training steps' backwards) in the top-level
@@ -3264,7 +3565,11 @@ def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, tr
     shapes (``main_HxW`` N = 5, ``main_3d_HxW`` N = 10); phase 10's paths
     (``eval_jhmdb``, ``eval_refcoco``, ``train_joint``, ``train_mevis``)
     likewise, with the 2D calls held at their shapes (``eval_jhmdb_HxW_N2``,
-    ``eval_refcoco_HxW_N10``, ``train_joint_HxW_N10``)."""
+    ``eval_refcoco_HxW_N10``, ``train_joint_HxW_N10``); phase 11's paths
+    (the Video-Swin-B flagship's serving, whole-video and training runs,
+    one forward on each other family) likewise, with the 2D calls held at
+    the DC5 levels (``dc5_e4``, S = 6000) and at Video-Swin-B's serving
+    (``video_swin_b_e4``) and training (``video_swin_b_train``) shapes."""
     def entry(name, source, replaces, also, main, launches, by_path, shapes):
         return {"name": name, "route": "cuda", "source": f"tce_rvos_tpu_torch/csrc/{source}",
                 "replaces": f"tce_rvos_tpu/ops/{replaces}",
@@ -3302,9 +3607,22 @@ def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, tr
            "train_joint": evals["train_joint"]["launches"],
            "train_mevis": evals["mevis"]["launches"]}
 
+    bb = backbones
+    p11 = {"serve_video_swin_b": {"msda_fwd": bb["path"]["bfloat16"]["launches"], "msda_bwd": 0},
+           "whole_video_video_swin_b": {"msda_fwd": bb["whole_video"]["launches"]["msda_fwd"],
+                                        "msda_bwd": 0},
+           "train_video_swin_b": {"msda_fwd": bb["train"]["plain"]["launches"],
+                                  "msda_bwd": bb["train"]["plain"]["backward_launches"]},
+           **{f"forward_{name}": {"msda_fwd": f["launches"], "msda_bwd": 0}
+              for name, f in bb["families"].items()}}
+    at_main["fwd"].update(flat(bb["kernels"]))
+    at_main["bwd"].update(flat(bb["backward"]))
+
     def by_path(d, kname):
         return {**d, "train_main": m2[kname], "train_main_3d": m3[kname],
-                **{path: counts[kname] for path, counts in p10.items()}}
+                **{path: counts[kname] for path, counts in p10.items()},
+                **({path: counts[kname] for path, counts in p11.items()}
+                   if kname in ("msda_fwd", "msda_bwd") else {})}
 
     return {"kernels": [
         entry("msda_fwd", "msda_fwd.cu", "pallas_msda.py:166", ["pallas_msda.py:265"],
@@ -3396,12 +3714,13 @@ def main() -> int:
             evals = phase_eval(os.path.join(root, "eval"),
                                davis_results=os.path.join(root, "out_davis", "valid"),
                                ytvos_train=os.path.join(main_root, "tree"))
+        backbones = phase_backbones(videos, root)
     log("[numbers] " + json.dumps({"envelope": envelope, "protocols": protocols,
-                                   "main": main_runs, "eval": evals}))
+                                   "main": main_runs, "eval": evals, "backbones": backbones}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels_line(kern, bwd, kern3, bwd3, paths["bfloat16"]["launches"], train,
-                                  serve3, train3, main_runs, evals)))
+                                  serve3, train3, main_runs, evals, backbones)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

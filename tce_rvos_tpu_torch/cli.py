@@ -23,6 +23,7 @@ from __future__ import annotations
 import argparse
 
 from tce_rvos_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+from tce_rvos_tpu_torch.models.referformer import check_backbone
 
 
 def add_model_args(p: argparse.ArgumentParser):
@@ -75,8 +76,6 @@ def add_model_args(p: argparse.ArgumentParser):
 
 # flag -> (its value the port cannot run yet, what the port supports)
 _UNSUPPORTED = (
-    ("--backbone", lambda a: a.backbone != "resnet50", "resnet50 only"),
-    ("--dilation", lambda a: a.dilation, "no DC5"),
     ("--binary", lambda a: not a.binary, "--binary is required: one class logit"),
     ("--vlblock", lambda a: not a.vlblock, "the V-L FPN blocks stay on"),
     ("--no_rel_coord", lambda a: not a.rel_coord, "relative coordinates stay on"),
@@ -92,12 +91,16 @@ _UNSUPPORTED = (
 
 def model_config_from_args(args) -> ModelConfig:
     """The port's ``ModelConfig`` from parsed ``add_model_args`` flags;
-    raises ``ValueError`` naming the first flag whose value it cannot run."""
+    raises ``ValueError`` naming the first flag whose value it cannot run,
+    an unknown ``--backbone`` (listing the known ones) and ``--dilation``
+    on a backbone that is not a ResNet."""
     for flag, unsupported, supported in _UNSUPPORTED:
         if unsupported(args):
             raise ValueError(f"{flag}: not supported by the PyTorch port yet ({supported})")
     fields = {f.name for f in ModelConfig.__dataclass_fields__.values()}
-    return ModelConfig(**{k: v for k, v in vars(args).items() if k in fields})
+    cfg = ModelConfig(**{k: v for k, v in vars(args).items() if k in fields})
+    check_backbone(cfg)
+    return cfg
 
 
 def add_train_args(p: argparse.ArgumentParser):

@@ -8,12 +8,14 @@ plain version on the CPU). ``compute_dtype`` stays: "bfloat16" casts the
 weights and the video at the boundary, as in the JAX package (once in the
 inference engine; inside the loss, over f32 master weights, in training).
 
-What the port supports of the rest is fixed, not configurable: a ResNet-50
-backbone without DC5, the V-L blocks of the FPN, relative coordinates in
-the dynamic mask head, mask losses, and one class logit (``--binary``). The
-options not ported yet (the other backbones, DC5, ``vis_loss``,
-``contrastive``, ``f_token < 0``, the non-binary class counts) come with
-their code and a parity test against the JAX package.
+``backbone`` names one of the JAX package's backbones (ResNet-50/101,
+Swin t/s/b/l, Video-Swin t/s/b, X3D xs/s/m/l/self; ``models/referformer.py
+::BACKBONES``) and ``dilation`` is ResNet's DC5. What the port supports of
+the rest is fixed, not configurable: the V-L blocks of the FPN, relative
+coordinates in the dynamic mask head, mask losses, and one class logit
+(``--binary``). The options not ported yet (``vis_loss``, ``contrastive``,
+``f_token < 0``, the non-binary class counts) come with their code and a
+parity test against the JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ NUM_CLASSES = 1  # --binary: one "is referred" logit per query
 class ModelConfig:
     """Architecture hyper-parameters (the JAX package's names and defaults)."""
 
+    backbone: str = "resnet50"
+    dilation: bool = False                # DC5: ResNet's layer4 at stride 1, dilation 2
     use_checkpoint: bool = False          # recompute each enc/dec layer in backward
     num_feature_levels: int = 4
 

@@ -13,8 +13,24 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 LN_EPS = 1e-6
+
+
+def run_layer(layer: nn.Module, recompute: bool, *args):
+    """``layer(*args)``, recomputed in the backward pass when ``recompute``
+    and gradients are being recorded (``torch.utils.checkpoint``,
+    non-reentrant, the RNG state kept so dropout and DropPath draw the same
+    masks; ``nn.remat`` in the JAX package). The layer's parameters and
+    buffers go into the checkpoint as arguments: under the bf16 train
+    step's ``functional_call`` they are bf16 casts that the module no
+    longer holds when the backward pass recomputes."""
+    if recompute and torch.is_grad_enabled():
+        tensors = {**dict(layer.named_parameters()), **dict(layer.named_buffers())}
+        return checkpoint(functional_call, layer, tensors, args, use_reentrant=False)
+    return layer(*args)
 
 
 def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -1,7 +1,8 @@
 """ReferFormer / TCE-RVOS model assembly (counterpart of
 ``tce_rvos_tpu/models/referformer.py``).
 
-Pipeline: backbone (b*t frames) -> per-level input_proj + early V-L fusion
+Pipeline: backbone (a 2D one on the b*t frames, a temporal one on the b
+clips; ``BACKBONES`` lists them) -> per-level input_proj + early V-L fusion
 -> deformable transformer (FTF encoder, IQT decoder) -> class and box heads
 -> cross-modal FPN -> dynamic mask head.
 
@@ -23,8 +24,7 @@ never pays for them. ``cfg.freeze_text_encoder`` stops the gradient at the
 text encoder's outputs. ``valid_indices`` ([b], A2D/JHMDB evaluation) keeps
 only each clip's annotated frame after the position encodings: from there
 on t = 1, as in the JAX package (reference tce_rvos.py:234-243). Not ported
-yet: the ``vis_loss`` and ``contrastive`` heads, and the non-ResNet
-backbones.
+yet: the ``vis_loss`` and ``contrastive`` heads.
 """
 
 from __future__ import annotations
@@ -36,7 +36,8 @@ import torch
 from torch import nn
 
 from tce_rvos_tpu_torch.config import NUM_CLASSES, ModelConfig
-from tce_rvos_tpu_torch.models.backbone_resnet import RESNET_CHANNELS, Backbone
+from tce_rvos_tpu_torch.models import backbone_resnet, swin, video_swin, x3d
+from tce_rvos_tpu_torch.models.backbone_resnet import Backbone
 from tce_rvos_tpu_torch.models.dynamic_head import (
     dynamic_head_param_counts,
     dynamic_mask_with_coords,
@@ -62,13 +63,49 @@ from tce_rvos_tpu_torch.utils.boxes import inverse_sigmoid
 from tce_rvos_tpu_torch.utils.interpolate import resize_mask_nearest
 
 
+BACKBONES = (*backbone_resnet.RESNET_SPECS, *swin.SWIN_CONFIGS,
+             *video_swin.VIDEO_SWIN_CONFIGS, *x3d.X3D_CONFIGS)
+
+
+def check_backbone(cfg: ModelConfig) -> None:
+    """Raises ``ValueError`` naming the flag for a backbone name that is not
+    in ``BACKBONES``, and for DC5 (``--dilation``) on a backbone that is
+    not a ResNet."""
+    if cfg.backbone not in BACKBONES:
+        raise ValueError(f"--backbone: unknown backbone {cfg.backbone!r}; the known ones are "
+                         + ", ".join(BACKBONES))
+    if cfg.dilation and cfg.backbone not in backbone_resnet.RESNET_SPECS:
+        raise ValueError(f"--dilation: DC5 is a ResNet option, not one of {cfg.backbone!r}")
+
+
+def build_backbone_module(cfg: ModelConfig):
+    """(the backbone network, its strides, its channels, whether it is
+    temporal: takes clips [b, 3, t, H, W] rather than frames)."""
+    check_backbone(cfg)
+    name = cfg.backbone
+    if name in video_swin.VIDEO_SWIN_CONFIGS:
+        spec = video_swin.video_swin_spec(name)
+        body = video_swin.VideoSwinBackbone(spec, use_checkpoint=cfg.use_checkpoint)
+        return body, spec["strides"], spec["channels"], True
+    if name in swin.SWIN_CONFIGS:
+        spec = swin.swin_spec(name)
+        body = swin.SwinBackbone(spec, use_checkpoint=cfg.use_checkpoint)
+        return body, spec["strides"], spec["channels"], False
+    if name in x3d.X3D_CONFIGS:
+        spec = x3d.x3d_spec(name)
+        return x3d.X3DBackbone(spec), spec["strides"], spec["channels"], True
+    strides, channels = backbone_resnet.resnet_strides_channels(name, cfg.dilation)
+    body = backbone_resnet.ResNet(backbone_resnet.RESNET_SPECS[name]["layers"], cfg.dilation)
+    return body, strides, channels, False
+
+
 class ReferFormer(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
         c = cfg.hidden_dim
-        channels = RESNET_CHANNELS
-        self.backbone = nn.ModuleList([Backbone()])
+        body, _, channels, self.temporal_backbone = build_backbone_module(cfg)
+        self.backbone = nn.ModuleList([Backbone(body)])
         self.text_encoder = RobertaModel(
             hidden=cfg.text_encoder_hidden, layers=cfg.text_encoder_layers,
             heads=cfg.text_encoder_heads, intermediate=cfg.text_encoder_intermediate)
@@ -116,8 +153,11 @@ class ReferFormer(nn.Module):
         b = bv if text_ids is None else text_ids.shape[0]
 
         if precomputed_feats is None:
-            frames = video.reshape((bv * t,) + tuple(video.shape[2:])).permute(0, 3, 1, 2)
-            feats = self.backbone[0](frames)
+            if self.temporal_backbone:  # clips [bv, 3, t, H, W]
+                feats = self.backbone[0](video.permute(0, 4, 1, 2, 3))
+            else:
+                frames = video.reshape((bv * t,) + tuple(video.shape[2:])).permute(0, 3, 1, 2)
+                feats = self.backbone[0](frames)
             if backbone_only:
                 return feats
         else:
@@ -217,10 +257,11 @@ class ReferFormer(nn.Module):
 
 def init_weights(model: ReferFormer, generator: torch.Generator) -> None:
     """Seeded random initialisation with the JAX package's initialisers:
-    lecun-normal linears and convs, zero biases, identity frozen BatchNorm,
-    the MSDA layout (zero offset/weight kernels, directional offset bias),
-    N(0, 1) level and query embeddings, the focal-loss class prior and
-    zero last bbox layers (bias -2 on w, h for the first)."""
+    lecun-normal linears and convs, zero biases, identity BatchNorm, the
+    Swin relative-position bias tables truncated N(0, 0.02), the MSDA
+    layout (zero offset/weight kernels, directional offset bias), N(0, 1)
+    level and query embeddings, the focal-loss class prior and zero last
+    bbox layers (bias -2 on w, h for the first)."""
     g = generator
     cfg = model.cfg
 
@@ -229,10 +270,13 @@ def init_weights(model: ReferFormer, generator: torch.Generator) -> None:
 
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv2d)):
+            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d)):
                 lecun_(mod.weight)
                 if mod.bias is not None:
                     mod.bias.zero_()
+            elif isinstance(mod, swin.WindowAttention):
+                nn.init.trunc_normal_(mod.relative_position_bias_table, std=0.02, a=-0.04,
+                                      b=0.04, generator=g)
             elif isinstance(mod, nn.Embedding):
                 mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.weight.shape[1]), generator=g)
             elif isinstance(mod, MultiheadAttention):

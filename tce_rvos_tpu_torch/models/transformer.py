@@ -36,13 +36,12 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
-from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
 
 from tce_rvos_tpu_torch.models.layers import (
     MultiheadAttention,
     ffn,
     layer_norm,
+    run_layer,
     with_pos,
 )
 from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn, ms_deform_attn_3d
@@ -337,17 +336,6 @@ class DeformableTransformer(nn.Module):
         ])
         self.reference_points = nn.Linear(d_model, 2)
 
-    def _run_layer(self, layer: nn.Module, *args):
-        """One encoder or decoder layer; recomputed in the backward pass
-        under ``use_checkpoint`` when gradients are being recorded. The
-        layer's parameters and buffers go into the checkpoint as arguments:
-        under the bf16 train step's ``functional_call`` they are bf16 casts
-        that the module no longer holds when the backward pass recomputes."""
-        if self.use_checkpoint and torch.is_grad_enabled():
-            tensors = {**dict(layer.named_parameters()), **dict(layer.named_buffers())}
-            return checkpoint(functional_call, layer, tensors, args, use_reentrant=False)
-        return layer(*args)
-
     def forward(
         self,
         srcs: Sequence[torch.Tensor],        # L x [N, C, H_l, W_l]
@@ -376,10 +364,10 @@ class DeformableTransformer(nn.Module):
             memory_bus = self.encoder.memory_bus[None].expand(n, -1, -1)
             memory_pos = self.encoder.memory_pos[None].expand(n, -1, -1)
         output = src_flat
-        run = self._run_layer
+        ckpt = self.use_checkpoint
         for layer in self.encoder.layers:
-            output, memory_bus = run(layer, output, pos_flat, enc_ref, spatial_shapes,
-                                     valid_ratios, mask_flat, memory_bus, memory_pos, t)
+            output, memory_bus = run_layer(layer, ckpt, output, pos_flat, enc_ref, spatial_shapes,
+                                           valid_ratios, mask_flat, memory_bus, memory_pos, t)
         memory = output
 
         # ---- decoder ----
@@ -396,8 +384,8 @@ class DeformableTransformer(nn.Module):
                     [valid_ratios] * 2, -1)[:, None]
             else:
                 ref_input = reference_points[:, :, None] * valid_ratios[:, None]
-            out, loc, attn_w = run(layer, out, query_pos, ref_input, memory, spatial_shapes,
-                                   mask_flat, t)
+            out, loc, attn_w = run_layer(layer, ckpt, out, query_pos, ref_input, memory,
+                                         spatial_shapes, mask_flat, t)
             # top-30 sampling locations for visualisation
             nq = loc.shape[1]
             loc_n = loc / valid_ratios[:, None, None, :, None, :]

@@ -29,6 +29,12 @@ float32's exponent range.
 A resume from a checkpoint without optimizer state fast-forwards only the
 schedules' counter (``seed_schedule_step``).
 
+Every backbone family's parameters are under ``backbone.0``, the backbone
+tier. With ``use_checkpoint`` the Swin and Video-Swin backbones recompute
+each block in the backward pass, as the transformer does each layer. An X3D
+backbone does not train (``create_train_state`` raises): the JAX package
+cannot train it, and the port adds no feature the JAX package lacks.
+
 Not ported yet: the fused flat AdamW (a TPU launch-count optimisation with
 the same update) and data parallelism.
 """
@@ -45,6 +51,7 @@ from torch.func import functional_call
 
 from tce_rvos_tpu_torch.config import TrainConfig
 from tce_rvos_tpu_torch.models.criterion import CriterionConfig, criterion
+from tce_rvos_tpu_torch.models.x3d import X3D_CONFIGS
 from tce_rvos_tpu_torch.utils.precision import resolve_dtype
 
 Schedule = Callable[[int], float]
@@ -140,7 +147,17 @@ class TrainState:
 def create_train_state(model: nn.Module, cfg: TrainConfig, steps_per_epoch: int = 1
                        ) -> TrainState:
     """The trainer's entry: seeds torch's generator (dropout) from
-    ``cfg.seed`` and builds the optimizer over ``model``'s parameters."""
+    ``cfg.seed`` and builds the optimizer over ``model``'s parameters.
+    Raises ``ValueError`` for a model with an X3D backbone."""
+    backbone = getattr(getattr(model, "cfg", None), "backbone", None)
+    if backbone in X3D_CONFIGS:
+        raise ValueError(
+            f"--backbone {backbone}: X3D serves and evaluates in the PyTorch port but does not "
+            "train, because the JAX package cannot train it: its X3DBackbone applies a "
+            "train-mode flax BatchNorm (tce_rvos_tpu/models/x3d.py:47-58) and its train step "
+            "applies the model with deterministic=False and no mutable batch_stats "
+            "(tce_rvos_tpu/parallel/train_step.py:203-212), which raises "
+            "ModifyScopeVariableError")
     torch.manual_seed(cfg.seed)
     opt, schedules = make_optimizer(model, cfg, steps_per_epoch)
     return TrainState(model, opt, schedules, cfg.clip_max_norm)

@@ -6,8 +6,11 @@ The port's parameters already carry the reference torch layout and names
 (``utils/convert.py``), so a reference ``.pth`` needs no conversion: it is
 laid over the state_dict of a freshly built model with the reference's
 ``strict=False`` semantics (missing and unexpected keys are reported, a
-shape mismatch raises). Saving and restoring training state is in
-``utils/native_ckpt.py``.
+shape mismatch raises). One surgery, as in the JAX package
+(``_conv3d_tsum``): a Video-Swin patch embedding with a temporal kernel
+(Kinetics-400's (2, 4, 4)) is summed over time into the port's (1, 4, 4)
+(reference video_swin_transformer.py:656-659). Saving and restoring
+training state is in ``utils/native_ckpt.py``.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from __future__ import annotations
 from typing import Dict, List, Mapping, Tuple
 
 import torch
+
+PATCH_EMBED_KEY = "backbone.0.body.patch_embed.proj.weight"
 
 
 def load_torch_file(path: str, with_meta: bool = False):
@@ -46,8 +51,9 @@ def convert_state_dict(
     """Lay ``state_dict`` over ``reference`` (a fresh model's state_dict).
     Returns (the new state_dict, the reference keys left at init, the
     checkpoint keys unused). Each loaded tensor takes the reference
-    tensor's dtype; a shape that differs raises ``ValueError``, and so do
-    missing or unexpected keys under ``strict``."""
+    tensor's dtype; a Video-Swin patch embedding with a temporal kernel is
+    summed over it; any other shape that differs raises ``ValueError``, and
+    so do missing or unexpected keys under ``strict``."""
     out: Dict[str, torch.Tensor] = {}
     missing: List[str] = []
     for key, init in reference.items():
@@ -56,6 +62,8 @@ def convert_state_dict(
             out[key] = init
             continue
         value = state_dict[key]
+        if key == PATCH_EMBED_KEY and value.ndim == 5 and value.shape[2] != 1:
+            value = value.sum(dim=2, keepdim=True)  # Kinetics-400's (2, 4, 4) patches
         if tuple(value.shape) != tuple(init.shape):
             raise ValueError(f"shape mismatch {key}: checkpoint {tuple(value.shape)} "
                              f"vs model {tuple(init.shape)}")

@@ -2,12 +2,16 @@
 
 ``state_dict_from_jax(flat)`` takes the flax variables flattened with "/"
 keys (``params/transformer/decoder_layers_0/cross_attn/value_proj/kernel``,
-``frozen/backbone/bn1/running_var``) as numpy arrays and returns the
-reference torch layout, which is the port's: the keys of
-``tce_rvos_tpu/utils/checkpoint.py::export_state_dict`` for the modules of
-the serving path. Layouts: Dense kernels [in, out] are transposed, conv
-kernels go from HWIO to OIHW, and an attention block's q/k/v projections
-are packed into ``in_proj_weight`` / ``in_proj_bias``.
+``frozen/backbone/bn1/running_var``, X3D's
+``batch_stats/backbone/stem_norm/bn/var``) as numpy arrays and returns the
+reference torch layout, which is the port's: for every leaf, the key of
+``tce_rvos_tpu/utils/checkpoint.py::flax_to_torch_key``, the backbones of
+all four families included. Layouts: Dense kernels [in, out] are
+transposed, conv kernels go from HWIO to OIHW and from DHWIO to OIDHW (a
+depthwise kernel keeps its in-channels per group, 1, in the I axis), and
+an attention block's q/k/v projections are packed into ``in_proj_weight``
+/ ``in_proj_bias``. The JAX package's ``export_state_dict`` inverts no 3D
+conv, so this bridge maps those leaves itself.
 """
 
 from __future__ import annotations
@@ -39,7 +43,30 @@ _BARE = {
     "transformer/memory_pos": "transformer.encoder.memory_pos",
 }
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias",
-         "weight": "weight", "running_mean": "running_mean", "running_var": "running_var"}
+         "weight": "weight", "running_mean": "running_mean", "running_var": "running_var",
+         "mean": "running_mean", "var": "running_var",
+         "relative_position_bias_table": "relative_position_bias_table"}
+# backbone module names, flax -> torch, one path part each (None: no part;
+# X3D's BatchNorm wrapper, whose variables sit on the torch module itself)
+_BACKBONE_PARTS = {
+    "downsample_conv": "downsample.0", "downsample_bn": "downsample.1",          # ResNet
+    "patch_embed_proj": "patch_embed.proj", "patch_embed_norm": "patch_embed.norm",  # Swin
+    "mlp_fc1": "mlp.fc1", "mlp_fc2": "mlp.fc2",
+    # X3D: the reference names the stem's spatial conv conv_t, its temporal one conv_xy
+    "stem_conv_xy": "blocks.0.conv.conv_t", "stem_conv_t": "blocks.0.conv.conv_xy",
+    "stem_norm": "blocks.0.norm", "conv_a": "branch2.conv_a", "conv_b": "branch2.conv_b",
+    "conv_c": "branch2.conv_c", "norm_a": "branch2.norm_a", "norm_b": "branch2.norm_b.0",
+    "norm_c": "branch2.norm_c", "se": "branch2.norm_b.1", "fc1": "block.0", "fc2": "block.2",
+    "bn": None,
+}
+_BACKBONE_PATTERNS = (
+    (r"^layer(\d)_(\d+)$", r"layer\1.\2"),                        # ResNet
+    (r"^layers_(\d)_blocks_(\d+)$", r"layers.\1.blocks.\2"),      # (Video-)Swin
+    (r"^layers_(\d)_downsample$", r"layers.\1.downsample"),        # Swin
+    (r"^downsamples_(\d)$", r"downsamples.\1"),                    # Video-Swin, hoisted
+    (r"^out_norm_(\d)$", r"norm\1"),                               # Swin
+    (r"^stage(\d)_block(\d+)$", r"blocks.\1.res_blocks.\2"),      # X3D
+)
 
 
 def _layers(parts: List[str]) -> List[str]:
@@ -50,12 +77,14 @@ def _layers(parts: List[str]) -> List[str]:
 def _module_key(parts: List[str]) -> str:
     top, rest = parts[0], parts[1:]
     if top == "backbone":
-        out = []
+        out = ["backbone.0.body"]
         for p in rest:
-            p = re.sub(r"^layer(\d)_(\d+)$", r"layer\1.\2", p)
-            out.append({"downsample_conv": "downsample.0",
-                        "downsample_bn": "downsample.1"}.get(p, p))
-        return ".".join(["backbone.0.body"] + out)
+            for pattern, repl in _BACKBONE_PATTERNS:
+                p = re.sub(pattern, repl, p)
+            p = _BACKBONE_PARTS.get(p, p)
+            if p is not None:
+                out.append(p)
+        return ".".join(out)
     if top == "text_encoder":
         out = []
         for p in rest:
@@ -95,7 +124,7 @@ def torch_key(path: str) -> str:
     """Flattened flax path -> reference torch key (q/k/v leaves map to the
     packed ``in_proj_*`` key)."""
     col, _, p = path.partition("/")
-    if col not in ("params", "frozen"):
+    if col not in ("params", "frozen", "batch_stats"):
         raise KeyError(f"unknown variable collection in {path!r}")
     if p in _BARE:
         return _BARE[p]
@@ -122,6 +151,8 @@ def state_dict_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tenso
                 arr = arr.T
             elif arr.ndim == 4:  # HWIO -> OIHW
                 arr = np.transpose(arr, (3, 2, 0, 1))
+            elif arr.ndim == 5:  # DHWIO -> OIDHW
+                arr = np.transpose(arr, (4, 3, 0, 1, 2))
         if m:
             packed.setdefault(key, {})["qkv".index(m.group(1))] = arr
             continue

@@ -10,7 +10,10 @@ the JAX package):
   over the fresh model and gives the PNGs of ``InferenceEngine(state_dict)``
   with ``run_ytvos``; missing and unexpected keys are reported, a shape
   mismatch raises;
-* every flag value the port cannot run raises and names the flag;
+* every flag value the port cannot run raises and names the flag (an
+  unknown ``--backbone``, ``--dilation`` on a backbone that is not a
+  ResNet); ``--backbone`` and ``--dilation`` build their configs, and main
+  serves a Video-Swin backbone;
 * two CPU engines through ``_fanout`` write the serial run's PNGs bitwise;
 * ``--device cuda`` without a GPU raises; nothing falls back to the CPU;
 * ``trunk_frame_envelope``: its formula, the power-of-two floor of the
@@ -281,12 +284,19 @@ def test_resume_refuses_a_shape_mismatched_checkpoint(trees, tmp_path, tokenizer
 
 
 UNSUPPORTED = {
-    "--backbone": ["--backbone", "resnet101"], "--dilation": ["--dilation"],
+    "--backbone": ["--backbone", "resnet18"],
+    "--dilation": ["--dilation", "--backbone", "swin_t_p4w7"],
     "--binary": [], "--vlblock": ["--vlblock"], "--no_rel_coord": ["--no_rel_coord"],
     "--f_token": ["--f_token", "-1"], "--two_stage": ["--two_stage"],
     "--vis_loss": ["--vis_loss"], "--contrastive": ["--contrastive"],
     "--position_embedding": ["--position_embedding", "learned"],
     "--msda_impl": ["--msda_impl", "pallas"],
+}
+# what the error says after the flag, where it is not "not supported"
+UNSUPPORTED_MESSAGES = {
+    "--backbone": "unknown backbone 'resnet18'; the known ones are resnet50, resnet101, "
+                  "swin_t_p4w7, .*, video_swin_b_p4w7, x3d_xs, .*, x3d_self$",
+    "--dilation": "DC5 is a ResNet option, not one of 'swin_t_p4w7'",
 }
 
 
@@ -295,8 +305,29 @@ def test_unsupported_flag_raises_naming_it(flag, tmp_path):
     argv = [a for a in SMALL if a != "--binary"] + UNSUPPORTED[flag]
     if flag != "--binary":
         argv.append("--binary")
-    with pytest.raises(ValueError, match=f"^{flag}: not supported"):
+    message = UNSUPPORTED_MESSAGES.get(flag, "not supported")
+    with pytest.raises(ValueError, match=f"^{flag}: {message}"):
         main(["--output_dir", str(tmp_path), *argv])
+
+
+def test_backbone_flags_build_their_configs():
+    cfg = _cfg_of(["--backbone", "video_swin_b_p4w7", *SMALL])
+    assert (cfg.backbone, cfg.dilation) == ("video_swin_b_p4w7", False)
+    cfg = _cfg_of(["--dilation", *SMALL])
+    assert (cfg.backbone, cfg.dilation) == ("resnet50", True)
+    cfg = _cfg_of(["--backbone", "resnet101", "--dilation", *SMALL])
+    assert (cfg.backbone, cfg.dilation) == ("resnet101", True)
+
+
+def test_main_serves_a_video_swin_backbone(trees, tmp_path):
+    out = tmp_path / "ytvos"
+    main(["--dataset_file", "ytvos", "--ytvos_path", str(trees["ytvos"]), "--output_dir",
+          str(out), "--backbone", "video_swin_t_p4w7", *SMALL])
+    got = ytvos_pngs(out)
+    assert set(got) == {(v, str(e), f"{i:05d}") for v, (n, caps) in YTVOS_VIDEOS.items()
+                        for e in range(len(caps)) for i in range(n)}
+    for mode, m in got.values():
+        assert mode == "L" and m.shape == CLI_HW and set(np.unique(m)) <= {0, 255}
 
 
 def test_device_cuda_without_a_gpu_raises(tmp_path):

@@ -138,6 +138,20 @@ def test_parser_matches_jax(argv):
             assert v == jax_fields[k], k
 
 
+@pytest.mark.parametrize("argv", [
+    ["--backbone", "video_swin_b_p4w7"], ["--dilation"], ["--backbone", "resnet101", "--dilation"],
+    ["--backbone", "swin_l_p4w7", "--use_checkpoint"], ["--backbone", "x3d_m"]],
+    ids=["video_swin_b", "dc5", "resnet101_dc5", "swin_l", "x3d_m"])
+def test_backbone_flags_match_jax(argv):
+    argv = argv + ["--binary", "--with_box_refine", "--f_token", "8", "--qtrans"]
+    cfg = cli.model_config_from_args(cli.get_args_parser().parse_args(argv))
+    jax_cfg = jax_cli.model_config_from_args(jax_cli.get_args_parser().parse_args(argv))
+    for k, v in dataclasses.asdict(cfg).items():
+        assert v == getattr(jax_cfg, k), k
+    want = argv[argv.index("--backbone") + 1] if "--backbone" in argv else "resnet50"
+    assert (cfg.backbone, cfg.dilation) == (want, "--dilation" in argv)
+
+
 @pytest.mark.parametrize("extra,error,match", [
     (["--eval"], ValueError, "no metric protocol for 'ytvos'.*tce_rvos_tpu_torch.infer"),
     (["--dataset_file", "a2d"], ValueError, r"not ported.*\.mp4.*h5py"),
@@ -145,7 +159,9 @@ def test_parser_matches_jax(argv):
     (["--device", "cuda"], RuntimeError, "CUDA is not available"),
     (["--pretrained_weights", "weights.pth"], RuntimeError, "tokenizer"),
     (["--backbone", "swin_t"], ValueError, "--backbone"),
-], ids=["eval", "dataset", "vidstg", "cuda", "pretrained", "backbone"])
+    (["--backbone", "x3d_s"], ValueError,
+     "^--backbone x3d_s: X3D serves and evaluates .* the JAX package cannot train it"),
+], ids=["eval", "dataset", "vidstg", "cuda", "pretrained", "backbone", "x3d"])
 def test_main_refuses(ytvos_root, tmp_path, tiny_text, monkeypatch, extra, error, match):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)  # a host without a GPU
     with pytest.raises(error, match=match):

@@ -64,6 +64,12 @@ VARIANTS = {"flagship": dict(TINY, f_token=2, qtrans=True, with_box_refine=True)
 FLAGSHIP_TINY = VARIANTS["flagship"]
 # the flagship with temporal MSDA in the encoder and decoder (--msda_3d)
 VARIANTS["flagship_3d"] = FLAGSHIP_3D_TINY = dict(FLAGSHIP_TINY, msda_3d=True)
+# the clips of the Video-Swin-T model's two train steps (the default seed 0's
+# are ill-conditioned in f32 there: tests/test_torch_train_swin.py)
+SWIN_STEP_SEED = 2
+# the flagship on the other backbone families (full-width backbones)
+VARIANTS.update({f"flagship_{short}": dict(FLAGSHIP_TINY, backbone=name) for short, name in (
+    ("video_swin", "video_swin_t_p4w7"), ("swin", "swin_t_p4w7"), ("x3d", "x3d_s"))})
 B, T, HW, TEXT_LEN = 2, 3, (64, 96), 8
 
 
@@ -87,17 +93,17 @@ def model_inputs(seed: int = 0) -> Dict[str, np.ndarray]:
 
 def _leaf(path: str, shape, rng: np.random.RandomState) -> np.ndarray:
     name = path.rsplit("/", 1)[-1]
-    if name == "running_var":
+    if name in ("running_var", "var"):  # var: X3D's BatchNorm (batch_stats)
         x = 0.5 + rng.rand(*shape)
     elif name == "scale" or (path.startswith("frozen/") and name == "weight"):
         x = 1.0 + 0.1 * rng.randn(*shape)
-    elif name in ("bias", "running_mean"):
+    elif name in ("bias", "running_mean", "mean"):
         x = 0.1 * rng.randn(*shape)
     elif name == "kernel":
         x = rng.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
     elif name == "embedding":
         x = 0.5 * rng.randn(*shape)
-    else:  # query_embed, level_embed, memory_bus, memory_pos
+    else:  # query_embed, level_embed, memory_bus, memory_pos, Swin bias tables
         x = rng.randn(*shape)
     return x.astype(np.float32)
 
@@ -155,15 +161,34 @@ def tiny_model(variant: str):
 SLICE_TOL = 2e-3  # the model-level bar of the JAX package's parity with the reference
 
 
-def engine_pair(**engine_kw):
+def check_forward_matches_jax(variant: str) -> None:
+    """The port's forward of the tiny model of ``VARIANTS[variant]`` against
+    the JAX model's on its inputs, every output at SLICE_TOL."""
+    _, model, variables, flat, inputs = tiny_model(variant)
+    want = jax.jit(model.apply)(variables, **{k: jnp.asarray(v) for k, v in inputs.items()})
+    port = ReferFormer(ModelConfig(**VARIANTS[variant]))
+    port.load_state_dict(state_dict_from_jax(flat), strict=True)
+    with torch.inference_mode():
+        got = port.eval()(
+            torch.from_numpy(inputs["video"]), torch.from_numpy(inputs["video_mask"]),
+            torch.from_numpy(inputs["text_ids"]).long(),
+            torch.from_numpy(inputs["text_attn_mask"]).long(),
+            torch.from_numpy(inputs["sizes"]).long())
+    for k in ("pred_logits", "pred_boxes", "pred_masks", "reference_points",
+              "inter_samples", "memory"):
+        assert tuple(got[k].shape) == tuple(want[k].shape), k
+        assert_close(got[k], want[k], rtol=SLICE_TOL, atol=SLICE_TOL, name=k)
+
+
+def engine_pair(variant: str = "flagship", **engine_kw):
     """The JAX package's and the port's ``InferenceEngine`` (CPU) on the
-    tiny flagship's shared weights."""
+    shared weights of the tiny model of ``VARIANTS[variant]``."""
     from tce_rvos_tpu.infer import InferenceEngine as JaxInferenceEngine
     from tce_rvos_tpu_torch.infer import InferenceEngine
 
-    jcfg, _, variables, flat, _ = tiny_model("flagship")
+    jcfg, _, variables, flat, _ = tiny_model(variant)
     return (JaxInferenceEngine(jcfg, variables, **engine_kw),
-            InferenceEngine(ModelConfig(**FLAGSHIP_TINY), state_dict_from_jax(flat),
+            InferenceEngine(ModelConfig(**VARIANTS[variant]), state_dict_from_jax(flat),
                             device="cpu", **engine_kw))
 
 
