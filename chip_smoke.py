@@ -124,7 +124,23 @@ Phases (each one fails the run, nothing is caught and carried on from):
                12 launches) on Video-Swin-T and -S, Swin-L, ResNet-101,
                ResNet-50 with DC5 and X3D-M, with the backbone's ms and
                peak memory; the phase's wall time;
- 12. numbers - card name and power limit, clips/s and ms per trunk
+ 12. options - the model options at full width: the LastLayerAsToken
+               flagship (``--f_token -1``) through phase 3's path in bf16 (8
+               launches a trunk forward, exact expression isolation,
+               batched against serial within phase 3's limits) and f32 GPU
+               against CPU; its whole-video windows at T = 40 and 160 (E =
+               4, as many a dispatch as the memory envelope allows), each
+               trunk's peak under ``infer._ENVELOPE_GIB``'s line; 10 bf16
+               train steps (8 + 8 launches, every parameter learns);
+               ``train.main`` on the 65-class ytvos objective (no
+               ``--binary``; ``--masks --vis_loss --contrastive``) on phase
+               9's tree, ``infer.main --resume`` on its weights, a
+               ``--binary --pretrained_weights`` fine-tune that re-initialises
+               only ``class_embed.*``, an epoch without ``--masks`` (no mask
+               loss logged); ``--vlblock --no_rel_coord`` against the
+               flagship (trunk at E = 1 and 4, 3 train steps); the 2D kernels
+               held against plain at the runs' largest padded shape;
+ 13. numbers - card name and power limit, clips/s and ms per trunk
                forward, peak memory per E, and a JSON ``kernels`` line.
 
 The last line of standard output is the device JSON line. Without a CUDA
@@ -1137,11 +1153,12 @@ def expression_isolation(engine, frames, label: str) -> dict:
 
 
 def phase_path(dtype_name: str, sd, videos, backbone: str = "resnet50", tag: str = "path",
-               limits=BF16_BATCHED_VS_SERIAL_LIMITS) -> dict:
+               limits=BF16_BATCHED_VS_SERIAL_LIMITS, overrides: dict = None) -> dict:
     """run_video_batch (E = 4, two 5-frame windows) through the kernel;
     expression isolation and where batched and serial part; the batched
     masks against serial run_video for every caption of every video (bf16
-    within ``limits``); times. The flagship on ``backbone``."""
+    within ``limits``); times. The flagship on ``backbone``, with the
+    model options ``overrides``."""
     import torch
 
     from tce_rvos_tpu_torch import flagship_config
@@ -1149,11 +1166,12 @@ def phase_path(dtype_name: str, sd, videos, backbone: str = "resnet50", tag: str
     from tce_rvos_tpu_torch.models.text_encoder import tokenize
     from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn
 
-    cfg = flagship_config(compute_dtype=dtype_name, backbone=backbone)
+    cfg = flagship_config(compute_dtype=dtype_name, backbone=backbone, **(overrides or {}))
     engine = InferenceEngine(cfg, sd, device="cuda")
     label = f"[{tag} {dtype_name}]"
     frames = videos[0]
     n_windows = -(-N_FRAMES // engine.window)
+    per_forward = msda_per_forward(cfg)
 
     ms_deform_attn.launches = 0
     t0 = time.perf_counter()
@@ -1162,12 +1180,12 @@ def phase_path(dtype_name: str, sd, videos, backbone: str = "resnet50", tag: str
     first_s = time.perf_counter() - t0
     launches = ms_deform_attn.launches
     trunk_forwards = n_windows  # one expression chunk per window
-    if launches != 12 * trunk_forwards:
+    if launches != per_forward * trunk_forwards:
         raise AssertionError(f"{label} MSDA kernel launched {launches} times, "
-                             f"expected 12 per trunk forward x {trunk_forwards}")
+                             f"expected {per_forward} per trunk forward x {trunk_forwards}")
     check_outputs(outs, label)
     log(f"{label} run_video_batch E={len(CAPTIONS)}, {n_windows} windows: outputs ok, "
-        f"msda_fwd launches {launches} (12 x {trunk_forwards} trunk forwards), "
+        f"msda_fwd launches {launches} ({per_forward} x {trunk_forwards} trunk forwards), "
         f"first call {first_s:.3f} s")
 
     isolation = expression_isolation(engine, frames, label)
@@ -1208,7 +1226,8 @@ def phase_path(dtype_name: str, sd, videos, backbone: str = "resnet50", tag: str
         f"{1000.0 / full_ms:.2f} clips/s; backbone {backbone_ms:.3f} ms/window; "
         f"run_video_batch E={len(CAPTIONS)}: {serve_s * 1e3:.3f} ms for {n_windows} windows = "
         f"{serve_rate:.2f} expression-windows/s")
-    result = dict(launches=launches, trunk_forwards=trunk_forwards, first_call_s=first_s,
+    result = dict(launches=launches, per_forward=per_forward, trunk_forwards=trunk_forwards,
+                  first_call_s=first_s,
                   isolation=isolation, batched_vs_serial=bvs["worst"], full_ms=full_ms,
                   clips_per_s=1000.0 / full_ms, backbone_ms=backbone_ms, trunk=trunk,
                   serve_ms=serve_s * 1e3, expression_windows_per_s=serve_rate,
@@ -1364,9 +1383,11 @@ def stage_breakdown(engine, feats, mask, sizes, label: str, e: int = 4) -> dict:
 
     model = engine.model
     tr = model.transformer
+    # the encoder's frame tokens: FTF, or LastLayerAsToken at f_token < 0
+    tokens = "encoder_ftf" if engine.cfg.f_token > 0 else "encoder_last_layer_tokens"
     stages = {"text_encoder": [model.text_encoder], "input_proj": list(model.input_proj),
               "fusion": [model.fusion_module],
-              "encoder_ftf": [l.ftoken_layers for l in tr.encoder.layers],
+              tokens: [l.ftoken_layers or l.inter_frame_atten for l in tr.encoder.layers],
               "encoder_msda": [l.self_attn for l in tr.encoder.layers],
               "encoder": list(tr.encoder.layers), "decoder": list(tr.decoder.layers),
               "pixel_decoder": [model.pixel_decoder]}
@@ -1399,7 +1420,7 @@ def stage_breakdown(engine, feats, mask, sizes, label: str, e: int = 4) -> dict:
         h.remove()
     total = start.elapsed_time(end)
     ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
-    ms["encoder_rest"] = ms["encoder"] - ms["encoder_ftf"] - ms["encoder_msda"]
+    ms["encoder_rest"] = ms["encoder"] - ms[tokens] - ms["encoder_msda"]
     ms["other"] = total - sum(ms[k] for k in ("text_encoder", "input_proj", "fusion",
                                               "encoder", "decoder", "pixel_decoder"))
     log(f"{label} trunk E={e} stage breakdown, {total:.3f} ms: " + ", ".join(
@@ -1465,7 +1486,8 @@ def profile_device(fn, label: str, top: int = 12, host_top: int = 0) -> dict:
             "top_host_ops": [(key[:100], us / 1e3, count) for us, key, count in host[:host_top]]}
 
 
-def phase_parity(sd, frames, msda_3d: bool = False, backbone: str = "resnet50") -> None:
+def phase_parity(sd, frames, msda_3d: bool = False, backbone: str = "resnet50",
+                 overrides: dict = None, tag: str = None) -> None:
     """One window, f32 with TF32 off: the GPU path (MSDA kernels) against
     the same weights on the CPU (plain MSDA); E = 1 for the flagship, E = 2
     for ``--msda_3d`` (10 frames on the batch axis, so temporal taps cross
@@ -1480,10 +1502,13 @@ def phase_parity(sd, frames, msda_3d: bool = False, backbone: str = "resnet50") 
     label = "[parity 3d]" if msda_3d else "[parity]"
     if backbone != "resnet50":
         label = f"[parity {backbone}]"
-    cfg = flagship_config(msda_3d=msda_3d, backbone=backbone)
+    if tag:
+        label = f"[parity {tag}]"
+    cfg = flagship_config(msda_3d=msda_3d, backbone=backbone, **(overrides or {}))
     ids, attn = tokenize(list(CAPTIONS[:2 if msda_3d else 1]))
     # one trunk forward; the CPU takes the plain versions
-    want = ({"msda_fwd": 4, "msda3d_fwd": 8} if msda_3d else {"msda_fwd": 12, "msda3d_fwd": 0})
+    want = ({"msda_fwd": 4, "msda3d_fwd": 8} if msda_3d
+            else {"msda_fwd": msda_per_forward(cfg), "msda3d_fwd": 0})
     outs = {}
     for dev in ("cuda", "cpu"):
         engine = InferenceEngine(cfg, sd, device=dev)
@@ -1610,6 +1635,25 @@ def grad_gap(got: dict, want: dict, label: str, l2_tol: float, elem_tol: float) 
     return worst
 
 
+def every_parameter_learns(model, start: dict, label: str, note: str = "") -> int:
+    """Every parameter of ``model`` has a non-zero gradient and moved from
+    ``start`` (name -> its value before the steps), the text encoder's key
+    biases (zero in exact arithmetic) aside. Returns the parameter count."""
+    import torch
+
+    no_grad = [n for n, p in model.named_parameters() if not zero_in_exact_arithmetic(n)
+               and (p.grad is None or float(p.grad.abs().max()) == 0.0)]
+    still = [n for n, p in model.named_parameters() if not zero_in_exact_arithmetic(n)
+             and torch.equal(p.detach(), start[n])]
+    if no_grad or still:
+        raise AssertionError(f"{label} parameters without a gradient: {no_grad}; "
+                             f"parameters that did not move: {still}")
+    n_params = sum(1 for _ in model.parameters())
+    log(f"{label} all {n_params} parameters have a non-zero gradient and moved (the text "
+        f"encoder's key biases, zero in exact arithmetic, aside)" + (f", {note}" if note else ""))
+    return n_params
+
+
 def launch_counts() -> dict:
     """The launch counters of the four MSDA kernels."""
     from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn, ms_deform_attn_3d
@@ -1722,17 +1766,8 @@ def phase_train(sd) -> dict:
         grad = model.get_parameter(name).grad
         if grad is None or float(grad.abs().max()) == 0.0:
             raise AssertionError(f"{label} {name} has no gradient: MSDA's backward is not wired")
-    no_grad = [n for n, p in model.named_parameters() if not zero_in_exact_arithmetic(n)
-               and (p.grad is None or float(p.grad.abs().max()) == 0.0)]
-    still = [n for n, p in model.named_parameters() if not zero_in_exact_arithmetic(n)
-             and torch.equal(p.detach(), start[n])]
-    if no_grad or still:
-        raise AssertionError(f"{label} parameters without a gradient: {no_grad}; "
-                             f"parameters that did not move: {still}")
-    n_params = sum(1 for _ in model.parameters())
-    log(f"{label} all {n_params} parameters have a non-zero gradient and moved (the text "
-        f"encoder's key biases, zero in exact arithmetic, aside), value_proj and "
-        f"sampling_offsets of encoder layer 0 included")
+    every_parameter_learns(model, start, label, "value_proj and sampling_offsets of encoder "
+                                                "layer 0 included")
     del start
 
     result["profile"] = profile_device(lambda: step(state, batches[0]),
@@ -2413,7 +2448,7 @@ def phase_protocols(sd, sd3, root: str) -> dict:
 MAIN_VIDEOS = {f"t{v}": (20, (("a person walking on the left", "1"),
                               ("the dog running to the right", "2"))) for v in range(3)}
 MAIN_ABSENT = {"t0": range(6, 14), "t2": range(1, 20)}
-MAIN_FLAGS = ["--binary", "--with_box_refine", "--f_token", "8", "--qtrans",
+MAIN_FLAGS = ["--binary", "--with_box_refine", "--f_token", "8", "--qtrans", "--masks",
               "--compute_dtype", "bfloat16", "--lr_drop", "1", "--num_workers", "4",
               "--device", "cuda"]
 MAIN_WARMUP = 2
@@ -2908,9 +2943,9 @@ def write_davis_annotations(root: str, seqs: dict) -> str:
 def msda_per_forward(cfg) -> int:
     """2D MSDA calls of one ReferFormer forward, as the transformer makes
     them: one self-attention per encoder layer, one frame-token attention
-    per encoder layer when f_token > 0 (FTF), one cross-attention per
-    decoder layer."""
-    return cfg.enc_layers * (2 if cfg.f_token else 1) + cfg.dec_layers
+    per encoder layer when f_token > 0 (FTF; LastLayerAsToken, f_token < 0,
+    makes none), one cross-attention per decoder layer."""
+    return cfg.enc_layers * (2 if cfg.f_token > 0 else 1) + cfg.dec_layers
 
 
 @contextlib.contextmanager
@@ -3383,8 +3418,9 @@ def whole_video_backbone(root: str) -> dict:
 
 def backbone_train(sd) -> dict:
     """TRAIN_STEPS bf16 Video-Swin-B flagship steps (b = 1, 5x384x640,
-    dropout and DropPath on) without and with recomputation (the backbone's
-    blocks and the transformer's layers): ms/step, peak memory, MFU over a
+    dropout and DropPath on) without and TRAIN_STEPS_CKPT with
+    recomputation (the backbone's blocks and the transformer's layers):
+    ms/step, peak memory, MFU over a
     useful-FLOP count, the device's busy share of one step; 12 + 12 MSDA
     launches a step (24 + 12 with recomputation); every backbone parameter
     gets a gradient."""
@@ -3450,10 +3486,11 @@ def backbone_train(sd) -> dict:
     res["profile"] = profile_device(lambda: step(state, batches[0]),
                                     f"{label} profiled bf16 train step (no recomputation)")
     model.transformer.use_checkpoint = body.use_checkpoint = True
-    res["ckpt"] = train_run(state, step, batches, label, "bf16 train_one_epoch, with "
-                            "recomputation", useful_flops=useful, flops_source=source)
+    res["ckpt"] = train_run(state, step, batches[:TRAIN_STEPS_CKPT], label, "bf16 "
+                            "train_one_epoch, with recomputation", useful_flops=useful,
+                            flops_source=source)
     if (res["ckpt"]["launches"], res["ckpt"]["backward_launches"]) != (
-            24 * TRAIN_STEPS, 12 * TRAIN_STEPS):
+            24 * TRAIN_STEPS_CKPT, 12 * TRAIN_STEPS_CKPT):
         raise AssertionError(f"{label} with recomputation: MSDA launches "
                              f"{res['ckpt']['launches']} / {res['ckpt']['backward_launches']}")
     del state, model, batches
@@ -3542,6 +3579,379 @@ def phase_backbones(videos, root: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the model options
+# ---------------------------------------------------------------------------
+
+TOKENS = {"f_token": -1}                 # LastLayerAsToken, the flagship's switches otherwise
+NO_VL = {"vlblock": False, "rel_coord": False}  # --vlblock --no_rel_coord
+TOKENS_WHOLE_T = (40, 160)               # whole-video windows: 2,400 and 9,600 tokens at E = 4
+TRAIN_STEPS_NO_VL = 3
+# the 65-class ytvos objective: no --binary, the visibility and contrastive
+# heads, the mask losses
+CLASSES_FLAGS = ["--masks", "--vis_loss", "--contrastive", "--with_box_refine", "--f_token", "8",
+                 "--qtrans", "--compute_dtype", "bfloat16"]
+OPTIONS_TRAIN_FLAGS = ["--lr_drop", "1", "--num_workers", "4", "--device", "cuda"]
+
+
+@contextlib.contextmanager
+def tokenizer_guard_lifted():
+    """``require_real_tokenizer`` passes: the runs of phase 12 resume and
+    fine-tune from weights that this run trained with the same fallback
+    tokenizer, not from a pretrained text encoder, which is what the guard
+    keeps from the fallback's token ids."""
+    from tce_rvos_tpu_torch.models import text_encoder
+
+    guard = text_encoder.require_real_tokenizer
+    text_encoder.require_real_tokenizer = lambda context="": None
+    try:
+        yield
+    finally:
+        text_encoder.require_real_tokenizer = guard
+
+
+def tokens_whole_video(sd, frames) -> dict:
+    """LastLayerAsToken whole-video (bf16, 360x640 frames, the video's 10
+    frames repeated): ``run_video_batch`` with E = 4 at T = 40 and 160, each
+    trunk dispatch's E as the memory envelope gives it, 8 launches a trunk
+    forward, finite masks; then one trunk forward at each dispatched
+    (E, T), its peak (less what was allocated before the engine was built)
+    held under ``infer._ENVELOPE_GIB``'s line. The token attention's and
+    the V-L blocks' logits grow as T squared (9,600 and 38,400 tokens a
+    clip at T = 160); ``MultiheadAttention`` computes them in chunks."""
+    import numpy as np
+    import torch
+
+    from tce_rvos_tpu_torch import flagship_config, infer
+    from tce_rvos_tpu_torch.models.text_encoder import tokenize
+
+    label = "[options f_token -1 whole-video]"
+    cfg = flagship_config(compute_dtype="bfloat16", **TOKENS)
+    hw = (384, 640)
+    base, per_frame = infer._ENVELOPE_GIB["bfloat16"]
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated() / 2**30
+    engine = infer.InferenceEngine(cfg, sd, device="cuda")
+    res = {}
+    for t in TOKENS_WHOLE_T:
+        clip = [frames[i % len(frames)] for i in range(t)]
+        cap = infer.trunk_frame_envelope(hw, "bfloat16", device="cuda") // t
+        eb = min(len(CAPTIONS), infer._pow2_floor(max(cap, 1)))
+        want = [(infer._pow2_ceil(min(eb, len(CAPTIONS) - off)), t, msda_per_forward(cfg))
+                for off in range(0, len(CAPTIONS), eb)]
+        calls = count_trunks(engine)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = engine.run_video_batch(clip, list(CAPTIONS), whole_video=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = launch_counts()["msda_fwd"]
+        del engine.trunk  # count_trunks' wrapper
+        if calls != want or launches != sum(c[2] for c in want):
+            raise AssertionError(f"{label} T={t}: trunk forwards (E, T, launches) {calls}, "
+                                 f"{launches} launches; expected {want}")
+        for e, out in enumerate(outs):
+            m = out["pred_masks"]
+            if m.shape != (t, 5, 96, 160) or not np.isfinite(m).all():
+                raise AssertionError(f"{label} T={t} caption {e}: masks {m.shape}, finite "
+                                     f"{bool(np.isfinite(m).all())}")
+        e = want[0][0]
+        video, mask, size = engine.preprocess(clip)
+        sizes = torch.tensor([size], device="cuda")
+        feats = engine.backbone(video, mask)
+        ids, attn = tokenize(list(CAPTIONS[:e]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = engine.trunk(feats, mask, ids, attn, sizes)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30 - before
+        del out, feats, video, mask
+        line = base + per_frame * e * t
+        tokens = t * (hw[0] // 64) * (hw[1] // 64)
+        res[t] = dict(seconds=secs, expression_windows_per_s=len(CAPTIONS) / secs,
+                      dispatches=calls, launches=launches, cap=cap, e=e, tokens=tokens,
+                      peak_gib=peak, line_gib=line)
+        log(f"{label} T={t} ({tokens} tokens a clip), E={len(CAPTIONS)}: trunk dispatches "
+            f"(E, T, launches) {calls} (the envelope's cap {cap} expressions); {secs:.3f} s = "
+            f"{len(CAPTIONS) / secs:.2f} expression-windows/s; one trunk forward at E={e}: "
+            f"peak {peak:.3f} GiB above what was allocated before the engine, the envelope's "
+            f"line {line:.3f} GiB")
+        if peak > line:
+            raise AssertionError(f"{label} T={t}: trunk peak {peak:.3f} GiB above the "
+                                 f"envelope's line {line:.3f} GiB")
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def tokens_train(sd) -> dict:
+    """TRAIN_STEPS bf16 steps of the LastLayerAsToken flagship (b = 1,
+    5x384x640, dropout on): 8 + 8 MSDA launches a step, every parameter
+    (``inter_frame_atten.*`` included) gets a gradient and moves; ms/step,
+    peak memory, MFU over the 2D flagship's useful-FLOP count."""
+    import torch
+
+    from tce_rvos_tpu_torch import flagship_config
+    from tce_rvos_tpu_torch.config import TrainConfig
+    from tce_rvos_tpu_torch.models.criterion import criterion_from_configs
+    from tce_rvos_tpu_torch.models.referformer import ReferFormer
+    from tce_rvos_tpu_torch.parallel.train_step import (
+        batch_to_device,
+        create_train_state,
+        make_train_step,
+    )
+
+    label = "[options f_token -1 train]"
+    dev = torch.device("cuda")
+    cfg = flagship_config(compute_dtype="bfloat16", **TOKENS)
+    tcfg = TrainConfig()
+    model = ReferFormer(cfg)
+    model.load_state_dict(sd, strict=True)
+    model.to(dev)
+    state = create_train_state(model, tcfg, steps_per_epoch=1000)
+    step = make_train_step(criterion_from_configs(cfg, tcfg), cfg.compute_dtype)
+    batches = [batch_to_device(train_batch(TRAIN_T, TRAIN_HW, seed=10 + i), dev)
+               for i in range(TRAIN_STEPS)]
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    res = train_run(state, step, batches, label, "bf16 train_one_epoch",
+                    flops_source="from the JAX package's count of the 2D flagship (FTF's "
+                    "instead of the token attention's)")
+    per = msda_per_forward(cfg)
+    if (res["launches"], res["backward_launches"]) != (per * TRAIN_STEPS, per * TRAIN_STEPS):
+        raise AssertionError(f"{label} MSDA launches {res['launches']} forward / "
+                             f"{res['backward_launches']} backward, expected {per} + {per} a "
+                             f"step x {TRAIN_STEPS}")
+    tokens = sorted(n for n, _ in model.named_parameters() if ".inter_frame_atten." in n)
+    if len(tokens) != 10 * cfg.enc_layers:
+        raise AssertionError(f"{label} {len(tokens)} inter_frame_atten parameters")
+    every_parameter_learns(model, start, label, f"the {len(tokens)} inter_frame_atten.* included")
+    del state, model, batches, start
+    torch.cuda.empty_cache()
+    return res
+
+
+def vl_off(frames) -> dict:
+    """``--vlblock --no_rel_coord`` (no V-L blocks in the FPN, no relative
+    coordinates into the mask head; the flagship's switches otherwise):
+    the trunk at E = 1 and 4 (12 launches a forward, finite outputs) and
+    its stage breakdown at E = 4, against the flagship's in the same run;
+    TRAIN_STEPS_NO_VL bf16 train steps, finite, 12 + 12 launches a step."""
+    import torch
+
+    from tce_rvos_tpu_torch import flagship_config
+    from tce_rvos_tpu_torch.config import TrainConfig
+    from tce_rvos_tpu_torch.infer import InferenceEngine
+    from tce_rvos_tpu_torch.models.criterion import criterion_from_configs
+    from tce_rvos_tpu_torch.models.referformer import ReferFormer
+    from tce_rvos_tpu_torch.models.text_encoder import tokenize
+    from tce_rvos_tpu_torch.parallel.train_step import (
+        batch_to_device,
+        create_train_state,
+        make_train_step,
+    )
+
+    res = {}
+    for name, over in (("flagship", {}), ("vl_off", NO_VL)):
+        label = f"[options {name}]"
+        sd = random_state_dict(flagship_config(**over), seed=0)
+        cfg = flagship_config(compute_dtype="bfloat16", **over)
+        engine = InferenceEngine(cfg, sd, device="cuda")
+        video, mask, size = engine.preprocess(frames[:engine.window])
+        sizes = torch.tensor([size], device="cuda")
+        feats = engine.backbone(video, mask)
+        trunk = {}
+        for e in (1, 4):
+            ids, attn = tokenize(list(CAPTIONS[:e]))
+            reset_launch_counts()
+            out = engine.trunk(feats, mask, ids, attn, sizes)
+            launches = launch_counts()["msda_fwd"]
+            bad = [k for k, v in out.items() if not bool(torch.isfinite(v.float()).all())]
+            if bad or launches != 12:
+                raise AssertionError(f"{label} E={e}: outputs not finite {bad}, MSDA launches "
+                                     f"{launches} (expected 12)")
+            trunk[e] = cuda_ms(lambda: engine.trunk(feats, mask, ids, attn, sizes), reps=10)
+        res[name] = dict(trunk_ms=trunk,
+                         breakdown=stage_breakdown(engine, feats, mask, sizes, label))
+        log(f"{label} trunk E=1 {trunk[1]:.3f} ms, E=4 {trunk[4]:.3f} ms; pixel decoder at E=4 "
+            f"{res[name]['breakdown']['stages_ms']['pixel_decoder']:.3f} ms")
+        del engine, feats
+        if name == "flagship":
+            continue
+        model = ReferFormer(cfg)
+        model.load_state_dict(sd, strict=True)
+        model.to("cuda")
+        if any(n.startswith("pixel_decoder.cross_attn") for n, _ in model.named_parameters()):
+            raise AssertionError(f"{label} the FPN holds V-L blocks")
+        tcfg = TrainConfig()
+        state = create_train_state(model, tcfg, steps_per_epoch=1000)
+        step = make_train_step(criterion_from_configs(cfg, tcfg), cfg.compute_dtype)
+        batches = [batch_to_device(train_batch(TRAIN_T, TRAIN_HW, seed=10 + i), "cuda")
+                   for i in range(TRAIN_STEPS_NO_VL)]
+        run = train_run(state, step, batches, label, "bf16 train_one_epoch", warmup=1)
+        if (run["launches"], run["backward_launches"]) != (12 * TRAIN_STEPS_NO_VL,
+                                                           12 * TRAIN_STEPS_NO_VL):
+            raise AssertionError(f"{label} MSDA launches {run['launches']} / "
+                                 f"{run['backward_launches']}, expected 12 + 12 a step")
+        res[name]["train"] = run
+        del state, model, batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def options_main(tree: str, small_tree: str, root: str) -> dict:
+    """The class heads and the objective through the command lines, on
+    phase 9's 720x1280 train tree (bf16, full width):
+    1. ``train.main`` on the 65-class ytvos objective (no ``--binary``;
+       CLASSES_FLAGS: the mask losses, the visibility heads and loss, the
+       contrastive output) for one epoch: 12 + 12 launches a step, 65 class
+       logits, ``loss_vis`` and its aux copies logged;
+    2. ``infer.main --resume`` on those weights (saved as a reference-layout
+       ``.pth``) with the same flags on phase 8's small ytvos tree: every
+       PNG, ``select_query`` over 65 classes;
+    3. ``train.main --binary --pretrained_weights`` that ``.pth`` for one
+       epoch: only the ``class_embed.*`` tensors re-initialised;
+    4. ``train.main`` on phase 9's flags without ``--masks`` for one epoch:
+       no mask loss logged.
+    Then the 2D forward and backward held against plain at the runs'
+    largest padded shape (N = 5)."""
+    import os
+    import shutil
+
+    import torch
+
+    from tce_rvos_tpu_torch import infer
+    from tce_rvos_tpu_torch.utils import checkpoint
+
+    label = "[options main]"
+    per_step = {"msda_fwd": 12, "msda_bwd": 12, "msda3d_fwd": 0, "msda3d_bwd": 0}
+    base = ["--dataset_file", "ytvos", "--ytvos_path", tree, *CLASSES_FLAGS]
+    pth = os.path.join(root, "classes65.pth")
+    res = {}
+    with main_probe() as rec, tokenizer_guard_lifted():
+        out = os.path.join(root, "out_classes65")
+        state, res["classes65"] = main_run(
+            rec, base + OPTIONS_TRAIN_FLAGS + ["--output_dir", out, "--epochs", "1"],
+            f"{label} 1. 65 classes", per_step)
+        widths = [h.out_features for h in state.model.class_embed]
+        logged = read_log(out)[0]
+        want = {"train_loss_ce", "train_loss_vis", "train_loss_mask", "train_loss_dice",
+                *(f"train_loss_vis_{i}" for i in range(3))}
+        if widths != [65] * 4 or len(state.model.visible_embed) != 4 or not want <= set(logged):
+            raise AssertionError(f"{label} 1. class heads {widths}, logged {sorted(logged)}")
+        torch.save({"model": {k: v.cpu() for k, v in state.model.state_dict().items()},
+                    "epoch": 0}, pth)
+        del state
+        shutil.rmtree(out)
+        torch.cuda.empty_cache()
+
+        classes = []
+        select_query = infer.select_query
+        infer.select_query = lambda logits: (classes.append(logits.shape[-1]),
+                                             select_query(logits))[1]
+        out = os.path.join(root, "out_classes65_infer")
+        (n_frames, caps), = PROTO_SMALL.values()
+        try:
+            res["infer"] = timed_protocol(
+                f"{label} 2. infer.main ytvos --resume, 65 classes",
+                lambda: infer.main(["--dataset_file", "ytvos", "--ytvos_path", small_tree,
+                                    "--output_dir", out, "--resume", pth, *CLASSES_FLAGS]),
+                n_frames, len(caps))
+        finally:
+            infer.select_query = select_query
+        if classes != [65] * len(caps) or res["infer"]["launches"]["msda_fwd"] != 12:
+            raise AssertionError(f"{label} 2. select_query saw {classes} classes, launches "
+                                 f"{res['infer']['launches']}")
+        res["infer"]["pngs"] = check_binary_tree(out, PROTO_SMALL, f"{label} 2.")
+        shutil.rmtree(out)
+
+        loaded = {}
+        convert = checkpoint.convert_state_dict
+
+        def recorded(sd, reference, *args, **kw):
+            new, missing, unexpected = convert(sd, reference, *args, **kw)
+            loaded.update(reference=len(reference), missing=missing, unexpected=unexpected)
+            return new, missing, unexpected
+
+        checkpoint.convert_state_dict = recorded
+        out = os.path.join(root, "out_binary")
+        try:
+            state, res["binary_finetune"] = main_run(
+                rec, base + OPTIONS_TRAIN_FLAGS + ["--binary", "--pretrained_weights", pth,
+                                                   "--output_dir", out, "--epochs", "1"],
+                f"{label} 3. --binary --pretrained_weights", per_step)
+        finally:
+            checkpoint.convert_state_dict = convert
+        heads = sorted(k for k in state.model.state_dict() if k.startswith("class_embed."))
+        if (sorted(loaded["missing"]) != heads or loaded["unexpected"]
+                or [h.out_features for h in state.model.class_embed] != [1] * 4):
+            raise AssertionError(f"{label} 3. left at init {loaded['missing']}, unused "
+                                 f"{loaded['unexpected']}; the class_embed tensors are {heads}")
+        res["binary_finetune"].update(loaded=loaded["reference"] - len(loaded["missing"]),
+                                      reinitialised=loaded["missing"])
+        log(f"{label} 3. --pretrained_weights: {loaded['reference'] - len(loaded['missing'])} "
+            f"tensors loaded, {len(loaded['missing'])} re-initialised, all of them class "
+            f"heads: {loaded['missing']}")
+        del state
+        os.remove(pth)
+        shutil.rmtree(out)
+        torch.cuda.empty_cache()
+
+        out = os.path.join(root, "out_no_masks")
+        flags = ["--dataset_file", "ytvos", "--ytvos_path", tree,
+                 *[f for f in MAIN_FLAGS if f != "--masks"]]
+        _, res["no_masks"] = main_run(rec, flags + ["--output_dir", out, "--epochs", "1"],
+                                      f"{label} 4. without --masks", per_step)
+        logged = read_log(out)[0]
+        masked = [k for k in logged if "loss_mask" in k or "loss_dice" in k]
+        if masked or "train_loss_ce" not in logged:
+            raise AssertionError(f"{label} 4. without --masks the log holds {sorted(logged)}")
+        log(f"{label} 4. without --masks: no mask loss logged ({sorted(logged)})")
+        shutil.rmtree(out)
+    torch.cuda.empty_cache()
+    hw = max((x for k in ("classes65", "binary_finetune", "no_masks") for x in res[k]["hw"]),
+             key=lambda x: x[0] * x[1])
+    lv = main_levels(hw)
+    res["hold"] = {"hw": hw, "levels": lv, "fwd": phase_kernels(e=1, shapes=lv),
+                   "bwd": phase_backward_kernels(5, shapes=lv)}
+    log(f"{label} the 2D forward and backward held against plain at the runs' largest padded "
+        f"(H, W) {hw}, levels {lv}, N = 5")
+    return res
+
+
+def phase_options(videos, tree: str, small_tree: str, root: str) -> dict:
+    """Phase 12: the model options at full width. The LastLayerAsToken
+    flagship (``--f_token -1``) served through phase 3's path and gates in
+    bf16 (8 launches a trunk forward) and held f32 GPU against CPU, its
+    whole-video windows at T = 40 and 160, its train steps; the 65-class
+    objective, ``--resume`` and the binary fine-tune through the command
+    lines, a run without ``--masks`` (``options_main``); ``--vlblock
+    --no_rel_coord`` against the flagship (``vl_off``)."""
+    import torch
+
+    from tce_rvos_tpu_torch import flagship_config
+
+    t0 = time.perf_counter()
+    sd = random_state_dict(flagship_config(**TOKENS), seed=0)
+    res = {"tokens_path": phase_path("bfloat16", sd, videos, tag="options f_token -1",
+                                     overrides=TOKENS)[0]}
+    phase_parity(sd, videos[0], overrides=TOKENS, tag="options f_token -1")
+    res["tokens_whole_video"] = tokens_whole_video(sd, videos[0])
+    res["tokens_train"] = tokens_train(sd)
+    del sd
+    torch.cuda.empty_cache()
+    res["main"] = options_main(tree, small_tree, root)
+    res["vl_off"] = vl_off(videos[0])
+    res["seconds"] = time.perf_counter() - t0
+    path, vl = res["tokens_path"], res["vl_off"]
+    log(f"[options] f_token -1: {path['expression_windows_per_s']:.2f} expression-windows/s "
+        f"bf16, trunk E=4 {path['trunk'][4]['ms']:.3f} ms ({path['trunk'][4]['peak_gib']:.3f} "
+        f"GiB); train {res['tokens_train']['ms_per_step']:.3f} ms/step; --vlblock "
+        f"--no_rel_coord trunk E=4 {vl['vl_off']['trunk_ms'][4]:.3f} ms against the "
+        f"flagship's {vl['flagship']['trunk_ms'][4]:.3f}; phase 12 wall {res['seconds']:.1f} s")
+    return res
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3552,7 +3962,7 @@ def nvidia_smi_line() -> str:
 
 def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, train: dict,
                  serve3: dict, train3: dict, main_runs: dict, evals: dict,
-                 backbones: dict) -> dict:
+                 backbones: dict, options: dict) -> dict:
     """The JSON ``kernels`` record: each kernel's main shape in its
     deployment dtype (the encoder call in bf16: E = 4 for the forwards'
     serving paths, N = 5 for the training steps' backwards) in the top-level
@@ -3569,7 +3979,11 @@ def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, tr
     (the Video-Swin-B flagship's serving, whole-video and training runs,
     one forward on each other family) likewise, with the 2D calls held at
     the DC5 levels (``dc5_e4``, S = 6000) and at Video-Swin-B's serving
-    (``video_swin_b_e4``) and training (``video_swin_b_train``) shapes."""
+    (``video_swin_b_e4``) and training (``video_swin_b_train``) shapes;
+    phase 12's paths (the LastLayerAsToken flagship's serving, whole-video
+    and training runs, the option runs of ``train.main`` and the
+    ``--vlblock --no_rel_coord`` steps) likewise, with the 2D calls held at
+    the ``train.main`` runs' largest padded shape (``options_HxW``)."""
     def entry(name, source, replaces, also, main, launches, by_path, shapes):
         return {"name": name, "route": "cuda", "source": f"tce_rvos_tpu_torch/csrc/{source}",
                 "replaces": f"tce_rvos_tpu/ops/{replaces}",
@@ -3618,10 +4032,25 @@ def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, tr
     at_main["fwd"].update(flat(bb["kernels"]))
     at_main["bwd"].update(flat(bb["backward"]))
 
+    op, om = options, options["main"]
+    whole = sum(r["launches"] for r in op["tokens_whole_video"].values())
+    p12 = {"serve_f_token_-1": {"msda_fwd": op["tokens_path"]["launches"], "msda_bwd": 0},
+           "whole_video_f_token_-1": {"msda_fwd": whole, "msda_bwd": 0},
+           "train_f_token_-1": {"msda_fwd": op["tokens_train"]["launches"],
+                                "msda_bwd": op["tokens_train"]["backward_launches"]},
+           **{f"train_main_{k}": om[k]["launches"]
+              for k in ("classes65", "binary_finetune", "no_masks")},
+           "infer_main_classes65": om["infer"]["launches"],
+           "train_vl_off": {"msda_fwd": op["vl_off"]["vl_off"]["train"]["launches"],
+                            "msda_bwd": op["vl_off"]["vl_off"]["train"]["backward_launches"]}}
+    tag = f"options_{om['hold']['hw'][0]}x{om['hold']['hw'][1]}"
+    at_main["fwd"].update({f"{tag}/{k}": v for k, v in om["hold"]["fwd"].items()})
+    at_main["bwd"].update({f"{tag}/{k}": v for k, v in om["hold"]["bwd"].items()})
+
     def by_path(d, kname):
         return {**d, "train_main": m2[kname], "train_main_3d": m3[kname],
                 **{path: counts[kname] for path, counts in p10.items()},
-                **({path: counts[kname] for path, counts in p11.items()}
+                **({path: counts[kname] for p in (p11, p12) for path, counts in p.items()}
                    if kname in ("msda_fwd", "msda_bwd") else {})}
 
     return {"kernels": [
@@ -3669,10 +4098,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t_start = time.perf_counter()
+    times = {}
+
+    def done(phase: str) -> None:  # the wall time at each phase's end
+        times[phase] = round(time.perf_counter() - t_start, 1)
+        log(f"[time] {phase} done at {times[phase]} s")
+
     smi = nvidia_smi_line()
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi: {smi}")
     phase_build()
+    done("1 build")
     # E = 32 is N = 160 frames: the whole-video dispatch of 4 expressions x 40
     kern = {"e4": phase_kernels(e=4), "e1": phase_kernels(e=1), "e32": phase_kernels(e=32)}
     bwd = phase_backward_kernels()
@@ -3681,6 +4117,7 @@ def main() -> int:
     kern3 = {"e4": phase_kernels(e=4, is_3d=True), "e1": phase_kernels(e=1, is_3d=True)}
     bwd3 = {"n5": phase_backward_kernels(5, is_3d=True),
             "n10": phase_backward_kernels(10, is_3d=True)}
+    done("2 kernels")
     from tce_rvos_tpu_torch import flagship_config
 
     sd = random_state_dict(flagship_config(), seed=0)
@@ -3690,9 +4127,13 @@ def main() -> int:
         paths[dtype_name], masks[dtype_name] = phase_path(dtype_name, sd, videos)
     bf16_against_f32(masks)
     del masks
+    done("3 path")
     phase_parity(sd, videos[0])
+    done("4 parity")
     train = phase_train(sd)
+    done("5 train")
     phase_train_parity(sd)
+    done("6 train parity")
     # the 3D f32 step, GPU and CPU each against float64, at two weight seeds
     phase_train_against_f64(msda_3d=True)
     # the 3D model's weights: seed 1. With those of seed 0 the CPU's own f32
@@ -3704,23 +4145,33 @@ def main() -> int:
     phase_parity(sd3, videos[0], msda_3d=True)
     train3 = phase_train_3d(sd3)
     phase_train_parity(sd3, msda_3d=True)
+    done("7 3D path")
     envelope = phase_envelope(sd, videos[0])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         protocols = phase_protocols(sd, sd3, root)
         del sd, sd3
+        done("8 protocols")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_main_") as main_root:
             main_runs = phase_main(main_root)
+            done("9 main")
             # phase 10 scores phase 8's davis PNGs and trains on phase 9's ytvos tree
             evals = phase_eval(os.path.join(root, "eval"),
                                davis_results=os.path.join(root, "out_davis", "valid"),
                                ytvos_train=os.path.join(main_root, "tree"))
+            done("10 eval")
+            # phase 12 trains on phase 9's tree and serves phase 8's small ytvos tree
+            options = phase_options(videos, os.path.join(main_root, "tree"),
+                                    os.path.join(root, "small"), main_root)
+            done("12 options")
         backbones = phase_backbones(videos, root)
+        done("11 backbones")
     log("[numbers] " + json.dumps({"envelope": envelope, "protocols": protocols,
-                                   "main": main_runs, "eval": evals, "backbones": backbones}))
+                                   "main": main_runs, "eval": evals, "backbones": backbones,
+                                   "options": options, "times_s": times}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels_line(kern, bwd, kern3, bwd3, paths["bfloat16"]["launches"], train,
-                                  serve3, train3, main_runs, evals, backbones)))
+                                  serve3, train3, main_runs, evals, backbones, options)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,11 +3,17 @@ the model, training and data flags and their configs.
 
 Every flag keeps the reference's name and default, ``--vlblock`` included,
 which keeps the reference's inverted store_false meaning (passing it turns
-the V-L FPN blocks off). A flag set to a value the port does not support
-yet raises and names the flag: nothing is dropped in silence.
+the V-L FPN blocks off). Every model option the JAX model runs is accepted:
+no ``--binary`` (the dataset's class heads), ``--f_token -1``
+(LastLayerAsToken), ``--vis_loss``, ``--contrastive``, ``--vlblock``,
+``--no_rel_coord``. ``--masks`` (default off, as in the JAX command line)
+adds the mask losses and matching costs to training and the mask stats to
+``--eval`` on RefCOCO(+/g). A flag set to a value neither package runs
+raises and names the flag: ``--two_stage`` (the JAX model refuses it),
+``--position_embedding learned`` (the JAX model reads no such field and
+would run sine in silence) and ``--msda_impl`` other than ``auto``.
 ``--pre_norm`` and ``--backbone_pretrained`` change nothing at inference in
-either package and are accepted as they are; ``--masks`` adds the mask
-stats to ``--eval`` on RefCOCO(+/g), as in the JAX package.
+either package and are accepted as they are.
 
 The training and data flags keep the JAX package's names and defaults too.
 ``--flat_opt`` and ``--dropout_rng_impl`` choose TPU implementations of the
@@ -74,16 +80,11 @@ def add_model_args(p: argparse.ArgumentParser):
     return p
 
 
-# flag -> (its value the port cannot run yet, what the port supports)
+# flag -> (its value the port does not run, what it runs)
 _UNSUPPORTED = (
-    ("--binary", lambda a: not a.binary, "--binary is required: one class logit"),
-    ("--vlblock", lambda a: not a.vlblock, "the V-L FPN blocks stay on"),
-    ("--no_rel_coord", lambda a: not a.rel_coord, "relative coordinates stay on"),
-    ("--f_token", lambda a: a.f_token < 0, "f_token >= 0 (no LastLayerAsToken)"),
-    ("--two_stage", lambda a: a.two_stage, "single stage"),
-    ("--vis_loss", lambda a: a.vis_loss, "no visibility head"),
-    ("--contrastive", lambda a: a.contrastive, "no contrastive head"),
-    ("--position_embedding", lambda a: a.position_embedding != "sine", "sine only"),
+    ("--two_stage", lambda a: a.two_stage, "single stage, as the JAX model"),
+    ("--position_embedding", lambda a: a.position_embedding != "sine",
+     "sine only: the JAX model reads no such field and always runs sine"),
     ("--msda_impl", lambda a: a.msda_impl != "auto",
      "auto only: the device picks the MSDA implementation"),
 )
@@ -96,7 +97,7 @@ def model_config_from_args(args) -> ModelConfig:
     on a backbone that is not a ResNet."""
     for flag, unsupported, supported in _UNSUPPORTED:
         if unsupported(args):
-            raise ValueError(f"{flag}: not supported by the PyTorch port yet ({supported})")
+            raise ValueError(f"{flag}: not supported by the PyTorch port ({supported})")
     fields = {f.name for f in ModelConfig.__dataclass_fields__.values()}
     cfg = ModelConfig(**{k: v for k, v in vars(args).items() if k in fields})
     check_backbone(cfg)

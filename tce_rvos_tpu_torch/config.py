@@ -10,12 +10,23 @@ inference engine; inside the loss, over f32 master weights, in training).
 
 ``backbone`` names one of the JAX package's backbones (ResNet-50/101,
 Swin t/s/b/l, Video-Swin t/s/b, X3D xs/s/m/l/self; ``models/referformer.py
-::BACKBONES``) and ``dilation`` is ResNet's DC5. What the port supports of
-the rest is fixed, not configurable: the V-L blocks of the FPN, relative
-coordinates in the dynamic mask head, mask losses, and one class logit
-(``--binary``). The options not ported yet (``vis_loss``, ``contrastive``,
-``f_token < 0``, the non-binary class counts) come with their code and a
-parity test against the JAX package.
+::BACKBONES``) and ``dilation`` is ResNet's DC5. Every other model option
+of the JAX ``ModelConfig`` is here too, with its default:
+  * ``binary`` and ``dataset_file`` give the class heads' width
+    (``num_classes``: 1 with ``binary``, else ytvos 65, davis 78,
+    a2d/jhmdb 1, coco and refcoco 91);
+  * ``masks`` adds the mask losses and the matcher's mask costs (True
+    here, as in the JAX dataclass; the command line's ``--masks`` defaults
+    to False, as the JAX command line's does);
+  * ``vis_loss`` adds the visibility heads and their loss, ``contrastive``
+    the cosine of mean encoder memory and sentence (an output only);
+  * ``vlblock`` keeps the FPN's V-L blocks, ``rel_coord`` the dynamic mask
+    head's relative coordinates;
+  * ``f_token`` > 0 is FTF's learnable frame tokens, < 0 LastLayerAsToken
+    (the coarsest level's pixels as the frame tokens).
+Not here: ``two_stage`` (the JAX model refuses it too) and
+``position_embedding`` (the JAX model reads no such field and always runs
+sine; the command line refuses ``learned``).
 """
 
 from __future__ import annotations
@@ -23,7 +34,18 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-NUM_CLASSES = 1  # --binary: one "is referred" logit per query
+
+def _num_classes_for(dataset_file: str, binary: bool) -> int:
+    """The class heads' width (the JAX package's ``_num_classes_for``)."""
+    if binary:
+        return 1
+    if dataset_file == "ytvos":
+        return 65
+    if dataset_file == "davis":
+        return 78
+    if dataset_file in ("a2d", "jhmdb"):
+        return 1
+    return 91  # coco, refcoco(+/g)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,23 +78,36 @@ class ModelConfig:
     text_encoder_intermediate: int = 3072
 
     # Segmentation
+    masks: bool = True                    # mask losses and mask matching costs
     mask_dim: int = 256
     controller_layers: int = 3
     dynamic_mask_channels: int = 8
+    rel_coord: bool = True                # relative coordinates into the mask head
 
     # Losses wired into the architecture
     aux_loss: bool = True
+    vis_loss: bool = False                # visibility heads and loss
+    contrastive: bool = False             # cosine of mean memory and sentence
 
     # TCE variants
     qtrans: bool = False                  # IQT
-    f_token: int = 0                      # FTF: > 0 learnable frame tokens
+    f_token: int = 0                      # FTF: > 0 frame tokens; < 0 LastLayerAsToken
+    vlblock: bool = True                  # V-L blocks in the FPN
     msda_3d: bool = False                 # temporal MSDA in encoder and decoder
+
+    # Dataset-derived
+    dataset_file: str = "ytvos"
+    binary: bool = False
 
     # context frames on both sides of an inference window, outputs dropped
     # (defined here; the reference reads it but never defines it)
     f_extra: int = 0
 
     compute_dtype: str = "float32"        # "bfloat16" for the fast path
+
+    @property
+    def num_classes(self) -> int:
+        return _num_classes_for(self.dataset_file, self.binary)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,7 +190,7 @@ class DataConfig:
 
 def flagship_config(**overrides) -> ModelConfig:
     """The flagship configuration: --with_box_refine --binary --f_token 8
-    --qtrans (``--binary`` is the port's only class head)."""
-    base = dict(with_box_refine=True, f_token=8, qtrans=True)
+    --qtrans (one class logit)."""
+    base = dict(with_box_refine=True, f_token=8, qtrans=True, binary=True)
     base.update(overrides)
     return ModelConfig(**base)

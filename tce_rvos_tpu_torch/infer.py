@@ -118,6 +118,13 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 # The base below adds the largest residual, the slope is rounded up.
 # Activations scale with the padded pixel count, so other buckets scale the
 # slope by (h * w) / (384 * 640).
+# The line holds only while no activation grows faster than E x T. The
+# FPN's V-L self-attention over a clip's T x 240 pixels (at 384x640) and
+# LastLayerAsToken's over its T x 60 coarsest tokens (f_token < 0) have
+# logits quadratic in T: at T = 160 one expression's V-L logits and
+# probabilities would take 88 GiB. ``layers.MultiheadAttention`` computes
+# them in chunks of at most ``ATTN_LOGITS_CHUNK`` logits, which keeps the
+# peak linear in E x T.
 # ---------------------------------------------------------------------------
 
 _ENVELOPE_GIB = {  # compute dtype -> (base, per frame at 384x640)

@@ -17,7 +17,6 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from tce_rvos_tpu_torch.config import NUM_CLASSES
 from tce_rvos_tpu_torch.models.matcher import MatcherConfig, match
 from tce_rvos_tpu_torch.models.segmentation import dice_loss, sigmoid_focal_loss
 from tce_rvos_tpu_torch.utils.boxes import box_cxcywh_to_xyxy, elementwise_giou
@@ -113,13 +112,15 @@ def criterion(cfg: CriterionConfig, outputs: Dict, targets: Dict[str, torch.Tens
 
 
 def criterion_from_configs(model_cfg, train_cfg) -> CriterionConfig:
-    """From the port's ModelConfig and TrainConfig: one class logit and mask
-    losses always (the port's fixed choices), no visibility loss (its head
-    is not ported). ``model_cfg`` holds no choice the criterion reads yet;
-    it stays for the JAX function's signature."""
+    """From the port's ModelConfig and TrainConfig, as the JAX package's
+    function: the class count (``num_classes``), the mask losses and costs
+    (``masks``) and the visibility loss and cost (``vis_loss``) from the
+    model's config, the weights from the training config."""
     return CriterionConfig(
-        num_classes=NUM_CLASSES,
+        num_classes=model_cfg.num_classes,
         focal_alpha=train_cfg.focal_alpha,
+        use_masks=model_cfg.masks,
+        use_vis=model_cfg.vis_loss,
         cls_coef=train_cfg.cls_loss_coef,
         bbox_coef=train_cfg.bbox_loss_coef,
         giou_coef=train_cfg.giou_loss_coef,
@@ -133,6 +134,8 @@ def criterion_from_configs(model_cfg, train_cfg) -> CriterionConfig:
             cost_mask=train_cfg.set_cost_mask,
             cost_dice=train_cfg.set_cost_dice,
             cost_vis=train_cfg.set_cost_vis,
-            num_classes=NUM_CLASSES,
+            num_classes=model_cfg.num_classes,
+            use_masks=model_cfg.masks,
+            use_vis=model_cfg.vis_loss,
         ),
     )

@@ -17,6 +17,14 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 LN_EPS = 1e-6
+# the most attention logits (batch x heads x queries x keys, or windows x
+# heads x n x n in Swin) one chunk computes at once: 2^28 is 512 MiB in bf16
+ATTN_LOGITS_CHUNK = 2**28
+# the most FFN hidden activations (rows x d_ffn) one chunk of rows computes
+# at once: 2^30 is 2 GiB in bf16 (a whole-video window of 160 frames at
+# 384x640 puts 4.9M stride-4 pixels of each expression through the FPN's
+# 2048-wide FFN)
+FFN_HIDDEN_CHUNK = 2**30
 
 
 def run_layer(layer: nn.Module, recompute: bool, *args):
@@ -96,7 +104,10 @@ class MultiheadAttention(nn.Module):
     / ``in_proj_bias``, ``out_proj``), batch-first, with dropout on the
     attention probabilities. ``key_padding_mask`` [B, Sk] is True where a
     key is ignored; masked logits take the dtype's most negative finite
-    value, as in the JAX package (a fully masked row stays finite)."""
+    value, as in the JAX package (a fully masked row stays finite). Past
+    ``ATTN_LOGITS_CHUNK`` logits the queries go in chunks: their rows are
+    independent, so the chunks compute the same function (whole-video
+    windows put T x 240 pixels through the FPN's V-L self-attention)."""
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
@@ -124,14 +135,21 @@ class MultiheadAttention(nn.Module):
         q = F.linear(query, wq, bq).reshape(b, sq, h, hd).transpose(1, 2)
         k = F.linear(key, wk, bk).reshape(b, sk, h, hd).transpose(1, 2)
         v = F.linear(value, wv, bv).reshape(b, sk, h, hd).transpose(1, 2)
-        logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
-        if key_padding_mask is not None:
-            logits = logits.masked_fill(
-                key_padding_mask[:, None, None, :], torch.finfo(logits.dtype).min
-            )
-        probs = self.dropout(torch.softmax(logits, dim=-1))
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, sq, c)
-        return self.out_proj(out)
+        mask = None if key_padding_mask is None else key_padding_mask[:, None, None, :]
+        rows = max(1, ATTN_LOGITS_CHUNK // (b * h * sk))
+        if sq <= rows:
+            out = self._attend(q, k, v, mask)
+        else:
+            out = torch.cat([self._attend(q[:, :, i:i + rows], k, v, mask)
+                             for i in range(0, sq, rows)], 2)
+        return self.out_proj(out.transpose(1, 2).reshape(b, sq, c))
+
+    def _attend(self, q, k, v, mask):
+        """softmax(q k^T / sqrt(d)) v over heads [B, H, Sq, D]."""
+        logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+        if mask is not None:
+            logits = logits.masked_fill(mask, torch.finfo(logits.dtype).min)
+        return torch.matmul(self.dropout(torch.softmax(logits, dim=-1)), v)
 
 
 def ffn(
@@ -145,9 +163,19 @@ def ffn(
     """Post-norm FFN with residual: norm(x + drop(W2 drop(act(W1 x)))). The
     layers live on the calling block under the reference's names
     (``linear1``, ``linear2`` and ``norm2`` in the encoder, ``norm3`` in the
-    decoder), and so does its dropout."""
-    y = dropout(get_activation(activation)(linear1(x)))
-    return norm(x + dropout(linear2(y)))
+    decoder and the FPN's V-L blocks), and so does its dropout. Past
+    ``FFN_HIDDEN_CHUNK`` hidden activations the rows go in chunks: each
+    row's FFN is its own, so the chunks compute the same function."""
+    def block(rows):
+        y = dropout(get_activation(activation)(linear1(rows)))
+        return norm(rows + dropout(linear2(y)))
+
+    n = x.shape[:-1].numel()
+    step = max(1, FFN_HIDDEN_CHUNK // linear1.out_features)
+    if n <= step:
+        return block(x)
+    flat = x.reshape(n, x.shape[-1])
+    return torch.cat([block(flat[i:i + step]) for i in range(0, n, step)]).reshape(x.shape)
 
 
 def with_pos(tensor: torch.Tensor, pos: Optional[torch.Tensor]) -> torch.Tensor:

@@ -35,7 +35,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from tce_rvos_tpu_torch.config import NUM_CLASSES, ModelConfig
+from tce_rvos_tpu_torch.config import ModelConfig
 from tce_rvos_tpu_torch.models import backbone_resnet, swin, video_swin, x3d
 from tce_rvos_tpu_torch.models.backbone_resnet import Backbone
 from tce_rvos_tpu_torch.models.dynamic_head import (
@@ -126,13 +126,16 @@ class ReferFormer(nn.Module):
             with_box_refine=cfg.with_box_refine, dropout=cfg.dropout,
             use_checkpoint=cfg.use_checkpoint, msda_3d=cfg.msda_3d)
         n_heads = cfg.dec_layers if cfg.with_box_refine else 1
-        self.class_embed = nn.ModuleList(nn.Linear(c, NUM_CLASSES) for _ in range(n_heads))
+        self.class_embed = nn.ModuleList(nn.Linear(c, cfg.num_classes) for _ in range(n_heads))
+        if cfg.vis_loss:
+            self.visible_embed = nn.ModuleList(nn.Linear(c, 1) for _ in range(n_heads))
         self.bbox_embed = nn.ModuleList(MLP(c, c, 4, 3) for _ in range(n_heads))
         weight_nums, bias_nums = dynamic_head_param_counts(
-            cfg.mask_dim, cfg.dynamic_mask_channels, cfg.controller_layers)
+            cfg.mask_dim, cfg.dynamic_mask_channels, cfg.controller_layers, cfg.rel_coord)
         self.controller = MLP(c, c, sum(weight_nums) + sum(bias_nums), 3)
         self.pixel_decoder = CrossModalFPNDecoder(
-            c, cfg.mask_dim, cfg.dim_feedforward, res2_channels=channels[0])
+            c, cfg.mask_dim, cfg.dim_feedforward, res2_channels=channels[0],
+            vlblock=cfg.vlblock)
 
     # ------------------------------------------------------------------
     def forward(
@@ -224,10 +227,12 @@ class ReferFormer(nn.Module):
         mask_features = mask_features.reshape((b, t) + tuple(mask_features.shape[1:]))
 
         def layer_outputs(lvl):
-            """Classes [b, t, q, K], boxes [b, t, q, 4] and masks
-            [b, t, q, h, w] of decoder layer ``lvl``."""
+            """Classes [b, t, q, K], boxes [b, t, q, 4], masks
+            [b, t, q, h, w] and with ``vis_loss`` visibility [b, t, q, 1]
+            of decoder layer ``lvl``."""
             hs = tr["hs"][lvl]
-            logits = self.class_embed[lvl if cfg.with_box_refine else 0](hs)
+            head = lvl if cfg.with_box_refine else 0
+            logits = self.class_embed[head](hs)
             if cfg.with_box_refine:
                 boxes = tr["coords"][lvl]
             else:
@@ -238,9 +243,12 @@ class ReferFormer(nn.Module):
             refs = tr["inter_references"][lvl][..., :2].reshape(b, t, q, 2)
             masks = dynamic_mask_with_coords(
                 mask_features, params, refs, sizes, channels=cfg.dynamic_mask_channels,
-                num_layers=cfg.controller_layers)
-            return {"pred_logits": logits.reshape(b, t, q, -1),
-                    "pred_boxes": boxes.reshape(b, t, q, 4), "pred_masks": masks}
+                num_layers=cfg.controller_layers, rel_coord=cfg.rel_coord)
+            out = {"pred_logits": logits.reshape(b, t, q, -1),
+                   "pred_boxes": boxes.reshape(b, t, q, 4), "pred_masks": masks}
+            if cfg.vis_loss:
+                out["pred_visible"] = self.visible_embed[head](hs).reshape(b, t, q, 1)
+            return out
 
         ref_vis = (tr["inter_references"][-2][..., :2] if cfg.dec_layers > 1
                    else tr["init_reference"])
@@ -250,6 +258,11 @@ class ReferFormer(nn.Module):
             "inter_samples": tr["inter_samples"],          # [l, b*t, q, 30, 2]
             "memory": tr["memory"],
         })
+        if cfg.contrastive:
+            mem = tr["memory"].reshape(b, t, -1, c).mean(2)
+            out["contrastive"] = (mem * text_sentence[:, None]).sum(-1) / (
+                torch.linalg.vector_norm(mem, dim=-1)
+                * torch.linalg.vector_norm(text_sentence, dim=-1)[:, None] + 1e-6)
         if aux_outputs:
             out["aux_outputs"] = [layer_outputs(lvl) for lvl in range(cfg.dec_layers - 1)]
         return out
@@ -260,8 +273,9 @@ def init_weights(model: ReferFormer, generator: torch.Generator) -> None:
     lecun-normal linears and convs, zero biases, identity BatchNorm, the
     Swin relative-position bias tables truncated N(0, 0.02), the MSDA
     layout (zero offset/weight kernels, directional offset bias), N(0, 1)
-    level and query embeddings, the focal-loss class prior and zero last
-    bbox layers (bias -2 on w, h for the first)."""
+    level and query embeddings, the focal-loss prior on the class and
+    visibility biases and zero last bbox layers (bias -2 on w, h for the
+    first)."""
     g = generator
     cfg = model.cfg
 
@@ -294,7 +308,7 @@ def init_weights(model: ReferFormer, generator: torch.Generator) -> None:
             tr.encoder.memory_bus.normal_(0.0, std, generator=g)
             tr.encoder.memory_pos.normal_(0.0, std, generator=g)
         prior = -math.log((1 - 0.01) / 0.01)
-        for head in model.class_embed:
+        for head in (*model.class_embed, *getattr(model, "visible_embed", ())):
             head.bias.fill_(prior)
         for i, mlp in enumerate(model.bbox_embed):
             mlp.layers[-1].weight.zero_()

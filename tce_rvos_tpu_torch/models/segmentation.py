@@ -27,7 +27,7 @@ from torch import nn
 from tce_rvos_tpu_torch.models.layers import (
     GroupNorm,
     MultiheadAttention,
-    get_activation,
+    ffn,
     layer_norm,
     with_pos,
 )
@@ -96,8 +96,7 @@ class VisionLanguageBlock(nn.Module):
             key_padding_mask=memory_key_padding_mask,
         ).reshape(b, t, h, w, c)
         tgt = self.norm2(tgt + self.dropout(tgt2))
-        y = self.dropout(get_activation(self.activation)(self.linear1(tgt)))
-        return self.norm3(tgt + self.dropout(self.linear2(y)))
+        return ffn(tgt, self.linear1, self.linear2, self.norm3, self.dropout, self.activation)
 
 
 class Conv2d(nn.Conv2d):
@@ -119,31 +118,35 @@ class Conv2d(nn.Conv2d):
 
 class CrossModalFPNDecoder(nn.Module):
     """Top-down FPN over [res2, memory 8x, 16x, 32x] with per-level V-L
-    blocks; stage s = 1..4 from 4x to 32x, sr_ratios (8, 4, 2, 1)."""
+    blocks (none with ``vlblock=False``); stage s = 1..4 from 4x to 32x,
+    sr_ratios (8, 4, 2, 1)."""
 
     SR_RATIOS = (8, 4, 2, 1)
 
     def __init__(self, conv_dim: int, mask_dim: int, dim_feedforward: int = 2048,
-                 res2_channels: int = 256):
+                 res2_channels: int = 256, vlblock: bool = True):
         super().__init__()
         self.conv_dim = conv_dim
+        self.vlblock = vlblock
         for stage in range(1, 5):
             in_ch = res2_channels if stage == 1 else conv_dim
             setattr(self, f"adapter_{stage}", Conv2d(in_ch, conv_dim, 1))
             setattr(self, f"layer_{stage}", Conv2d(conv_dim, conv_dim, 3, act=True))
-            setattr(self, f"cross_attn_{stage}", VisionLanguageBlock(
-                conv_dim, 8, dim_feedforward, sr_ratio=self.SR_RATIOS[stage - 1]))
+            if vlblock:
+                setattr(self, f"cross_attn_{stage}", VisionLanguageBlock(
+                    conv_dim, 8, dim_feedforward, sr_ratio=self.SR_RATIOS[stage - 1]))
         self.mask_features = Conv2d(conv_dim, mask_dim, 3, norm=False)
 
     def _stage(self, stage, x, x_mask, pos, y, nf, text_features, text_pad_mask, text_pos):
         n, _, h, w = x.shape
         b, t, c = n // nf, nf, self.conv_dim
         vis = getattr(self, f"adapter_{stage}")(x)
-        vis = getattr(self, f"cross_attn_{stage}")(
-            vis.permute(0, 2, 3, 1).reshape(b, t, h, w, c),
-            text_features, x_mask.reshape(b, t, h, w), text_pad_mask, text_pos,
-            pos.reshape(b, t, h, w, c),
-        ).reshape(n, h, w, c).permute(0, 3, 1, 2)
+        if self.vlblock:
+            vis = getattr(self, f"cross_attn_{stage}")(
+                vis.permute(0, 2, 3, 1).reshape(b, t, h, w, c),
+                text_features, x_mask.reshape(b, t, h, w), text_pad_mask, text_pos,
+                pos.reshape(b, t, h, w, c),
+            ).reshape(n, h, w, c).permute(0, 3, 1, 2)
         if y is not None:
             vis = vis + resize_nearest(y, (h, w))
         return getattr(self, f"layer_{stage}")(vis)

@@ -46,11 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tce_rvos_tpu_torch.models.layers import layer_norm, run_layer
-
-# the most attention logits (windows x heads x n x n) one chunk of a
-# block's windows computes at once: 2^28 is 512 MiB in bf16
-ATTN_LOGITS_CHUNK = 2**28
+from tce_rvos_tpu_torch.models.layers import ATTN_LOGITS_CHUNK, layer_norm, run_layer
 
 SWIN_CONFIGS = {
     # the JAX package's swin.py:204-209 (reference swin_transformer.py:687-745)

@@ -26,7 +26,11 @@ with the RNG state kept so dropout draws the same masks). Unlike the JAX
 policy, which saves each MSDA output, the MSDA forward kernel runs again in
 the recomputation: 12 extra forward launches per flagship step.
 
-Not ported yet: ``LastLayerAsToken`` (f_token < 0).
+``f_token < 0`` (``--f_token -1``) puts ``LastLayerAsToken`` before each
+encoder layer's deformable self-attention instead of FTF: the coarsest
+level's pixels of a clip's t frames attend to each other (scoped to the
+clip, as FTF is), so the whole-video attention grows as T squared: at
+T = 160 and 6x10 coarsest pixels, 9,600 tokens.
 """
 
 from __future__ import annotations
@@ -224,13 +228,45 @@ class FrameTokenLayer(nn.Module):
         return src, token
 
 
+class LastLayerAsToken(nn.Module):
+    """f_token < 0: the coarsest level's pixels act as the frame tokens. One
+    self-attention over a clip's t frames' coarsest pixels (the query takes
+    the position encoding, key and value do not; no norm after its
+    residual), then a post-norm FFN (``norm2``). The reference also defines
+    a ``norm1`` it never uses; it has no parameter here, so a reference
+    checkpoint's ``inter_frame_atten.norm1.*`` is reported as unused."""
+
+    def __init__(self, d_model=256, d_ffn=1024, dropout=0.1, activation="relu", n_heads=8):
+        super().__init__()
+        self.activation = activation
+        self.inter_frame_att = MultiheadAttention(d_model, n_heads, dropout)
+        self.linear1 = nn.Linear(d_model, d_ffn)
+        self.linear2 = nn.Linear(d_ffn, d_model)
+        self.norm2 = layer_norm(d_model)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, src, pos, last_start: int, clip_frames: int):
+        n, _, c = src.shape
+        t = clip_frames
+        b = n // t
+        tok = src[:, last_start:]
+        n_tok = tok.shape[1]
+        flat = tok.reshape(b, t * n_tok, c)
+        flat_pos = pos[:, last_start:].reshape(b, t * n_tok, c)
+        flat = flat + self.dropout(self.inter_frame_att(with_pos(flat, flat_pos), flat, flat))
+        flat = ffn(flat, self.linear1, self.linear2, self.norm2, self.dropout, self.activation)
+        return torch.cat([src[:, :last_start], flat.reshape(n, n_tok, c)], 1)
+
+
 class EncoderLayer(nn.Module):
     def __init__(self, d_model=256, d_ffn=1024, dropout=0.1, activation="relu", n_levels=4,
                  n_heads=8, n_points=4, f_token=0, msda_3d=False):
         super().__init__()
-        if f_token < 0:
-            raise NotImplementedError("f_token < 0 (LastLayerAsToken) is not ported yet")
         self.activation = activation
+        self.inter_frame_atten = (
+            LastLayerAsToken(d_model, d_ffn, dropout, activation, n_heads)
+            if f_token < 0 else None
+        )
         self.ftoken_layers = (
             FrameTokenLayer(d_model, d_ffn, dropout, activation, n_heads, n_levels, n_points)
             if f_token > 0 else None
@@ -244,6 +280,9 @@ class EncoderLayer(nn.Module):
 
     def forward(self, src, pos, reference_points, spatial_shapes, valid_ratios,
                 padding_mask, memory_bus, memory_pos, clip_frames: int):
+        if self.inter_frame_atten is not None:
+            last_start = sum(h * w for h, w in spatial_shapes[:-1])
+            src = self.inter_frame_atten(src, pos, last_start, clip_frames)
         if self.ftoken_layers is not None:
             src, memory_bus = self.ftoken_layers(
                 src, pos, memory_bus, memory_pos, spatial_shapes, padding_mask,
@@ -281,8 +320,14 @@ class DecoderLayer(nn.Module):
             t = clip_frames
             b = n // t
 
-            def to_iqt(x):  # [b*t, Q, C] -> [b*Q, t, C]
-                return x.reshape(b, t, q_len, c).transpose(1, 2).reshape(b * q_len, t, c)
+            def to_iqt(x):  # [b*t, Q, C] -> [b*Q, t, C], dense
+                # at b = 1 the reshape is a strided view (and the first
+                # layer's value a stride-0 broadcast), which sends the
+                # projections down other GEMM paths than at b > 1: in bf16
+                # an expression's output would depend on how many others
+                # share its batch. Dense, its rows come out bitwise equal
+                return (x.reshape(b, t, q_len, c).transpose(1, 2)
+                        .reshape(b * q_len, t, c).contiguous())
 
             tgt2 = self.self_attn(to_iqt(qk), to_iqt(qk), to_iqt(tgt))
             tgt2 = tgt2.reshape(b, q_len, t, c).transpose(1, 2).reshape(n, q_len, c)

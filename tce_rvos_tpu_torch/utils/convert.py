@@ -94,9 +94,9 @@ def _module_key(parts: List[str]) -> str:
     m = re.match(r"^input_proj_(\d+)$", top)
     if m:
         return f"input_proj.{m.group(1)}." + {"conv": "0", "norm": "1"}[rest[0]]
-    m = re.match(r"^class_embed(?:_(\d+))?$", top)
+    m = re.match(r"^(class_embed|visible_embed)(?:_(\d+))?$", top)
     if m:
-        return f"class_embed.{m.group(1) or 0}"
+        return f"{m.group(1)}.{m.group(2) or 0}"
     if top == "bbox_embed":
         return ".".join(["bbox_embed.0"] + _layers(rest))
     if top == "controller":

@@ -269,7 +269,7 @@ def test_main_eval_refuses(name, tiny_text):
 def test_main_trains_on_mevis(trees, tmp_path, tiny_text):
     state = train.main(["--dataset_file", "mevis", "--mevis_path", trees["mevis"],
                         "--output_dir", str(tmp_path), "--epochs", "1", "--batch_size", "4",
-                        "--max_size", "96", *TINY_FLAGS])
+                        "--max_size", "96", "--masks", *TINY_FLAGS])
     assert state.step == (2 * 3 * 2) // 4  # 2 videos x 3 expressions x 2 anchors
     with open(tmp_path / "log.txt") as fh:
         assert math.isfinite(json.loads(fh.readline())["train_loss"])
@@ -279,7 +279,7 @@ def test_train_joint_one_epoch(trees, tmp_path, tiny_text):
     state = train_joint.main(["--coco_path", trees["coco"], "--ytvos_path", trees["ytvos"],
                               "--dataset_file", "ytvos", "--output_dir", str(tmp_path),
                               "--epochs", "1", "--batch_size", "2", "--max_size", "96",
-                              *TINY_FLAGS])
+                              "--masks", *TINY_FLAGS])
     # 3 refexp sets x 3 images + 2 ytvos videos x 2 anchors (4 frames, windows of 3)
     assert state.step == (3 * 3 + 2 * 2) // 2
     with open(tmp_path / "log.txt") as fh:

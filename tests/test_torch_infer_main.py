@@ -286,9 +286,7 @@ def test_resume_refuses_a_shape_mismatched_checkpoint(trees, tmp_path, tokenizer
 UNSUPPORTED = {
     "--backbone": ["--backbone", "resnet18"],
     "--dilation": ["--dilation", "--backbone", "swin_t_p4w7"],
-    "--binary": [], "--vlblock": ["--vlblock"], "--no_rel_coord": ["--no_rel_coord"],
-    "--f_token": ["--f_token", "-1"], "--two_stage": ["--two_stage"],
-    "--vis_loss": ["--vis_loss"], "--contrastive": ["--contrastive"],
+    "--two_stage": ["--two_stage"],
     "--position_embedding": ["--position_embedding", "learned"],
     "--msda_impl": ["--msda_impl", "pallas"],
 }
@@ -302,9 +300,7 @@ UNSUPPORTED_MESSAGES = {
 
 @pytest.mark.parametrize("flag", sorted(UNSUPPORTED))
 def test_unsupported_flag_raises_naming_it(flag, tmp_path):
-    argv = [a for a in SMALL if a != "--binary"] + UNSUPPORTED[flag]
-    if flag != "--binary":
-        argv.append("--binary")
+    argv = SMALL + UNSUPPORTED[flag]
     message = UNSUPPORTED_MESSAGES.get(flag, "not supported")
     with pytest.raises(ValueError, match=f"^{flag}: {message}"):
         main(["--output_dir", str(tmp_path), *argv])

@@ -158,7 +158,7 @@ def test_criterion_from_configs_matches_jax():
     tcfg = TrainConfig(cls_loss_coef=3.0, set_cost_giou=1.5)
     jcfg = jax_criterion_from_configs(JaxModelConfig(binary=True),
                                       JaxTrainConfig(cls_loss_coef=3.0, set_cost_giou=1.5))
-    assert criterion_from_configs(ModelConfig(), tcfg) == CriterionConfig(
+    assert criterion_from_configs(ModelConfig(binary=True), tcfg) == CriterionConfig(
         **{f.name: getattr(jcfg, f.name) for f in jcfg.__dataclass_fields__.values()
            if f.name != "matcher"},
         matcher=MatcherConfig(**vars(jcfg.matcher)))

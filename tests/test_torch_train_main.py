@@ -41,7 +41,8 @@ def _argv(root, out):
     return ["--dataset_file", "ytvos", "--ytvos_path", str(root), "--output_dir", str(out),
             "--batch_size", "1", "--num_frames", "2", "--enc_layers", "1", "--dec_layers", "1",
             "--dim_feedforward", "32", "--hidden_dim", "64", "--nheads", "2", "--binary",
-            "--max_size", "96", "--num_workers", "0", "--lr_drop", "100", "--device", "cpu"]
+            "--masks", "--max_size", "96", "--num_workers", "0", "--lr_drop", "100",
+            "--device", "cpu"]
 
 
 def _logs(out):
