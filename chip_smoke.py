@@ -70,8 +70,8 @@ Phases (each one fails the run, nothing is caught and carried on from):
                windowed run; wall seconds, frames/s, expression-windows/s
                and peak memory per protocol;
   9. main    - ``train.main`` at full width and depth, bf16, on a
-               synthetic 720x1280 Ref-YouTube-VOS train tree (3 videos x 20
-               frames x 2 expressions = 24 samples an epoch; an object that
+               synthetic 720x1280 Ref-YouTube-VOS train tree (2 videos x 10
+               frames x 2 expressions = 8 samples an epoch; an object that
                leaves some frames): two epochs (12 + 12 MSDA launches per
                step); a resume from ``checkpoint/`` for a third (starts at
                epoch 2, parameters and AdamW state bitwise the saved ones,
@@ -115,7 +115,7 @@ Phases (each one fails the run, nothing is caught and carried on from):
                phase 4's f32 window GPU against CPU; a whole-video ytvos run
                through ``infer.main`` on one 34-frame 720x1280 video (one
                40-frame window: 8-frame windows, a temporal shift of 4),
-               its PNG tree and the backbone's peak memory; 10 bf16 train
+               its PNG tree and the backbone's peak memory; 6 bf16 train
                steps at b = 1, 5x384x640, without and with recomputation
                (12 + 12 and 24 + 12 launches a step), ms/step, peak memory,
                MFU over a useful-FLOP count derived from the code
@@ -130,7 +130,7 @@ Phases (each one fails the run, nothing is caught and carried on from):
                batched against serial within phase 3's limits) and f32 GPU
                against CPU; its whole-video windows at T = 40 and 160 (E =
                4, as many a dispatch as the memory envelope allows), each
-               trunk's peak under ``infer._ENVELOPE_GIB``'s line; 10 bf16
+               trunk's peak under ``infer._ENVELOPE_GIB``'s line; 6 bf16
                train steps (8 + 8 launches, every parameter learns);
                ``train.main`` on the 65-class ytvos objective (no
                ``--binary``; ``--masks --vis_loss --contrastive``) on phase
@@ -140,7 +140,20 @@ Phases (each one fails the run, nothing is caught and carried on from):
                loss logged); ``--vlblock --no_rel_coord`` against the
                flagship (trunk at E = 1 and 4, 3 train steps); the 2D kernels
                held against plain at the runs' largest padded shape;
- 13. numbers - card name and power limit, clips/s and ms per trunk
+ 13. dist    - the multi-process path and the host modules (run last):
+               the C RLE built and taken by phase 10's JHMDB evaluation
+               (``--batch_size 1``), bitwise equal to numpy on its masks,
+               samples/s with each; two processes sharing the card over
+               gloo, one f32 step (TF32 off, dropout off, ``--vis_loss
+               --masks``) of the full-width flagship at 2 + 2 layers on one
+               5x384x640 clip each, held against one process on both
+               clips at the JAX package's DP tolerances, then the JHMDB
+               evaluation merged from their shards equal to one process's
+               metrics exactly; ``utils/profiling.trace`` around the
+               one-process step; ``train.main`` at world 1 over NCCL
+               through the launcher's environment (4 bf16 steps), its
+               gradient all-reduce and loss sum bitwise, timed;
+ 14. numbers - card name and power limit, clips/s and ms per trunk
                forward, peak memory per E, and a JSON ``kernels`` line.
 
 The last line of standard output is the device JSON line. Without a CUDA
@@ -171,8 +184,12 @@ BF16_DENSE_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor-core dense peak
 TRAIN_USEFUL_FLOPS_PER_CLIP = 3.7012e12
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, after the seconds since the script started."""
+    print(f"{time.perf_counter() - T_START:7.1f} {msg}", flush=True)
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -524,7 +541,7 @@ def phase_kernels(e: int, is_3d: bool = False, shapes=FLAGSHIP_SHAPES, n: int = 
             plan = {} if is_3d else {"plan": hold_plan(False, label, value, shapes, loc)}
             got, max_err = hold_forward(op, plain, label, value, shapes, loc, attn)
             ms = graph_ms(lambda: op(value, shapes, loc, attn))
-            plain_ms = cuda_ms(lambda: plain(value, shapes, loc, attn), reps=5)
+            plain_ms = cuda_ms(lambda: plain(value, shapes, loc, attn), reps=3, warmup=1)
             bound = msda_bound(value, loc, attn, got, shapes)
             rtol, atol = FWD_TOL[dtype_name(dtype)]
             results[key] = dict(N=nn_, Q=q, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
@@ -574,7 +591,8 @@ def phase_backward_kernels(n: int = 5, is_3d: bool = False, shapes=FLAGSHIP_SHAP
             ms = graph_ms(lambda: backward(value, shapes, loc, attn, g))
             ins = [t.detach().clone().requires_grad_(True) for t in (value, loc, attn)]
             out = plain(ins[0], shapes, ins[1], ins[2])
-            plain_ms = cuda_ms(lambda: torch.autograd.grad(out, ins, g, retain_graph=True), reps=5)
+            plain_ms = cuda_ms(lambda: torch.autograd.grad(out, ins, g, retain_graph=True),
+                               reps=3, warmup=1)
             bound = msda_bwd_bound(value, loc, attn, g, shapes)
             results[key] = dict(N=n, Q=q, max_abs_err=max(errs.values()), errors=errs, ms=ms,
                                 plain_ms=plain_ms, library_ms=None, levels=shapes, **plan, **bound)
@@ -1538,6 +1556,8 @@ def phase_parity(sd, frames, msda_3d: bool = False, backbone: str = "resnet50",
 
 TRAIN_T, TRAIN_HW = 5, (384, 640)   # the flagship training clip, b = 1
 TRAIN_STEPS, TRAIN_STEPS_CKPT, TRAIN_WARMUP = 10, 6, 2
+# the train runs of phases 11 and 12 (the other backbones and options)
+OTHER_TRAIN_STEPS, OTHER_TRAIN_STEPS_CKPT = 6, 4
 PARITY_T, PARITY_HW = 2, (192, 320)  # small enough for the CPU's f32 step
 # Gradients, per parameter, are held two ways against the model's largest
 # |grad| g_max: every element within ELEM_TOL x g_max, and, for a tensor
@@ -2442,12 +2462,15 @@ def phase_protocols(sd, sd3, root: str) -> dict:
 # phase 9: training through train.main
 # ---------------------------------------------------------------------------
 
-# 3 videos x 20 frames x 2 expressions, anchors every 5 frames: 24 samples.
-# The dog leaves video t0 for frames 6-13 (frames with valid = 0) and is in
-# frame 0 only of t2, whose later clips mostly see no dog and resample.
-MAIN_VIDEOS = {f"t{v}": (20, (("a person walking on the left", "1"),
-                              ("the dog running to the right", "2"))) for v in range(3)}
-MAIN_ABSENT = {"t0": range(6, 14), "t2": range(1, 20)}
+# 2 videos x 10 frames x 2 expressions, anchors every 5 frames: 8 samples.
+# The dog leaves video t0 for frames 6-9 (frames with valid = 0) and is in
+# frame 0 only of t1, whose later clips mostly see no dog and resample.
+MAIN_FRAMES = 10
+MAIN_ANCHORS = -(-MAIN_FRAMES // 5)  # samples a (video, expression)
+MAIN_VIDEOS = {f"t{v}": (MAIN_FRAMES, (("a person walking on the left", "1"),
+                                       ("the dog running to the right", "2")))
+               for v in range(2)}
+MAIN_ABSENT = {"t0": range(6, MAIN_FRAMES), "t1": range(1, MAIN_FRAMES)}
 MAIN_FLAGS = ["--binary", "--with_box_refine", "--f_token", "8", "--qtrans", "--masks",
               "--compute_dtype", "bfloat16", "--lr_drop", "1", "--num_workers", "4",
               "--device", "cuda"]
@@ -3291,7 +3314,7 @@ def phase_eval(root: str, davis_results: str, ytvos_train: str) -> dict:
         for row in res[key]["data"]:
             log(f"{label} epoch {row['epoch']}: {row['time_s']:.4f} s a step by the logger, "
                 f"{row['data_s']:.4f} s of it waiting for data ({100 * row['share']:.1f}%)")
-    want_steps = (3 * REFEXP_TRAIN_IMAGES + len(MAIN_VIDEOS) * 2 * 4) // 2  # batch 2
+    want_steps = (3 * REFEXP_TRAIN_IMAGES + len(MAIN_VIDEOS) * 2 * MAIN_ANCHORS) // 2  # batch 2
     if res["train_joint"]["steps"] != want_steps:
         raise AssertionError(f"[train_joint] {res['train_joint']['steps']} steps, expected "
                              f"{want_steps}")
@@ -3417,8 +3440,8 @@ def whole_video_backbone(root: str) -> dict:
 
 
 def backbone_train(sd) -> dict:
-    """TRAIN_STEPS bf16 Video-Swin-B flagship steps (b = 1, 5x384x640,
-    dropout and DropPath on) without and TRAIN_STEPS_CKPT with
+    """OTHER_TRAIN_STEPS bf16 Video-Swin-B flagship steps (b = 1, 5x384x640,
+    dropout and DropPath on) without and OTHER_TRAIN_STEPS_CKPT with
     recomputation (the backbone's blocks and the transformer's layers):
     ms/step, peak memory, MFU over a
     useful-FLOP count, the device's busy share of one step; 12 + 12 MSDA
@@ -3462,13 +3485,13 @@ def backbone_train(sd) -> dict:
     crit = criterion_from_configs(cfg, tcfg)
     step = make_train_step(crit, cfg.compute_dtype)
     batches = [batch_to_device(train_batch(TRAIN_T, TRAIN_HW, seed=10 + i), dev)
-               for i in range(TRAIN_STEPS)]
+               for i in range(OTHER_TRAIN_STEPS)]
     res = {"useful_flops": useful, "backbone_forward_flops": vsb,
            "backbone_forward_flops_counted": vsb_counted, "resnet50_forward_flops": r50}
     res["plain"] = train_run(state, step, batches, label, "bf16 train_one_epoch, no "
                              "recomputation", useful_flops=useful, flops_source=source)
     if (res["plain"]["launches"], res["plain"]["backward_launches"]) != (
-            12 * TRAIN_STEPS, 12 * TRAIN_STEPS):
+            12 * OTHER_TRAIN_STEPS, 12 * OTHER_TRAIN_STEPS):
         raise AssertionError(f"{label} MSDA launches {res['plain']['launches']} / "
                              f"{res['plain']['backward_launches']}, expected 12 + 12 a step")
     # one more bf16 step's gradients with DropPath and dropout off: at b = 1
@@ -3486,11 +3509,11 @@ def backbone_train(sd) -> dict:
     res["profile"] = profile_device(lambda: step(state, batches[0]),
                                     f"{label} profiled bf16 train step (no recomputation)")
     model.transformer.use_checkpoint = body.use_checkpoint = True
-    res["ckpt"] = train_run(state, step, batches[:TRAIN_STEPS_CKPT], label, "bf16 "
+    res["ckpt"] = train_run(state, step, batches[:OTHER_TRAIN_STEPS_CKPT], label, "bf16 "
                             "train_one_epoch, with recomputation", useful_flops=useful,
                             flops_source=source)
     if (res["ckpt"]["launches"], res["ckpt"]["backward_launches"]) != (
-            24 * TRAIN_STEPS_CKPT, 12 * TRAIN_STEPS_CKPT):
+            24 * OTHER_TRAIN_STEPS_CKPT, 12 * OTHER_TRAIN_STEPS_CKPT):
         raise AssertionError(f"{label} with recomputation: MSDA launches "
                              f"{res['ckpt']['launches']} / {res['ckpt']['backward_launches']}")
     del state, model, batches
@@ -3545,7 +3568,7 @@ def phase_backbones(videos, root: str) -> dict:
     serving and training shapes; the Video-Swin-B flagship served in bf16
     and f32 (phase 3's gates: 24 launches per run_video_batch of two
     windows, exact expression isolation, batched against serial), its f32
-    window GPU against CPU, the whole-video ytvos run, 10 bf16 train steps
+    window GPU against CPU, the whole-video ytvos run, 6 bf16 train steps
     without and with recomputation; one forward on each other family."""
     import torch
 
@@ -3556,7 +3579,7 @@ def phase_backbones(videos, root: str) -> dict:
                        "video_swin_b_e4": phase_kernels(e=4)},
            "backward": {"video_swin_b_train": phase_backward_kernels()}}
     sd = random_state_dict(flagship_config(backbone=VSWIN_B), seed=0)
-    res["path"] = {dtype: phase_path(dtype, sd, videos, backbone=VSWIN_B,
+    res["path"] = {dtype: phase_path(dtype, sd, videos[:2], backbone=VSWIN_B,
                                      tag="backbones video_swin_b", limits=VSWIN_B_BF16_LIMITS)[0]
                    for dtype in ("bfloat16", "float32")}
     phase_parity(sd, videos[0], backbone=VSWIN_B)
@@ -3686,7 +3709,7 @@ def tokens_whole_video(sd, frames) -> dict:
 
 
 def tokens_train(sd) -> dict:
-    """TRAIN_STEPS bf16 steps of the LastLayerAsToken flagship (b = 1,
+    """OTHER_TRAIN_STEPS bf16 steps of the LastLayerAsToken flagship (b = 1,
     5x384x640, dropout on): 8 + 8 MSDA launches a step, every parameter
     (``inter_frame_atten.*`` included) gets a gradient and moves; ms/step,
     peak memory, MFU over the 2D flagship's useful-FLOP count."""
@@ -3712,16 +3735,17 @@ def tokens_train(sd) -> dict:
     state = create_train_state(model, tcfg, steps_per_epoch=1000)
     step = make_train_step(criterion_from_configs(cfg, tcfg), cfg.compute_dtype)
     batches = [batch_to_device(train_batch(TRAIN_T, TRAIN_HW, seed=10 + i), dev)
-               for i in range(TRAIN_STEPS)]
+               for i in range(OTHER_TRAIN_STEPS)]
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
     res = train_run(state, step, batches, label, "bf16 train_one_epoch",
                     flops_source="from the JAX package's count of the 2D flagship (FTF's "
                     "instead of the token attention's)")
     per = msda_per_forward(cfg)
-    if (res["launches"], res["backward_launches"]) != (per * TRAIN_STEPS, per * TRAIN_STEPS):
+    if (res["launches"], res["backward_launches"]) != (per * OTHER_TRAIN_STEPS,
+                                                       per * OTHER_TRAIN_STEPS):
         raise AssertionError(f"{label} MSDA launches {res['launches']} forward / "
                              f"{res['backward_launches']} backward, expected {per} + {per} a "
-                             f"step x {TRAIN_STEPS}")
+                             f"step x {OTHER_TRAIN_STEPS}")
     tokens = sorted(n for n, _ in model.named_parameters() if ".inter_frame_atten." in n)
     if len(tokens) != 10 * cfg.enc_layers:
         raise AssertionError(f"{label} {len(tokens)} inter_frame_atten parameters")
@@ -3933,7 +3957,7 @@ def phase_options(videos, tree: str, small_tree: str, root: str) -> dict:
 
     t0 = time.perf_counter()
     sd = random_state_dict(flagship_config(**TOKENS), seed=0)
-    res = {"tokens_path": phase_path("bfloat16", sd, videos, tag="options f_token -1",
+    res = {"tokens_path": phase_path("bfloat16", sd, videos[:2], tag="options f_token -1",
                                      overrides=TOKENS)[0]}
     phase_parity(sd, videos[0], overrides=TOKENS, tag="options f_token -1")
     res["tokens_whole_video"] = tokens_whole_video(sd, videos[0])
@@ -3952,6 +3976,315 @@ def phase_options(videos, tree: str, small_tree: str, root: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: distributed training and evaluation, and the host modules
+# ---------------------------------------------------------------------------
+
+DIST_VIDEOS = {"d0": (10, MAIN_VIDEOS["t0"][1])}  # 4 samples: 4 steps an epoch
+DIST_MODEL = dict(enc_layers=2, dec_layers=2, vis_loss=True, masks=True)  # full width
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def nccl_world_one():
+    """A launcher's environment for one process (RANK 0 of WORLD_SIZE 1 on
+    localhost), the process group torn down and the environment restored
+    after."""
+    from tce_rvos_tpu_torch.parallel.mesh import shutdown_distributed
+
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        shutdown_distributed()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def reduction_probe():
+    """Wraps the train step's gradient all-reduce and its sum of the logged
+    losses: every gradient and every loss bitwise the same after them as
+    before (one rank reduces to itself), the backend and world held, and
+    the all-reduce timed to its end on the device (ms per call)."""
+    import torch
+    import torch.distributed as dist
+
+    from tce_rvos_tpu_torch.parallel import train_step
+
+    rec = {"allreduce_ms": [], "checked_grads": 0, "checked_losses": 0}
+    reduce_grads, sum_losses = train_step.all_reduce_gradients, train_step.sum_over_ranks
+
+    def grads_checked(model):
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"[dist] the process group is {dist.get_backend()} of "
+                                 f"{dist.get_world_size()}, expected NCCL of 1")
+        before = [None if p.grad is None else p.grad.clone() for p in model.parameters()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce_grads(model)
+        torch.cuda.synchronize()
+        rec["allreduce_ms"].append((time.perf_counter() - t0) * 1e3)
+        for (name, p), b in zip(model.named_parameters(), before):
+            if (b is None) != (p.grad is None) or (b is not None and not torch.equal(b, p.grad)):
+                raise AssertionError(f"[dist] the all-reduce changed the gradient of {name}")
+            rec["checked_grads"] += b is not None
+
+    def losses_checked(values):
+        out = sum_losses(values)
+        for k, v in values.items():
+            if not torch.equal(out[k], v.detach().float()):
+                raise AssertionError(f"[dist] the sum over one rank changed {k}")
+            rec["checked_losses"] += 1
+        return out
+
+    train_step.all_reduce_gradients, train_step.sum_over_ranks = grads_checked, losses_checked
+    try:
+        yield rec
+    finally:
+        train_step.all_reduce_gradients, train_step.sum_over_ranks = reduce_grads, sum_losses
+
+
+def dist_rank(rank: int, spec: dict) -> dict:
+    """What each of the two processes sharing the card runs (gloo): one f32
+    train step (TF32 off, dropout off) on its clip of ``spec``'s batch
+    (``parallel/dryrun.py::train_step_on_shard``), then ``train.main
+    --eval`` on ``spec["eval_argv"]``; each with its launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    from tce_rvos_tpu_torch import train
+    from tce_rvos_tpu_torch.parallel import dryrun
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if dist.get_backend() != "gloo" or dist.get_world_size() != 2:
+        raise AssertionError(f"rank {rank}: {dist.get_backend()} of {dist.get_world_size()}")
+    reset_launch_counts()
+    step = dryrun.train_step_on_shard(rank, spec)
+    step["launches"] = launch_counts()
+    step.pop("grads", None)
+    reset_launch_counts()
+    stats = train.main(spec["eval_argv"])
+    return {"step": step, "eval": stats, "eval_launches": launch_counts()}
+
+
+def rle_native_against_numpy(masks: list, label: str) -> dict:
+    """Each mask through the C library and through numpy: RLE strings,
+    decoded masks and boundary maps bitwise equal."""
+    import numpy as np
+
+    from tce_rvos_tpu_torch.eval import davis_eval
+    from tce_rvos_tpu_torch.utils import rle
+
+    pixels = 0
+    for i, m in enumerate(masks):
+        rle.USE_NATIVE = True
+        enc, dec, bmap = rle.encode(m), None, davis_eval.seg2bmap(m)
+        dec = rle.decode(enc)
+        rle.USE_NATIVE = False
+        try:
+            if (rle.encode(m) != enc or not np.array_equal(rle.decode(enc), dec)
+                    or not np.array_equal(davis_eval.seg2bmap(m), bmap)
+                    or not np.array_equal(dec, m.astype(np.uint8))):
+                raise AssertionError(f"{label} mask {i}: the C path differs from numpy")
+        finally:
+            rle.USE_NATIVE = True
+        pixels += m.size
+    return {"masks": len(masks), "pixels": pixels}
+
+
+def phase_dist(jhmdb_tree: str, root: str) -> dict:
+    """Phase 13, the port's multi-process path and its host modules:
+    (a) ``train.main`` at world 1 over NCCL through the launcher's
+        environment, one epoch on a 720x1280 train tree (4 steps, bf16):
+        the gradient all-reduce and the sum of the logged losses leave
+        every gradient and loss bitwise as they were, 12 + 12 launches a
+        step, finite losses; the all-reduce's ms a step;
+    (b) two processes sharing the card over gloo: one f32 step (TF32 off,
+        dropout off, ``--vis_loss --masks``) of the flagship at full width
+        and 2 + 2 layers on one 5x384x640 clip each, held against the
+        one-process step on both clips at the JAX package's DP tolerances
+        (loss rtol 1e-5, grad norm rtol 1e-4, parameters atol 1e-4 / rtol
+        1e-3), the ranks' parameters bitwise equal; then ``train.main
+        --eval`` on phase 10's JHMDB tree (``--batch_size 1``, bf16): each
+        rank's merged metrics exactly those of one process;
+    (c) that one process's JHMDB evaluation with the C RLE and with numpy:
+        the library built and taken, the metrics equal, every predicted
+        mask's RLE, decoding and boundary map bitwise equal; samples/s of
+        each;
+    (d) ``utils/profiling.trace`` around the one-process step writes a
+        Chrome trace holding its annotation and device kernels;
+        ``device_memory_stats`` reads the card."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from tce_rvos_tpu_torch import flagship_config, native
+    from tce_rvos_tpu_torch.models import postprocessors
+    from tce_rvos_tpu_torch.parallel import dryrun
+    from tce_rvos_tpu_torch.utils import profiling, rle
+
+    label = "[dist]"
+    t_phase = time.perf_counter()
+    res = {}
+
+    # (c) one process: JHMDB with the C RLE, then with numpy
+    argv = ["--eval", "--dataset_file", "jhmdb", "--jhmdb_path", jhmdb_tree,
+            "--batch_size", "1", "--output_dir", os.path.join(root, "out_dist_jhmdb"),
+            *EVAL_FLAGS]
+    per_forward = msda_per_forward(flagship_config())
+    masks, host_post = [], postprocessors.a2d_host_postprocess
+
+    def recording(*args, **kw):
+        preds = host_post(*args, **kw)
+        masks.extend(m for p in preds for m in p["masks"])
+        return preds
+
+    if native.lib() is None:
+        raise AssertionError(f"{label} the C RLE library did not build (no C compiler?)")
+    rle.USE_NATIVE = False  # numpy first: the C path's run must not gain from warming up
+    try:
+        stats_numpy, run_numpy, _ = eval_run(argv, f"{label} jhmdb, numpy RLE", per_forward)
+    finally:
+        rle.USE_NATIVE = True
+    calls = native.CALLS["native"]
+    postprocessors.a2d_host_postprocess = recording
+    try:
+        stats_native, run_native, _ = eval_run(argv, f"{label} jhmdb, C RLE", per_forward)
+    finally:
+        postprocessors.a2d_host_postprocess = host_post
+    native_calls = native.CALLS["native"] - calls
+    if not native_calls:
+        raise AssertionError(f"{label} the evaluation took no native RLE call")
+    if stats_numpy != stats_native:
+        raise AssertionError(f"{label} JHMDB metrics with numpy {stats_numpy} against the C "
+                             f"RLE's {stats_native}")
+    res["rle"] = dict(rle_native_against_numpy(masks, label), native_calls=native_calls,
+                      samples_per_s_native=run_native["samples_per_s"],
+                      samples_per_s_numpy=run_numpy["samples_per_s"],
+                      metric_s_native=run_native["split_s"]["metric"],
+                      metric_s_numpy=run_numpy["split_s"]["metric"],
+                      host_post_s_native=run_native["split_s"]["host postprocess"],
+                      host_post_s_numpy=run_numpy["split_s"]["host postprocess"],
+                      library=str(native.library_path()))
+    log(f"{label} JHMDB --batch_size 1: {run_native['samples_per_s']:.3f} samples/s with the C "
+        f"RLE ({native_calls} library calls), {run_numpy['samples_per_s']:.3f} with numpy; "
+        f"metric {run_native['split_s']['metric']:.3f} s against "
+        f"{run_numpy['split_s']['metric']:.3f}, host postprocess "
+        f"{run_native['split_s']['host postprocess']:.3f} s against "
+        f"{run_numpy['split_s']['host postprocess']:.3f}; {len(masks)} predicted masks: RLE, "
+        "decoding and boundary maps bitwise equal; metrics equal")
+
+    # (b) two processes on the card over gloo, against one process
+    cfg = flagship_config(**DIST_MODEL)
+    spec = {"model": dataclasses.asdict(cfg), "device": "cuda",
+            "weights": os.path.join(root, "dist_weights.pt"),
+            "batch": os.path.join(root, "dist_batch.pt"),
+            "eval_argv": [os.path.join(root, "out_dist_jhmdb_2") if a.endswith("out_dist_jhmdb")
+                          else a for a in argv]}
+    torch.save(random_state_dict(cfg, seed=5), spec["weights"])
+    clips = [train_batch(5, (384, 640), seed=s) for s in (50, 51)]
+    batch = {k: np.concatenate([c[k] for c in clips]) for k in clips[0] if k != "targets"}
+    batch["targets"] = {k: np.concatenate([c["targets"][k] for c in clips])
+                        for k in clips[0]["targets"]}
+    batch["targets"]["valid"][1, 2] = 0
+    torch.save(batch, spec["batch"])
+    # (d) the one-process step under the profiler
+    trace_dir = os.path.join(root, "trace")
+    reset_launch_counts()
+    with profiling.trace(trace_dir):
+        with profiling.annotate("tce_dist_reference_step"):
+            want = dryrun.train_step_on_shard(0, spec)
+    want["launches"] = launch_counts()
+    mem = profiling.device_memory_stats()
+    with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    if not any(e.get("name") == "tce_dist_reference_step" for e in events) or not kernels:
+        raise AssertionError(f"{label} the trace holds no annotated span or no kernel")
+    if not mem.get("cuda:0"):
+        raise AssertionError(f"{label} device_memory_stats {mem}")
+    res["profiling"] = dict(trace_bytes=os.path.getsize(os.path.join(trace_dir,
+                                                                     profiling.TRACE_FILE)),
+                            events=len(events), kernels=kernels, memory=mem)
+    shutil.rmtree(trace_dir)
+    t0 = time.perf_counter()
+    ranks = dryrun.run_processes(2, dist_rank, (spec,), device="cuda", backend="gloo",
+                                 timeout=600)
+    res["gloo_wall_s"] = time.perf_counter() - t0
+    gaps = [dryrun.check_dp_step(r["step"], want, f"{label} gloo rank {i}")
+            for i, r in enumerate(ranks)]
+    for name, p in ranks[0]["step"]["params"].items():
+        if not torch.equal(ranks[1]["step"]["params"][name], p):
+            raise AssertionError(f"{label} the ranks hold other {name} after the step")
+    per_step = {"msda_fwd": msda_per_forward(cfg), "msda_bwd": msda_per_forward(cfg),
+                "msda3d_fwd": 0, "msda3d_bwd": 0}
+    for i, r in enumerate(ranks):
+        if r["step"]["launches"] != per_step:
+            raise AssertionError(f"{label} rank {i} step launches {r['step']['launches']}, "
+                                 f"expected {per_step}")
+        if r["eval"] != stats_native:
+            raise AssertionError(f"{label} rank {i}'s merged JHMDB metrics {r['eval']} against "
+                                 f"one process's {stats_native}")
+        if r["eval_launches"]["msda_fwd"] != per_forward * run_native["samples"] // 2:
+            raise AssertionError(f"{label} rank {i}'s evaluation launches {r['eval_launches']}")
+    if want["launches"] != per_step:
+        raise AssertionError(f"{label} one-process step launches {want['launches']}")
+    res["gloo"] = dict(gaps=gaps, loss=want["metrics"]["loss"],
+                       step_launches=[r["step"]["launches"] for r in ranks],
+                       eval_launches=[r["eval_launches"] for r in ranks],
+                       eval_samples=run_native["samples"])
+    log(f"{label} two processes on the card over gloo: the f32 step on one clip each against "
+        f"one process on both: " + "; ".join(
+            f"rank {i} loss {g['loss_rel']:.3e} rel, grad norm {g['grad_norm_rel']:.3e} rel, "
+            f"parameters {g['param_max_abs']:.3e} abs" for i, g in enumerate(gaps))
+        + f"; the ranks' parameters bitwise equal; launches {per_step} a rank; JHMDB metrics "
+        f"merged from two shards equal one process's exactly; {res['gloo_wall_s']:.1f} s")
+    del want, ranks
+
+    # (a) train.main at world 1 over NCCL
+    tree = write_tree(os.path.join(root, "dist_tree"), "train", DIST_VIDEOS, seed=21,
+                      absent={"d0": range(6, 10)})
+    out = os.path.join(root, "out_dist")
+    per_step_2d = {"msda_fwd": 12, "msda_bwd": 12, "msda3d_fwd": 0, "msda3d_bwd": 0}
+    with nccl_world_one(), main_probe() as rec, reduction_probe() as red:
+        _, run = main_run(rec, ["--dataset_file", "ytvos", "--ytvos_path", tree, *MAIN_FLAGS,
+                                "--output_dir", out, "--epochs", "1"],
+                          f"{label} train.main, NCCL world 1", per_step_2d)
+    if red["checked_grads"] < 600 or red["checked_losses"] < run["steps"]:
+        raise AssertionError(f"{label} the probe checked {red['checked_grads']} gradients and "
+                             f"{red['checked_losses']} losses")
+    if read_log(out)[0]["epoch"] != 0 or not os.path.exists(os.path.join(out, "checkpoint")):
+        raise AssertionError(f"{label} no log line or checkpoint")
+    shutil.rmtree(out)
+    res["nccl"] = dict(run, allreduce_ms=red["allreduce_ms"],
+                       allreduce_ms_median=statistics.median(red["allreduce_ms"]),
+                       grads_checked=red["checked_grads"])
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"{label} train.main over NCCL at world 1: {run['steps']} steps, every gradient and "
+        f"loss bitwise through the reductions ({red['checked_grads']} gradients checked); the "
+        f"gradient all-reduce {res['nccl']['allreduce_ms_median']:.3f} ms a step (median of "
+        f"{len(red['allreduce_ms'])}); phase 13 wall {res['seconds']:.1f} s")
+    return res
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3962,7 +4295,7 @@ def nvidia_smi_line() -> str:
 
 def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, train: dict,
                  serve3: dict, train3: dict, main_runs: dict, evals: dict,
-                 backbones: dict, options: dict) -> dict:
+                 backbones: dict, options: dict, dist: dict) -> dict:
     """The JSON ``kernels`` record: each kernel's main shape in its
     deployment dtype (the encoder call in bf16: E = 4 for the forwards'
     serving paths, N = 5 for the training steps' backwards) in the top-level
@@ -3983,7 +4316,9 @@ def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, tr
     phase 12's paths (the LastLayerAsToken flagship's serving, whole-video
     and training runs, the option runs of ``train.main`` and the
     ``--vlblock --no_rel_coord`` steps) likewise, with the 2D calls held at
-    the ``train.main`` runs' largest padded shape (``options_HxW``)."""
+    the ``train.main`` runs' largest padded shape (``options_HxW``);
+    phase 13's paths (``train.main`` over NCCL at world 1, each gloo rank's
+    step and evaluation) likewise."""
     def entry(name, source, replaces, also, main, launches, by_path, shapes):
         return {"name": name, "route": "cuda", "source": f"tce_rvos_tpu_torch/csrc/{source}",
                 "replaces": f"tce_rvos_tpu/ops/{replaces}",
@@ -4047,11 +4382,17 @@ def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, tr
     at_main["fwd"].update({f"{tag}/{k}": v for k, v in om["hold"]["fwd"].items()})
     at_main["bwd"].update({f"{tag}/{k}": v for k, v in om["hold"]["bwd"].items()})
 
+    p13 = {"train_main_nccl_world1": dist["nccl"]["launches"],
+           **{f"gloo_rank{i}_step": c for i, c in enumerate(dist["gloo"]["step_launches"])},
+           **{f"gloo_rank{i}_eval_jhmdb": c
+              for i, c in enumerate(dist["gloo"]["eval_launches"])}}
+
     def by_path(d, kname):
         return {**d, "train_main": m2[kname], "train_main_3d": m3[kname],
                 **{path: counts[kname] for path, counts in p10.items()},
                 **({path: counts[kname] for p in (p11, p12) for path, counts in p.items()}
-                   if kname in ("msda_fwd", "msda_bwd") else {})}
+                   if kname in ("msda_fwd", "msda_bwd") else {}),
+                **{path: counts[kname] for path, counts in p13.items()}}
 
     return {"kernels": [
         entry("msda_fwd", "msda_fwd.cu", "pallas_msda.py:166", ["pallas_msda.py:265"],
@@ -4165,13 +4506,16 @@ def main() -> int:
             done("12 options")
         backbones = phase_backbones(videos, root)
         done("11 backbones")
+        # phase 13 evaluates phase 10's JHMDB tree
+        dist = phase_dist(os.path.join(root, "eval", "jhmdb"), root)
+        done("13 dist")
     log("[numbers] " + json.dumps({"envelope": envelope, "protocols": protocols,
                                    "main": main_runs, "eval": evals, "backbones": backbones,
-                                   "options": options, "times_s": times}))
+                                   "options": options, "dist": dist, "times_s": times}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels_line(kern, bwd, kern3, bwd3, paths["bfloat16"]["launches"], train,
-                                  serve3, train3, main_runs, evals, backbones, options)))
+                                  serve3, train3, main_runs, evals, backbones, options, dist)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

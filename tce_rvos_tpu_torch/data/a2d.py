@@ -1,28 +1,57 @@
-"""JHMDB-Sentences dataset and the A2D-Sentences clip windows (the port's
-copy of the JHMDB part of ``tce_rvos_tpu/data/a2d.py``).
+"""A2D-Sentences and JHMDB-Sentences datasets (the port's copy of
+``tce_rvos_tpu/data/a2d.py``).
 
-Parity with reference datasets/jhmdb.py: evaluation only; frames from
-Rename_Images (PNG), masks from puppet_mask.mat (scipy.io); a window of
-``num_frames`` centred on the annotated frame, edge-padded, whose index in
-the window is the target's ``valid_indices`` (the model keeps only that
-frame). Numpy, PIL and scipy only.
-
-A2D-Sentences itself (``A2DSentencesDataset``, ``build_a2d``) is not
-ported: it decodes Release/clips320H/*.mp4 with cv2 and reads its masks
-from .h5 files with h5py, and the card's machine has neither a video
-decoder nor h5py. Its window functions are here, with the JAX package's
-draws.
+Parity with reference datasets/a2d.py / datasets/jhmdb.py:
+  * A2D: frames decoded from Release/clips320H/<video>.mp4 with cv2,
+    instance masks from per-frame .h5 files ('reMask' transposed,
+    'instance' ids) with h5py; ONE annotated frame per clip ->
+    ``valid_indices`` in the target; train window = the annotated frame +
+    local + global sampling, val window centred on the annotated frame
+    with edge padding (a2d.py:113-121). cv2 and h5py are imported when a
+    sample is read, and a missing one raises naming the package: the
+    port's other datasets need neither (the GPU machine of the port's
+    smoke run has neither, so A2D runs on machines that have them).
+  * JHMDB (evaluation only): frames from Rename_Images (PNG), masks from
+    puppet_mask.mat (scipy.io); a window of ``num_frames`` centred on the
+    annotated frame, whose index in the window is ``valid_indices``.
+    Numpy, PIL and scipy only.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
-from typing import List
+import random
+from typing import List, Optional
 
 import numpy as np
 
 from tce_rvos_tpu_torch.data.ytvos import mask_to_box
+
+
+def _require(module: str, package: str):
+    """Import ``module``, or raise naming the package that provides it."""
+    try:
+        return importlib.import_module(module)
+    except ImportError as exc:
+        raise ImportError(
+            f"--dataset_file a2d reads its .mp4 clips with cv2 and its .h5 masks with h5py: "
+            f"install {package} ({exc})") from exc
+
+
+def read_video_cv2(path: str) -> np.ndarray:
+    """Every frame of a video file, RGB uint8 [T, H, W, 3]."""
+    cv2 = _require("cv2", "opencv-python")
+    cap = cv2.VideoCapture(path)
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+    cap.release()
+    return np.stack(frames) if frames else np.zeros((0, 0, 0, 3), np.uint8)
 
 
 def _train_window(frame_id: int, vid_len: int, num_frames: int, rng) -> List[int]:
@@ -49,6 +78,87 @@ def _val_window(frame_id: int, vid_len: int, num_frames: int) -> List[int]:
     """``num_frames`` indices centred on ``frame_id``, clamped to the video."""
     start, end = frame_id - num_frames // 2, frame_id + (num_frames + 1) // 2
     return sorted(min(max(i, 0), vid_len - 1) for i in range(start, end))
+
+
+class A2DSentencesDataset:
+    """Samples are (text, video_id, frame_idx, instance_id), one annotated
+    frame each; the train split resamples (another index, the dataset's
+    ``rng``) a clip whose object is not in the annotated frame after the
+    transforms, at most 64 times."""
+
+    def __init__(self, dataset_path: str, ann_file: str, transforms=None,
+                 num_frames: int = 5, subset: str = "train",
+                 rng: Optional[random.Random] = None):
+        self.mask_annotations_dir = os.path.join(
+            dataset_path, "text_annotations/a2d_annotation_with_instances")
+        self.videos_dir = os.path.join(dataset_path, "Release/clips320H")
+        with open(ann_file) as fh:
+            self.text_annotations = [tuple(a) for a in json.load(fh)]
+        self._transforms = transforms
+        self.num_frames = num_frames
+        self.subset = subset
+        self.rng = rng or random.Random()
+
+    def __len__(self):
+        return len(self.text_annotations)
+
+    def __getitem__(self, idx: int):
+        h5py = _require("h5py", "h5py")
+        for _ in range(64):
+            text_query, video_id, frame_idx, instance_id = self.text_annotations[idx]
+            text_query = " ".join(text_query.lower().split())
+            video = read_video_cv2(os.path.join(self.videos_dir, f"{video_id}.mp4"))
+            vid_len = len(video)
+            frame_id = frame_idx - 1  # a2d is 1-indexed
+
+            if self.subset == "train":
+                sample_indx = _train_window(frame_id, vid_len, self.num_frames, self.rng)
+            else:
+                sample_indx = _val_window(frame_id, vid_len, self.num_frames)
+            valid_indices = sample_indx.index(frame_id)
+
+            imgs = [video[i].astype(np.float32) / 255.0 for i in sample_indx]
+
+            with h5py.File(os.path.join(self.mask_annotations_dir, video_id,
+                                        f"{frame_idx:05d}.h5"), "r") as f:
+                instances = list(f["instance"])
+                instance_idx = instances.index(instance_id)
+                instance_masks = np.array(f["reMask"])
+                if len(instances) == 1:
+                    instance_masks = instance_masks[np.newaxis]
+                instance_masks = instance_masks.transpose(0, 2, 1)
+
+            mask = instance_masks[instance_idx].astype(np.float32)
+            if (mask > 0).any():
+                y1, y2, x1, x2 = mask_to_box(mask)
+                box, valid = [x1, y1, x2, y2], [1]
+            else:
+                box, valid = [0, 0, 0, 0], [0]
+
+            h, w = mask.shape
+            target = {
+                "frames_idx": np.asarray(sample_indx, np.int64),
+                "valid_indices": np.asarray([valid_indices], np.int64),
+                "labels": np.zeros((1,), np.int64),
+                "boxes": np.asarray([box], np.float32),
+                "masks": mask[None],
+                "valid": np.asarray(valid, np.int64),
+                "caption": text_query,
+                "orig_size": np.asarray([h, w], np.int64),
+                "size": np.asarray([h, w], np.int64),
+                "image_id": f"v_{video_id}_f_{frame_idx}_i_{instance_id}",
+            }
+            if self.subset != "train":
+                # untransformed GT for eval: scored at the ORIGINAL resolution
+                # (reference engine.py:332-345), while target['masks'] goes
+                # through the val resize
+                target["orig_masks"] = mask[None].copy()
+            if self._transforms is not None:
+                imgs, target = self._transforms(imgs, target)
+            if np.any(target["valid"] == 1) or self.subset == "val":
+                return np.stack(imgs), target
+            idx = self.rng.randint(0, len(self) - 1)
+        raise RuntimeError("could not sample a valid A2D clip")
 
 
 class JHMDBSentencesDataset:
@@ -109,6 +219,21 @@ class JHMDBSentencesDataset:
         if self._transforms is not None:
             imgs, target = self._transforms(imgs, target)
         return np.stack(imgs), target
+
+
+def build_a2d(image_set: str, data_cfg, model_cfg, transforms=None):
+    """``<a2d_path>``'s single-frame train or test annotations with the
+    train or val transform."""
+    from tce_rvos_tpu_torch.data.transforms import make_train_transform, make_val_transform
+
+    root = data_cfg.a2d_path
+    ann = {
+        "train": os.path.join(root, "a2d_sentences_single_frame_train_annotations.json"),
+        "val": os.path.join(root, "a2d_sentences_single_frame_test_annotations.json"),
+    }[image_set]
+    tf = transforms or (make_train_transform(data_cfg.max_size) if image_set == "train"
+                        else make_val_transform())
+    return A2DSentencesDataset(root, ann, tf, num_frames=model_cfg.num_frames, subset=image_set)
 
 
 def build_jhmdb(image_set: str, data_cfg, model_cfg, transforms=None):

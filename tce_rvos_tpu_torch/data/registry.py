@@ -4,9 +4,8 @@
 ``build_dataset`` dispatches over the dataset names of the reference's
 datasets/__init__.py:24-43: ytvos, davis, jhmdb, mevis, refcoco(+/g) and
 ``joint`` (the three refexp sets plus ytvos unless ``pretrain_coco``, one
-``ConcatDataset``). ``a2d`` raises ``ValueError``: its clips are .mp4
-files and its masks .h5 files, and the port has no reader for either (no
-video decoder and no h5py on the card's machine). VidSTG: the reference
+``ConcatDataset``) and a2d (which reads its clips with cv2 and its
+masks with h5py, imported at the first sample). VidSTG: the reference
 ships only an unfinished stub (datasets/vidstg.py:108-126), so the name
 raises ``NotImplementedError``, as in the JAX package.
 
@@ -28,14 +27,6 @@ import numpy as np
 
 from tce_rvos_tpu_torch.utils.nested import batch_videos
 
-NOT_PORTED = {
-    "a2d": "A2D-Sentences decodes Release/clips320H/*.mp4 and reads its masks from .h5 "
-           "files; the port has no video decoder and no h5py reader (the card's machine has "
-           "neither cv2 nor h5py). JHMDB-Sentences (--dataset_file jhmdb) runs the same "
-           "evaluation",
-}
-
-
 class ConcatDataset:
     """reference datasets/concat_dataset.py semantics."""
 
@@ -53,7 +44,7 @@ class ConcatDataset:
 
 
 def build_dataset(name: str, image_set: str, data_cfg, model_cfg):
-    from tce_rvos_tpu_torch.data.a2d import build_jhmdb
+    from tce_rvos_tpu_torch.data.a2d import build_a2d, build_jhmdb
     from tce_rvos_tpu_torch.data.mevis import build_mevis
     from tce_rvos_tpu_torch.data.refexp import REFEXP_NAMES, build_refexp
     from tce_rvos_tpu_torch.data.ytvos import build_davis, build_ytvos
@@ -62,6 +53,8 @@ def build_dataset(name: str, image_set: str, data_cfg, model_cfg):
         return build_ytvos(image_set, data_cfg, model_cfg)
     if name == "davis":
         return build_davis(image_set, data_cfg, model_cfg)
+    if name == "a2d":
+        return build_a2d(image_set, data_cfg, model_cfg)
     if name == "jhmdb":
         return build_jhmdb(image_set, data_cfg, model_cfg)
     if name == "mevis":
@@ -73,9 +66,6 @@ def build_dataset(name: str, image_set: str, data_cfg, model_cfg):
         if not data_cfg.pretrain_coco:
             parts.append(build_ytvos(image_set, data_cfg, model_cfg))
         return ConcatDataset(parts)
-    if name in NOT_PORTED:
-        raise ValueError(f"dataset {name!r} is not ported to the PyTorch port: "
-                         f"{NOT_PORTED[name]}")
     if name == "vidstg":
         raise NotImplementedError(
             "VidSTG: the reference ships an unfinished stub "

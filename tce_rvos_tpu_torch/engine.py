@@ -13,9 +13,15 @@ parity with reference engine.py).
     and the class-agnostic COCO box (and, with ``masks``, mask) mAP.
   * ``evaluate_yvos`` (engine.py:164-286): the train-set mask-quality probe.
 
-The evaluators score one process's predictions. The JAX package's merge of
-several processes' predictions comes with data parallelism (ROADMAP A9):
-in a ``torch.distributed`` world of more than one process they raise.
+In a ``torch.distributed`` world of several processes the step's metrics
+are already the global batch's (``parallel/train_step.py``), and each
+process evaluates its shard of the loader: ``evaluate_a2d`` and
+``evaluate_coco_pretrain`` merge the processes' per-sample records (masks
+as RLE, JSON over a uint8 all-gather,
+``parallel/collectives.py::merge_in_sample_order``) before scoring, so
+every process returns the metrics of the whole set, those one process
+would compute; ``evaluate_yvos`` averages its own shard, as the JAX one
+does.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from tce_rvos_tpu_torch.parallel.collectives import merge_in_sample_order, process_count
 from tce_rvos_tpu_torch.utils.logging import MetricLogger, SmoothedValue
 
 
@@ -40,7 +47,9 @@ def train_one_epoch(
 ):
     """Runs ``step_fn(state, batch)`` (``parallel/train_step.py``) over
     ``loader`` with the model in train mode (dropout on). Returns the state
-    and the epoch's global averages of the metrics. A loss that is not
+    and the epoch's global averages of the metrics (in a process group,
+    of the global batch's losses, which the step sums over the ranks;
+    every rank logs the same values, rank 0 prints them). A loss that is not
     finite prints the metrics and stops training (exit code 1). The
     averages include the logger's seconds per step (``time``) and, of them,
     the wait for the next batch (``data``)."""
@@ -95,15 +104,6 @@ def model_forward(model: torch.nn.Module, compute_dtype: str = "float32") -> Cal
     return fwd
 
 
-def _single_process(what: str) -> None:
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"{what}: merging the predictions of {dist.get_world_size()} processes is not "
-            "ported (it comes with data parallelism, ROADMAP A9); evaluate in one process")
-
-
 def evaluate_yvos(fwd: Callable, loader, max_batches: Optional[int] = None) -> Dict[str, float]:
     """Train-set mask-quality probe (parity with reference
     engine.py:164-286 evaluate_yvos): run the model on training clips,
@@ -111,7 +111,6 @@ def evaluate_yvos(fwd: Callable, loader, max_batches: Optional[int] = None) -> D
     masks against GT. A sanity metric, not a benchmark."""
     from tce_rvos_tpu_torch.models.segmentation import dice_loss, sigmoid_focal_loss
 
-    _single_process("evaluate_yvos")
     logger = MetricLogger()
     dices, focals = [], []
     for bi, batch in enumerate(logger.log_every(loader, 10, "YVOS probe:")):
@@ -134,6 +133,28 @@ def evaluate_yvos(fwd: Callable, loader, max_batches: Optional[int] = None) -> D
     return out
 
 
+def _jsonable_prediction(pred: Dict) -> Dict:
+    """A postprocessed prediction for the JSON gather: arrays as lists with
+    their dtype, masks as RLE (a binary mask stack is large, its counts
+    strings are compact)."""
+    from tce_rvos_tpu_torch.utils import rle as rle_util
+
+    out = {k: [np.asarray(pred[k]).tolist(), np.asarray(pred[k]).dtype.str]
+           for k in ("scores", "boxes")}
+    if "masks" in pred:
+        out["rle_masks"] = [rle_util.encode(m.squeeze())
+                            for m in np.asarray(pred["masks"]).astype(np.uint8)]
+    return out
+
+
+def _prediction_from_json(d: Dict) -> Dict:
+    out = {k: np.asarray(v, np.dtype(dtype)) for k, (v, dtype) in
+           ((k, d[k]) for k in ("scores", "boxes"))}
+    if "rle_masks" in d:
+        out["rle_masks"] = d["rle_masks"]
+    return out
+
+
 def evaluate_coco_pretrain(
     fwd: Callable,
     loader,
@@ -153,12 +174,12 @@ def evaluate_coco_pretrain(
     from tce_rvos_tpu_torch.eval.refexp_eval import RefExpEvaluator
     from tce_rvos_tpu_torch.models import postprocessors
 
-    _single_process("evaluate_coco_pretrain")
     iou_types = ("bbox", "segm") if masks else ("bbox",)
     evaluator = RefExpEvaluator(gt_boxes_by_image)
     coco_evaluator = (CocoEvaluator(coco_gt_by_image, iou_types=iou_types)
                       if coco_gt_by_image is not None else None)
     logger = MetricLogger()
+    records = []  # [image_id, prediction] in the loader's order (several processes)
     for batch in logger.log_every(loader, 10, "Test:"):
         outputs = fwd(batch)
         orig_sizes = np.asarray(batch["orig_sizes"])
@@ -174,9 +195,18 @@ def evaluate_coco_pretrain(
             }
             for i, r in enumerate(results)
         }
+        if process_count() > 1:
+            records.extend([k, _jsonable_prediction(v)] for k, v in res.items())
+            continue
         evaluator.update(res)
         if coco_evaluator is not None:
             coco_evaluator.update(res)
+    if process_count() > 1:  # every process's shard, in one process's order
+        for k, v in merge_in_sample_order(records):
+            res = {k: _prediction_from_json(v)}
+            evaluator.update(res)
+            if coco_evaluator is not None:
+                coco_evaluator.update(res)
     stats = evaluator.summarize()
     if coco_evaluator is not None:
         stats["coco_eval_bbox"] = coco_evaluator.stats("bbox")
@@ -197,10 +227,8 @@ def evaluate_a2d(fwd: Callable, loader, threshold: float = 0.5) -> Dict[str, flo
     from tce_rvos_tpu_torch.models import postprocessors
     from tce_rvos_tpu_torch.utils import rle as rle_util
 
-    _single_process("evaluate_a2d")
     logger = MetricLogger()
-    predictions = []
-    gt_by_image = {}
+    samples = []  # [image_id, ground truth RLE, its predictions], in the loader's order
     for batch in logger.log_every(loader, 10, "Test:"):
         outputs = fwd(batch, valid_indices=True)
         dev = postprocessors.a2d_device_postprocess(outputs)
@@ -211,11 +239,15 @@ def evaluate_a2d(fwd: Callable, loader, threshold: float = 0.5) -> Dict[str, flo
             # 'orig_masks'): predictions are resized to orig_size by the
             # postprocessor (reference engine.py:332-345 reads GT from the
             # annotation json at original resolution)
-            gt_by_image[image_id] = rle_util.encode(
-                (batch["orig_masks"][i][0] > 0.5).astype(np.uint8))
-            for score, rle in zip(p["scores"], p["rle_masks"]):
-                predictions.append({"image_id": image_id, "score": float(score), "rle": rle})
+            gt = rle_util.encode((batch["orig_masks"][i][0] > 0.5).astype(np.uint8))
+            samples.append([image_id, gt, [{"image_id": image_id, "score": float(score),
+                                            "rle": rle}
+                                           for score, rle in zip(p["scores"], p["rle_masks"])]])
 
+    if process_count() > 1:  # every process's shard, in one process's order
+        samples = merge_in_sample_order(samples)
+    gt_by_image = {image_id: gt for image_id, gt, _ in samples}
+    predictions = [p for _, _, preds in samples for p in preds]
     metrics = a2d_eval.calculate_map(gt_by_image, predictions)
     p_at_k, overall_iou, mean_iou = a2d_eval.calculate_precision_at_k_and_iou_metrics(
         gt_by_image, predictions)

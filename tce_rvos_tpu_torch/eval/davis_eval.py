@@ -7,15 +7,15 @@ The official davis2017 evaluator's semantics: region similarity J
 predicted proposals to ground-truth objects by mean (J+F)/2
 (evaluation.py:44-64).
 
-Numpy, scipy and PIL only (no skimage, no cv2). The boundary map is the
-numpy one. The boundary match counts the boundary pixels of one mask that
-lie within the disk of radius r (x^2 + y^2 <= r^2, skimage's ``disk``)
+Numpy, scipy and PIL only (no skimage, no cv2). The boundary match
+counts the boundary pixels of one mask that lie within the disk of radius r (x^2 + y^2 <= r^2, skimage's ``disk``)
 of a boundary pixel of the other: the sum that the reference takes of one
 boundary map times the other dilated by the disk (cv2.dilate), computed
 with a k-d tree over the boundary pixels (scipy.spatial): a dilation
 (``scipy.ndimage.binary_dilation``) visits every pixel of the frame for
 every disk offset, several times a frame, where the tree visits the
-boundary pixels only. The file walking is
+boundary pixels only. The boundary map runs in C where the port's native
+library is built (``native/``), else in numpy. The file walking is
 isolated in ``DavisDataset`` and ``read_result_masks`` so the metric core
 is testable on arrays.
 """
@@ -26,6 +26,8 @@ import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from tce_rvos_tpu_torch import native
 
 
 def _within(points: np.ndarray, others: np.ndarray, radius: int) -> int:
@@ -43,7 +45,12 @@ def _within(points: np.ndarray, others: np.ndarray, radius: int) -> int:
 
 def seg2bmap(seg: np.ndarray) -> np.ndarray:
     """One-pixel-wide boundary map (Martin-style, same-size fast path of
-    davis2017 metrics._seg2bmap)."""
+    davis2017 metrics._seg2bmap), in C where the port's native library is
+    built (``utils/rle.py``'s ``USE_NATIVE``)."""
+    from tce_rvos_tpu_torch.utils import rle
+
+    if rle._native():
+        return native.seg2bmap(seg)
     seg = seg.astype(bool)
     e = np.zeros_like(seg)
     s = np.zeros_like(seg)

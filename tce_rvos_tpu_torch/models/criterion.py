@@ -4,9 +4,17 @@ visibility loss, and the same losses for every auxiliary decoder layer
 (keys suffixed ``_i``), all already weighted.
 
 Vectorised like the JAX package: the matcher picks one query per clip, and
-the valid-frame bookkeeping is a boolean mask, not a Python loop. Under
-data parallelism the reference all-reduces ``num_boxes``; the port has no
-multi-GPU path yet, so ``num_boxes`` is this batch's count of valid frames.
+the valid-frame bookkeeping is a boolean mask, not a Python loop.
+
+In a ``torch.distributed`` world each rank's losses are its part of the
+global-batch losses, as the JAX package's one ``jit`` over the sharded
+batch computes them: ``num_boxes`` is the count of valid frames summed
+over the ranks, then clamped to at least 1 (the JAX package clamps the
+global sum; the reference clamps the sum divided by the world size). Every
+loss is a sum over this rank's clips divided by ``num_boxes`` or by ``t``
+(the visibility loss), neither of which depends on how the batch is split,
+so the sum over the ranks of their losses (and gradients) is the
+global-batch one (``parallel/train_step.py`` sums them).
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import torch.nn.functional as F
 
 from tce_rvos_tpu_torch.models.matcher import MatcherConfig, match
 from tce_rvos_tpu_torch.models.segmentation import dice_loss, sigmoid_focal_loss
+from tce_rvos_tpu_torch.parallel.collectives import all_reduce_sum_
 from tce_rvos_tpu_torch.utils.boxes import box_cxcywh_to_xyxy, elementwise_giou
 
 
@@ -97,13 +106,18 @@ def _one_layer_losses(cfg: CriterionConfig, outputs: Dict[str, torch.Tensor],
     return losses
 
 
+def global_num_boxes(valid: torch.Tensor) -> torch.Tensor:
+    """The count of valid frames over every rank's batch, at least 1."""
+    return all_reduce_sum_(valid.sum().float()).clamp(min=1.0)
+
+
 def criterion(cfg: CriterionConfig, outputs: Dict, targets: Dict[str, torch.Tensor]
               ) -> Dict[str, torch.Tensor]:
     """All losses, weighted. ``targets``: labels [b, t] int, boxes [b, t, 4]
     cxcywh normalised, masks [b, t, H, W] binary at the padded input size,
     valid [b, t] {0, 1}. The total is the sum of the values, the auxiliary
     layers' losses (``aux_outputs``) included as ``<name>_<i>``."""
-    num_boxes = targets["valid"].sum().float().clamp(min=1.0)
+    num_boxes = global_num_boxes(targets["valid"])
     losses = _one_layer_losses(cfg, outputs, targets, num_boxes)
     for i, aux in enumerate(outputs.get("aux_outputs", [])):
         aux_losses = _one_layer_losses(cfg, aux, targets, num_boxes)

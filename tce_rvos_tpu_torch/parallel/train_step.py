@@ -35,8 +35,19 @@ each block in the backward pass, as the transformer does each layer. An X3D
 backbone does not train (``create_train_state`` raises): the JAX package
 cannot train it, and the port adds no feature the JAX package lacks.
 
-Not ported yet: the fused flat AdamW (a TPU launch-count optimisation with
-the same update) and data parallelism.
+Data parallelism (``parallel/mesh.py``): in a ``torch.distributed`` world
+each rank's loss is its part of the global-batch loss
+(``models/criterion.py``), the gradients are summed over the ranks in one
+all-reduce of their flattened concatenation between ``backward`` and the
+clip (which then sees the global gradient, as the JAX step's does), and
+the logged losses are summed the same way. The step does not go through
+``DistributedDataParallel``: ``functional_call``'s bf16 cast would bypass
+its forward. gloo has no average, and the sum is what the global batch
+needs. Dropout draws from ``seed + rank``, as the JAX trainer's
+``seed + process_index``.
+
+Not ported: the fused flat AdamW (a TPU launch-count optimisation with the
+same update).
 """
 
 from __future__ import annotations
@@ -52,6 +63,7 @@ from torch.func import functional_call
 from tce_rvos_tpu_torch.config import TrainConfig
 from tce_rvos_tpu_torch.models.criterion import CriterionConfig, criterion
 from tce_rvos_tpu_torch.models.x3d import X3D_CONFIGS
+from tce_rvos_tpu_torch.parallel.collectives import all_reduce_sum_, initialized, process_index
 from tce_rvos_tpu_torch.utils.precision import resolve_dtype
 
 Schedule = Callable[[int], float]
@@ -147,7 +159,7 @@ class TrainState:
 def create_train_state(model: nn.Module, cfg: TrainConfig, steps_per_epoch: int = 1
                        ) -> TrainState:
     """The trainer's entry: seeds torch's generator (dropout) from
-    ``cfg.seed`` and builds the optimizer over ``model``'s parameters.
+    ``cfg.seed`` plus the process's rank and builds the optimizer over ``model``'s parameters.
     Raises ``ValueError`` for a model with an X3D backbone."""
     backbone = getattr(getattr(model, "cfg", None), "backbone", None)
     if backbone in X3D_CONFIGS:
@@ -158,7 +170,7 @@ def create_train_state(model: nn.Module, cfg: TrainConfig, steps_per_epoch: int 
             "applies the model with deterministic=False and no mutable batch_stats "
             "(tce_rvos_tpu/parallel/train_step.py:203-212), which raises "
             "ModifyScopeVariableError")
-    torch.manual_seed(cfg.seed)
+    torch.manual_seed(cfg.seed + process_index())
     opt, schedules = make_optimizer(model, cfg, steps_per_epoch)
     return TrainState(model, opt, schedules, cfg.clip_max_norm)
 
@@ -192,10 +204,12 @@ def forward_losses(model: nn.Module, batch: Mapping, crit_cfg: CriterionConfig,
                    compute_dtype: Optional[str] = None):
     """(total loss, dict of weighted losses) for a batch already on the
     model's device; the auxiliary layers' outputs are requested when
-    ``model.cfg.aux_loss``."""
+    ``model.cfg.aux_loss``. A batch with ``valid_indices`` (A2D's: one
+    annotated frame a clip) keeps that frame from the transformer on, as
+    the JAX step does."""
     kwargs = dict(video_mask=batch["video_mask"], text_ids=batch["text_ids"],
                   text_attn_mask=batch["text_attn_mask"], sizes=batch["sizes"],
-                  aux_outputs=model.cfg.aux_loss)
+                  valid_indices=batch.get("valid_indices"), aux_outputs=model.cfg.aux_loss)
     cast = None if compute_dtype in (None, "float32") else resolve_dtype(compute_dtype)
     if cast is None:
         outputs = model(batch["video"], **kwargs)
@@ -215,7 +229,9 @@ def make_train_step(crit_cfg: CriterionConfig, compute_dtype: Optional[str] = No
     holds the model inputs and a ``targets`` dict (numpy or tensors). The
     metrics are the weighted losses, ``loss``, ``grad_norm`` (before the
     clip) and the base tier's ``lr`` at this step. The caller chooses the
-    module's mode: ``train()`` draws dropout, ``eval()`` does not."""
+    module's mode: ``train()`` draws dropout, ``eval()`` does not. In a
+    process group the gradients and the metrics' losses are the sums over
+    the ranks (the global batch's)."""
 
     def step(state: TrainState, batch: Mapping):
         model = state.model
@@ -223,13 +239,42 @@ def make_train_step(crit_cfg: CriterionConfig, compute_dtype: Optional[str] = No
         state.optimizer.zero_grad(set_to_none=True)
         total, losses = forward_losses(model, batch, crit_cfg, compute_dtype)
         total.backward()
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["loss"] = total.detach()
+        all_reduce_gradients(model)
+        metrics = sum_over_ranks({**losses, "loss": total})
         metrics["lr"] = state.schedules["base"](state.step)
         metrics["grad_norm"] = apply_gradients(state)
         return state, metrics
 
     return step
+
+
+def sum_over_ranks(values: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Detached scalars, each summed over the ranks in one all-reduce."""
+    if not initialized():
+        return {k: v.detach() for k, v in values.items()}
+    flat = all_reduce_sum_(torch.stack([v.detach().float() for v in values.values()]))
+    return dict(zip(values, flat.unbind()))
+
+
+@torch.no_grad()
+def all_reduce_gradients(model: nn.Module) -> None:
+    """Sum every parameter's gradient over the ranks (nothing outside a
+    process group), in one all-reduce of their flattened concatenation. A
+    parameter without a gradient takes part with zeros and keeps None if
+    the sum is zero, so that ranks agree on the buffer's layout and one
+    rank reduces to itself bitwise."""
+    if not initialized():
+        return
+    params = [p for p in model.parameters() if p.requires_grad]
+    flat = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1)
+                      for p in params])
+    all_reduce_sum_(flat)
+    sums = [g.view_as(p) for p, g in zip(params, flat.split([p.numel() for p in params]))]
+    have = [i for i, p in enumerate(params) if p.grad is not None]
+    torch._foreach_copy_([params[i].grad for i in have], [sums[i] for i in have])
+    for i in sorted(set(range(len(params))) - set(have)):
+        if sums[i].any():
+            params[i].grad = sums[i].clone()
 
 
 def apply_gradients(state: TrainState) -> torch.Tensor:

@@ -23,7 +23,19 @@ scored from mask dumps (``python -m tce_rvos_tpu_torch.infer``, then
 ``eval_davis`` for davis).
 
 The model runs on ``--device`` (``cuda`` by default, which raises without
-a GPU). Data parallelism is not ported yet.
+a GPU). ``--dataset_file a2d`` also scores the val split after every epoch
+(main.py:283-285).
+
+Several processes (data parallelism, ``parallel/mesh.py``): start one
+process a rank with the launcher's environment, e.g.
+
+    torchrun --nproc_per_node 4 -m tce_rvos_tpu_torch.train ...
+
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``): NCCL on ``cuda``, one GPU a rank; gloo with ``--device
+cpu``. Each rank trains on its sampler's share of every global batch of
+``batch_size`` x ranks clips and evaluates its share of the val split;
+rank 0 prints, logs and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -33,6 +45,8 @@ import functools
 import json
 import os
 import time
+
+import torch
 
 
 def run_eval(args, model_cfg, data_cfg, model):
@@ -75,6 +89,28 @@ def run_eval(args, model_cfg, data_cfg, model):
     return engine.evaluate_coco_pretrain(
         fwd, loader, dataset_val.gt_boxes_by_image(), dataset_val.coco_gt_by_image(),
         masks=args.masks)
+
+
+def evaluate_during_training(args, model_cfg, dataset_val, model):
+    """A2D's evaluation of the val split after an epoch (the JAX
+    ``train.py`` scores it with the training weights): ``model`` in eval
+    mode, or an eval-mode copy cast to ``--compute_dtype`` when that is
+    not float32 (the master weights stay float32)."""
+    import copy
+
+    from tce_rvos_tpu_torch import engine
+    from tce_rvos_tpu_torch.data.loader import PrefetchLoader, ShardedSampler
+    from tce_rvos_tpu_torch.data.registry import collate_batch
+    from tce_rvos_tpu_torch.utils.precision import resolve_dtype
+
+    dtype = resolve_dtype(model_cfg.compute_dtype)
+    if dtype != torch.float32:
+        model = copy.deepcopy(model).to(dtype=dtype)
+    loader = PrefetchLoader(dataset_val, ShardedSampler(len(dataset_val), shuffle=False),
+                            args.batch_size, collate_batch, num_workers=args.num_workers,
+                            drop_last=False)
+    return engine.evaluate_a2d(engine.model_forward(model.eval(), model_cfg.compute_dtype),
+                               loader, args.threshold)
 
 
 def restore_train_state(state, resume_path, ckpt_manager, steps_per_epoch):
@@ -125,16 +161,20 @@ def main(argv=None):
     from tce_rvos_tpu_torch.models.build import build_model
     from tce_rvos_tpu_torch.models.criterion import criterion_from_configs
     from tce_rvos_tpu_torch.parallel.train_step import create_train_state, make_train_step
+    from tce_rvos_tpu_torch.parallel.collectives import is_main_process
+    from tce_rvos_tpu_torch.parallel.mesh import init_distributed, replicate
     from tce_rvos_tpu_torch.utils import native_ckpt
-    from tce_rvos_tpu_torch.utils.device import process_rank, resolve_device
+    from tce_rvos_tpu_torch.utils.device import resolve_device
 
+    init_distributed(args.device)
     device = resolve_device(args.device)
-    print(args)
+    log = print if is_main_process() else (lambda *a, **k: None)
+    log(args)
 
     # ---- model: the seed's init on the CPU, then the device ----
     model = build_model(model_cfg, device="cpu", seed=train_cfg.seed)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"number of params: {n_params}")
+    log(f"number of params: {n_params}")
 
     if args.pretrained_weights:
         from tce_rvos_tpu_torch.models.text_encoder import require_real_tokenizer
@@ -148,13 +188,13 @@ def main(argv=None):
         sd = drop_class_heads(load_torch_file(args.pretrained_weights), model_cfg.dec_layers)
         sd, _, _ = convert_state_dict(sd, model.state_dict())
         model.load_state_dict(sd)
-    model.to(device)
+    replicate(model.to(device))
 
     # ---- eval-only mode (reference main.py:150-176) ----
     if args.eval:
         stats = run_eval(args, model_cfg, data_cfg, model)
-        print(json.dumps(stats, default=float))
-        if args.output_dir and process_rank() == 0:
+        log(json.dumps(stats, default=float))
+        if args.output_dir and is_main_process():
             os.makedirs(args.output_dir, exist_ok=True)
             with open(os.path.join(args.output_dir, "log.txt"), "a") as fh:
                 fh.write(json.dumps(stats, default=float) + "\n")
@@ -194,9 +234,15 @@ def main(argv=None):
         state, start_epoch = restore_train_state(state, args.resume, ckpt_manager,
                                                  steps_per_epoch)
 
+    # per-epoch A2D evaluation (reference main.py:283-285)
+    evaluate = None
+    if args.dataset_file == "a2d":
+        dataset_val = build_dataset("a2d", "val", data_cfg, model_cfg)
+        evaluate = functools.partial(evaluate_during_training, args, model_cfg, dataset_val)
+
     output_dir = args.output_dir
     os.makedirs(output_dir, exist_ok=True)
-    print("Start training")
+    log("Start training")
     start_time = time.time()
     for epoch in range(start_epoch, train_cfg.epochs):
         if data_cfg.keep_fps and hasattr(dataset_train, "refresh_metas"):
@@ -219,7 +265,9 @@ def main(argv=None):
             "epoch": epoch,
             "n_parameters": int(n_params),
         }
-        if process_rank() == 0:
+        if evaluate is not None:
+            log_stats.update(evaluate(state.model))
+        if is_main_process():
             with open(os.path.join(output_dir, "log.txt"), "a") as fh:
                 fh.write(json.dumps(log_stats) + "\n")
 
@@ -227,7 +275,7 @@ def main(argv=None):
         ckpt_manager.wait()
         ckpt_manager.close()
     total = str(datetime.timedelta(seconds=int(time.time() - start_time)))
-    print(f"Training time {total}")
+    log(f"Training time {total}")
     return state
 
 

@@ -1,5 +1,5 @@
 """Device choice for the port's entry points (the GPU unless the caller
-asks for the CPU), and the process's rank."""
+asks for the CPU)."""
 
 from __future__ import annotations
 
@@ -16,10 +16,3 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "CUDA is not available; pass device='cpu' to run the port on the CPU"
         )
     return dev
-
-
-def process_rank() -> int:
-    """This process's rank in ``torch.distributed``, 0 outside it."""
-    import torch.distributed as dist
-
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0

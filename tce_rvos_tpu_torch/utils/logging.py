@@ -1,8 +1,7 @@
 """Metric logging (counterpart of ``tce_rvos_tpu/utils/logging.py``):
 ``SmoothedValue`` (windowed median and average, global average) and
 ``MetricLogger.log_every`` (progress lines with ETA and iteration and data
-times). Not ported yet: printing from rank 0 only, which comes with data
-parallelism."""
+times), printed by rank 0 only in a ``torch.distributed`` world."""
 
 from __future__ import annotations
 
@@ -10,6 +9,8 @@ import datetime
 import time
 from collections import defaultdict, deque
 from typing import Dict
+
+from tce_rvos_tpu_torch.parallel.collectives import is_main_process
 
 
 class SmoothedValue:
@@ -87,7 +88,7 @@ class MetricLogger:
             data_time.update(time.time() - end)
             yield obj
             iter_time.update(time.time() - end)
-            if i % print_freq == 0:
+            if i % print_freq == 0 and is_main_process():
                 if total:
                     eta = datetime.timedelta(seconds=int(iter_time.global_avg * (total - i)))
                     print(f"{header} [{i}/{total}] eta: {eta} {self} "
@@ -97,5 +98,6 @@ class MetricLogger:
                           flush=True)
             i += 1
             end = time.time()
-        elapsed = str(datetime.timedelta(seconds=int(time.time() - start)))
-        print(f"{header} Total time: {elapsed}", flush=True)
+        if is_main_process():
+            elapsed = str(datetime.timedelta(seconds=int(time.time() - start)))
+            print(f"{header} Total time: {elapsed}", flush=True)

@@ -6,7 +6,9 @@ torch.save of {'model', 'optimizer', 'lr_scheduler', 'epoch', 'args'}
 A checkpoint is a directory of ``model.pt`` (the model's state_dict),
 ``optimizer.pt`` (``optimizer.state_dict()``, absent when not saved) and
 ``meta.json`` (epoch, step), each written under a temporary name and
-renamed, ``meta.json`` last, by rank 0 only. ``CheckpointManager`` keeps
+renamed, ``meta.json`` last, by rank 0 only; in a ``torch.distributed``
+world every rank then waits at a barrier, so that no rank reads a
+checkpoint that is half written. ``CheckpointManager`` keeps
 such directories per step with retention, the contract of the JAX
 package's ``OrbaxCheckpointManager``. ``load_any_checkpoint`` also reads a
 reference-format ``.pth`` file or URL, which carries no optimizer state.
@@ -22,7 +24,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import torch
 
 from tce_rvos_tpu_torch.utils.checkpoint import convert_state_dict, load_torch_file
-from tce_rvos_tpu_torch.utils.device import process_rank
+from tce_rvos_tpu_torch.parallel.collectives import barrier, is_main_process
 
 MODEL_FILE, OPTIMIZER_FILE, META_FILE = "model.pt", "optimizer.pt", "meta.json"
 Restored = Tuple[Dict[str, torch.Tensor], Optional[Dict[str, Any]], Dict[str, Any]]
@@ -42,17 +44,22 @@ def save_checkpoint(
     step: int = 0,
     extra: Optional[Dict] = None,
 ) -> None:
-    """Write the checkpoint directory ``path`` (rank 0 only). A stale
-    ``optimizer.pt`` is removed when ``optimizer_state`` is None."""
-    if process_rank() != 0:
-        return
+    """Write the checkpoint directory ``path`` (rank 0 only; every rank
+    returns once it is written). A stale ``optimizer.pt`` is removed when
+    ``optimizer_state`` is None."""
+    if is_main_process():
+        _write_checkpoint(path, state_dict, optimizer_state, {"epoch": epoch, "step": step,
+                                                             **(extra or {})})
+    barrier()
+
+
+def _write_checkpoint(path, state_dict, optimizer_state, meta) -> None:
     os.makedirs(path, exist_ok=True)
     _replace_into(path, MODEL_FILE, lambda f: torch.save(dict(state_dict), f))
     if optimizer_state is not None:
         _replace_into(path, OPTIMIZER_FILE, lambda f: torch.save(optimizer_state, f))
     elif os.path.exists(os.path.join(path, OPTIMIZER_FILE)):
         os.remove(os.path.join(path, OPTIMIZER_FILE))
-    meta = {"epoch": epoch, "step": step, **(extra or {})}
 
     def write_meta(f):
         with open(f, "w") as fh:
@@ -123,9 +130,10 @@ class CheckpointManager:
         meta = dict(meta or {})
         save_checkpoint(os.path.join(self.directory, str(step)), state_dict, optimizer_state,
                         epoch=meta.pop("epoch", 0), step=meta.pop("step", step), extra=meta)
-        if process_rank() == 0:
+        if is_main_process():
             for old in self.all_steps()[:-self.max_to_keep]:
                 shutil.rmtree(os.path.join(self.directory, str(old)))
+        barrier()
 
     def restore(self, step: Optional[int] = None) -> Restored:
         if step is None:

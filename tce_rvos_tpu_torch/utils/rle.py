@@ -5,9 +5,10 @@ The wire format of cocoapi's maskApi.c: column-major runs starting with the
 zero run, and the counts compressed into a string of 6-bit groups (each
 count after the second stored as its difference from the count two before).
 The postprocessors encode predictions with it, MeViS stores its masks in it
-and the evaluators decode both. The JAX package also has a C copy of the
-loops (``native/rle_ext.c``); this module computes the same function in
-numpy and Python.
+and the evaluators decode both. The loops run in C
+(``native/rle_ext.c``) where the port's native library is built (at first
+use, with the host's C compiler), else in numpy and Python here, which
+compute the same functions. ``USE_NATIVE = False`` keeps them in numpy.
 """
 
 from __future__ import annotations
@@ -16,10 +17,20 @@ from typing import Dict, List
 
 import numpy as np
 
+from tce_rvos_tpu_torch import native
+
+USE_NATIVE = True
+
+
+def _native() -> bool:
+    return USE_NATIVE and native.lib() is not None
+
 
 def encode_counts(mask: np.ndarray) -> List[int]:
     """Binary [H, W] mask -> uncompressed counts (column-major, starting with
     the zero run)."""
+    if _native():
+        return native.rle_encode_bytes(np.asarray(mask).astype(np.uint8).T)
     flat = np.asarray(mask).astype(np.uint8).flatten(order="F")
     if flat.size == 0:
         return [0]
@@ -31,6 +42,8 @@ def encode_counts(mask: np.ndarray) -> List[int]:
 
 
 def decode_counts(counts: List[int], h: int, w: int) -> np.ndarray:
+    if _native():
+        return native.rle_decode_counts(counts, h, w)
     flat = np.zeros(h * w, dtype=np.uint8)
     pos = 0
     val = 0
@@ -43,6 +56,8 @@ def decode_counts(counts: List[int], h: int, w: int) -> np.ndarray:
 
 
 def _compress_counts(cnts: List[int]) -> str:
+    if _native():
+        return native.rle_counts_to_string(cnts)
     s = []
     for i, x in enumerate(cnts):
         if i > 2:
@@ -59,6 +74,8 @@ def _compress_counts(cnts: List[int]) -> str:
 
 
 def _decompress_counts(s: str) -> List[int]:
+    if _native():
+        return native.rle_string_to_counts(s)
     cnts: List[int] = []
     i = 0
     n = len(s)

@@ -14,6 +14,8 @@ divided by the smallest ImageNet std 0.224, with margin. The samplers and
 ``PrefetchLoader`` mirror tests/test_data.py.
 """
 
+import json
+import os
 import random
 import threading
 import time
@@ -250,9 +252,16 @@ def test_build_dataset_names(tree):
     davis = registry.build_dataset("davis", "train", DataConfig(davis_path=tree),
                                    ModelConfig(num_frames=2))
     assert davis.category_dict["dog"] == 18
-    for name in registry.NOT_PORTED:
-        with pytest.raises(ValueError, match="not ported"):
-            registry.build_dataset(name, "train", DataConfig(), ModelConfig())
+    a2d_root = os.path.join(tree, "a2d")  # A2D-Sentences: the annotation lists only
+    os.makedirs(a2d_root, exist_ok=True)
+    for split in ("train", "test"):
+        with open(os.path.join(a2d_root, f"a2d_sentences_single_frame_{split}_annotations.json"),
+                  "w") as fh:
+            json.dump([["a man running", "vid", 3, 1]], fh)
+    for split in ("train", "val"):
+        a2d = registry.build_dataset("a2d", split, DataConfig(a2d_path=a2d_root), ModelConfig())
+        assert type(a2d).__name__ == "A2DSentencesDataset" and len(a2d) == 1
+        assert a2d.subset == split
     with pytest.raises(NotImplementedError, match="VidSTG"):
         registry.build_dataset("vidstg", "train", DataConfig(), ModelConfig())
     with pytest.raises(ValueError, match="unknown"):

@@ -274,8 +274,11 @@ def test_build_dataset_names(trees):
                                        DataConfig(coco_path=trees["coco"], pretrain_coco=True),
                                        mcfg)
     assert len(coco_only.datasets) == 3 and len(coco_only) == 9
-    with pytest.raises(ValueError, match=r"not ported.*\.mp4.*h5py"):
-        registry.build_dataset("a2d", "val", dcfg, mcfg)
+    # no A2D-Sentences tree here: both packages look for its annotations
+    for build, cfgs in ((registry.build_dataset, (dcfg, mcfg)),
+                        (jax_registry.build_dataset, (jdcfg, jmcfg))):
+        with pytest.raises(FileNotFoundError, match="a2d_sentences_single_frame_test"):
+            build("a2d", "val", *cfgs)
 
 
 @pytest.mark.parametrize("argv", [

@@ -261,8 +261,11 @@ def test_main_eval_refcoco(trees, tmp_path, tiny_text, monkeypatch):
 
 @pytest.mark.parametrize("name", ["ytvos", "davis", "mevis", "a2d"])
 def test_main_eval_refuses(name, tiny_text):
-    match = r"not ported.*\.mp4" if name == "a2d" else r"no metric protocol.*tce_rvos_tpu_torch.infer"
-    with pytest.raises(ValueError, match=match):
+    if name == "a2d":  # evaluated, but no A2D-Sentences tree is at the default path
+        error, match = FileNotFoundError, "a2d_sentences_single_frame_test_annotations"
+    else:
+        error, match = ValueError, r"no metric protocol.*tce_rvos_tpu_torch.infer"
+    with pytest.raises(error, match=match):
         train.main(["--eval", "--dataset_file", name, *TINY_FLAGS])
 
 

@@ -155,7 +155,8 @@ def test_backbone_flags_match_jax(argv):
 
 @pytest.mark.parametrize("extra,error,match", [
     (["--eval"], ValueError, "no metric protocol for 'ytvos'.*tce_rvos_tpu_torch.infer"),
-    (["--dataset_file", "a2d"], ValueError, r"not ported.*\.mp4.*h5py"),
+    (["--dataset_file", "a2d"], FileNotFoundError,  # no A2D-Sentences tree at the default path
+     "a2d_sentences_single_frame_train_annotations"),
     (["--dataset_file", "vidstg"], NotImplementedError, "VidSTG"),
     (["--device", "cuda"], RuntimeError, "CUDA is not available"),
     (["--pretrained_weights", "weights.pth"], RuntimeError, "tokenizer"),

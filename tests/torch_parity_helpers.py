@@ -342,45 +342,55 @@ def check_two_train_steps(variant: str, batch=None, jax_batch=None, n_steps: int
     port.eval()  # dropout off
     state = train_step.create_train_state(port, tcfg, steps_per_epoch=1)
     step = train_step.make_train_step(criterion_from_configs(cfg, tcfg))
-    tiers = {name: train_step.param_group(name, tcfg) for name, _ in port.named_parameters()}
-    lr0 = {"base": tcfg.lr, "backbone": tcfg.lr_backbone, "text_encoder": tcfg.lr_text_encoder,
-           "linear_proj": tcfg.lr * tcfg.lr_linear_proj_mult}
     for k in range(n_steps):
-        before = {n: p.detach().clone() for n, p in port.named_parameters()}
+        before = {n: p.detach().numpy().copy() for n, p in port.named_parameters()}
         state, metrics = step(state, batch)
         if k == 0:
             want = want.result()
             jax_steps.shutdown()
-        losses, gnorm, grads, params_after = want[k]
-        assert metrics["lr"] == pytest.approx(tcfg.lr * 0.1 ** k, rel=1e-6)
-        assert sorted(k_ for k_ in metrics if k_.startswith("loss_")) == sorted(losses)
-        for name, v in losses.items():
-            assert_close(metrics[name], v, rtol=SLICE_TOL, atol=SLICE_TOL, name=f"step {k} {name}")
-        assert_close(metrics["grad_norm"], gnorm, rtol=SLICE_TOL, atol=0, name="grad_norm")
-        clip = min(1.0, tcfg.clip_max_norm / gnorm)
-        g_all = max(float(np.abs(g).max()) for g in grads.values()) * clip
-        for name, p in port.named_parameters():
-            g_want, g_got = grads[name] * clip, p.grad.numpy()
-            g_scale = float(np.abs(g_want).max())
-            where = f"step {k} grad {name}"
-            if g_scale < 1e-6 * g_all:  # zero in exact arithmetic
-                assert float(np.abs(g_got).max()) < 1e-6 * g_all, where
-            else:
-                assert np.linalg.norm(g_got - g_want) <= SLICE_TOL * np.linalg.norm(g_want), where
-                assert_close(g_got, g_want, rtol=0, atol=0.1 * SLICE_TOL * g_all, name=where)
-            lr = lr0[tiers[name]] * 0.1 ** k
-            strong = np.abs(grads[name]) > 0.01 * np.abs(grads[name]).max()
-            strong &= g_scale >= 1e-6 * g_all
-            new, old = p.detach().numpy(), before[name].numpy()
-            assert_close(new[strong], params_after[name][strong], rtol=1e-3, atol=0.5 * lr,
-                         name=f"step {k} param {name}")
-            weak = np.abs(old[~strong])
-            bound = 1.01 * lr * (1 + tcfg.weight_decay * weak) + 2 * np.spacing(weak)
-            assert (np.abs(new - old)[~strong] <= bound).all(), f"step {k} param {name}"
+        check_step_against_jax(
+            k, metrics, {n: p.grad.numpy() for n, p in port.named_parameters()}, before,
+            {n: p.detach().numpy() for n, p in port.named_parameters()}, want[k], tcfg)
         with torch.no_grad():  # the next step starts where the JAX one does
             for name, p in port.named_parameters():
-                p.copy_(torch.from_numpy(params_after[name]))
+                p.copy_(torch.from_numpy(want[k][3][name]))
     assert state.step == n_steps
+
+
+def check_step_against_jax(k: int, metrics, grads, before, after, want, tcfg) -> None:
+    """Step ``k`` of the port (its metrics, and per parameter name its
+    clipped gradient and its values before and after the step, numpy)
+    against the JAX step ``want`` (an entry of ``jax_train_steps``), as
+    ``check_two_train_steps`` holds it."""
+    tiers = {name: train_step.param_group(name, tcfg) for name in grads}
+    lr0 = {"base": tcfg.lr, "backbone": tcfg.lr_backbone, "text_encoder": tcfg.lr_text_encoder,
+           "linear_proj": tcfg.lr * tcfg.lr_linear_proj_mult}
+    losses, gnorm, want_grads, params_after = want
+    assert metrics["lr"] == pytest.approx(tcfg.lr * 0.1 ** k, rel=1e-6)
+    assert sorted(k_ for k_ in metrics if k_.startswith("loss_")) == sorted(losses)
+    for name, v in losses.items():
+        assert_close(metrics[name], v, rtol=SLICE_TOL, atol=SLICE_TOL, name=f"step {k} {name}")
+    assert_close(metrics["grad_norm"], gnorm, rtol=SLICE_TOL, atol=0, name="grad_norm")
+    clip = min(1.0, tcfg.clip_max_norm / gnorm)
+    g_all = max(float(np.abs(g).max()) for g in want_grads.values()) * clip
+    for name, g_got in grads.items():
+        g_want = want_grads[name] * clip
+        g_scale = float(np.abs(g_want).max())
+        where = f"step {k} grad {name}"
+        if g_scale < 1e-6 * g_all:  # zero in exact arithmetic
+            assert float(np.abs(g_got).max()) < 1e-6 * g_all, where
+        else:
+            assert np.linalg.norm(g_got - g_want) <= SLICE_TOL * np.linalg.norm(g_want), where
+            assert_close(g_got, g_want, rtol=0, atol=0.1 * SLICE_TOL * g_all, name=where)
+        lr = lr0[tiers[name]] * 0.1 ** k
+        strong = np.abs(want_grads[name]) > 0.01 * np.abs(want_grads[name]).max()
+        strong &= g_scale >= 1e-6 * g_all
+        new, old = after[name], before[name]
+        assert_close(new[strong], params_after[name][strong], rtol=1e-3, atol=0.5 * lr,
+                     name=f"step {k} param {name}")
+        weak = np.abs(old[~strong])
+        bound = 1.01 * lr * (1 + tcfg.weight_decay * weak) + 2 * np.spacing(weak)
+        assert (np.abs(new - old)[~strong] <= bound).all(), f"step {k} param {name}"
 
 
 # ---- synthetic Ref-YouTube-VOS train trees ------------------------------------------
