@@ -3,6 +3,10 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
+``python3 chip_smoke.py --dist-gap`` runs only the build and
+``probe_dist_gap``: phase 13's two-rank step against one process under the
+flat AdamW (aligned and packed) and ``--no-flat_opt``.
+
 Phases (each one fails the run, nothing is caught and carried on from):
   1. build   - compile every CUDA kernel from csrc/ (one nvcc per source,
                all started together), printing registers and spills;
@@ -33,12 +37,23 @@ Phases (each one fails the run, nothing is caught and carried on from):
                random targets: train_one_epoch over 10 bf16 steps (f32
                master weights, dropout on); finite losses, a non-zero
                gradient on every trainable parameter, parameters moved,
-               12 MSDA forward + 12 backward launches per step; the
+               12 MSDA forward + 12 backward launches and one flat AdamW
+               update launch per step (the default --flat_opt); the
                gradients of one f32 step with use_checkpoint (dropout off)
                held against one without (24 forward launches); bf16 steps
                with recomputation; ms/step, steps/s, peak memory and MFU
                with and without recomputation; the device's busy share and
                top ops of one step under torch.profiler;
+ 5b. flat adamw - the fused flat AdamW's update kernel against its plain
+               version, bitwise, at the flagship's 183,506,503 parameters
+               (Adam steps 1 and 1000, the norm below and above the clip,
+               weight decay 5e-4 and 0.1; the same gate refuses the kernel
+               launched without decay or eps), its time by
+               graph replay with its bound, the plain version's and
+               torch.optim.AdamW's (fused, foreach; with the clip); the
+               f32 step flat against --no-flat_opt (the loss bitwise equal,
+               the largest parameter gap located); the bf16 steps of both
+               in turns (one update launch a flat step) and their profiles;
   6. train parity - one f32 step (TF32 off, dropout off), GPU (kernels)
                against CPU (plain MSDA), full width on a 2x192x320 clip;
   7. 3D path - the temporal-MSDA flagship (``--msda_3d``: 3D MSDA in the
@@ -152,7 +167,8 @@ Phases (each one fails the run, nothing is caught and carried on from):
                metrics exactly; ``utils/profiling.trace`` around the
                one-process step; ``train.main`` at world 1 over NCCL
                through the launcher's environment (4 bf16 steps), its
-               gradient all-reduce and loss sum bitwise, timed;
+               gradient all-reduce (one call on the flat AdamW's
+               gradient buffer) and loss sum bitwise, timed;
  14. numbers - card name and power limit, clips/s and ms per trunk
                forward, peak memory per E, and a JSON ``kernels`` line.
 
@@ -239,9 +255,10 @@ def graph_ms(fn, calls: int = 10, reps: int = 10) -> float:
 def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
-    from tce_rvos_tpu_torch.ops import _build
-    from tce_rvos_tpu_torch.ops.msda_cuda import SOURCES
+    from tce_rvos_tpu_torch.ops import _build, flat_adamw_cuda
+    from tce_rvos_tpu_torch.ops.msda_cuda import SOURCES as MSDA_SOURCES
 
+    SOURCES = (*MSDA_SOURCES, flat_adamw_cuda.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, all at once
         libs = list(pool.map(_build.build, SOURCES))
@@ -1171,12 +1188,13 @@ def expression_isolation(engine, frames, label: str) -> dict:
 
 
 def phase_path(dtype_name: str, sd, videos, backbone: str = "resnet50", tag: str = "path",
-               limits=BF16_BATCHED_VS_SERIAL_LIMITS, overrides: dict = None) -> dict:
+               limits=BF16_BATCHED_VS_SERIAL_LIMITS, overrides: dict = None,
+               trunk_es=(1, 2, 4, 8)) -> dict:
     """run_video_batch (E = 4, two 5-frame windows) through the kernel;
     expression isolation and where batched and serial part; the batched
     masks against serial run_video for every caption of every video (bf16
-    within ``limits``); times. The flagship on ``backbone``, with the
-    model options ``overrides``."""
+    within ``limits``); times, the trunk's at each E of ``trunk_es``. The
+    flagship on ``backbone``, with the model options ``overrides``."""
     import torch
 
     from tce_rvos_tpu_torch import flagship_config
@@ -1228,7 +1246,7 @@ def phase_path(dtype_name: str, sd, videos, backbone: str = "resnet50", tag: str
     feats = engine.backbone(video, mask)
     backbone_ms = cuda_ms(lambda: engine.backbone(video, mask), reps=10)
     trunk = {}
-    for e in (1, 2, 4, 8):
+    for e in trunk_es:
         ids, attn = tokenize([CAPTIONS[i % len(CAPTIONS)] for i in range(e)])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1684,10 +1702,27 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Every kernel's launch counter to 0: the MSDA kernels' and the flat
+    AdamW update's."""
+    from tce_rvos_tpu_torch.ops.flat_adamw_cuda import flat_adamw_cuda
     from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn, ms_deform_attn_3d
 
     for op in (ms_deform_attn, ms_deform_attn_3d):
         op.launches = op.backward_launches = 0
+    flat_adamw_cuda.launches = 0
+
+
+def adamw_launches() -> int:
+    """The launch counter of the flat AdamW update kernel."""
+    from tce_rvos_tpu_torch.ops.flat_adamw_cuda import flat_adamw_cuda
+
+    return flat_adamw_cuda.launches
+
+
+def adamw_per_step(state) -> int:
+    """Update kernel launches a step of ``state``'s optimizer makes: 1 for
+    the flat AdamW, 0 for torch.optim.AdamW (--no-flat_opt)."""
+    return state.optimizer.update_launches
 
 
 FLOPS_SOURCE = "from the JAX package's count of the 2D flagship"
@@ -1718,23 +1753,27 @@ def train_run(state, step, batches, label: str, tag: str, warmup: int = TRAIN_WA
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     train_one_epoch(state, timed, batches, epoch=0, print_freq=5)
-    counts = launch_counts()
+    counts, adamw = launch_counts(), adamw_launches()
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{label} {tag}: a loss is not finite: {losses}")
+    if adamw != adamw_per_step(state) * len(batches):
+        raise AssertionError(f"{label} {tag}: {adamw} flat AdamW update launches over "
+                             f"{len(batches)} steps, expected {adamw_per_step(state)} a step")
     ms = statistics.median(times[warmup:])
     n_steps = len(batches)
     out = dict(steps=n_steps, ms_per_step=ms, steps_per_s=1e3 / ms, step_ms=times,
                losses=losses, peak_gib=peak / 2**30, launches=counts["msda_fwd"],
                backward_launches=counts["msda_bwd"], launches_3d=counts["msda3d_fwd"],
-               backward_launches_3d=counts["msda3d_bwd"],
+               backward_launches_3d=counts["msda3d_bwd"], adamw_launches=adamw,
                mfu=useful_flops / (ms / 1e3) / BF16_DENSE_FLOPS_PER_S)
     log(f"{label} {tag}: {n_steps} steps, losses {[round(x, 4) for x in losses]}; "
         f"{ms:.3f} ms/step (median after {warmup} warm-up steps) = "
         f"{out['steps_per_s']:.3f} steps/s; max_memory_allocated {out['peak_gib']:.3f} GiB; "
         f"MSDA launches forward {counts['msda_fwd']}, backward {counts['msda_bwd']}, "
-        f"3D forward {counts['msda3d_fwd']}, 3D backward {counts['msda3d_bwd']}; "
-        f"MFU {100 * out['mfu']:.2f}% (useful FLOPs {useful_flops:.4e} per clip "
+        f"3D forward {counts['msda3d_fwd']}, 3D backward {counts['msda3d_bwd']}; flat AdamW "
+        f"update launches {adamw}; MFU {100 * out['mfu']:.2f}% (useful FLOPs "
+        f"{useful_flops:.4e} per clip "
         f"{flops_source}, over the H100 SXM bf16 dense peak of 989 TFLOP/s)")
     return out
 
@@ -1837,6 +1876,344 @@ def phase_train(sd) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 5b: the fused flat AdamW (parallel/flat_adamw.py, csrc/flat_adamw.cu)
+# ---------------------------------------------------------------------------
+
+# the update reads g, p, mu and nu and writes p, mu and nu (f32): 28 bytes
+# and 16 floating-point operations an element (the clip's scale, two for
+# mu, four for nu, two bias corrections, the root, eps, the quotient, the
+# decay, the LR and the difference); the norm reads g once more
+ADAMW_BYTES, ADAMW_FLOPS, NORM_BYTES = 28, 16, 4
+# p, mu and nu against the plain version: bitwise equal (every operation
+# is rounded alone on both sides, __f*_rn against torch's one kernel an
+# operation); weight decays of the default and of 0.1, whose term
+# lr * wd * |p| (1e-5 |p|) stands far above the rounding of p
+ADAMW_WDS = (None, 0.1)
+ADAMW_AB_STEPS = 6  # bf16 steps a turn of the flat against --no-flat_opt comparison
+
+
+def adamw_cases(lay, gen, dev):
+    """Seeded flat buffers at the layout's live width (p ~ 0.05; each
+    element's gradient and moments of one magnitude from 1e-6 to 1, so
+    that sqrt(nu) runs from below eps to far above it) and two gradients,
+    one with its norm below the clip and one far above it."""
+    import torch
+
+    n = lay.live_total
+    mag = 10.0 ** (torch.rand(n, generator=gen, device=dev) * 6 - 6)
+    p = torch.randn(n, generator=gen, device=dev) * 0.05
+    mu = torch.randn(n, generator=gen, device=dev) * mag * 1e-4
+    nu = torch.rand(n, generator=gen, device=dev) * (mag * 1e-4) ** 2
+    g = torch.randn(n, generator=gen, device=dev) * mag
+    g /= torch.linalg.vector_norm(g)
+    grads = {"below_clip": g * (0.2 * lay.clip), "above_clip": g * (100.0 * lay.clip)}
+    del g, mag
+    return p, mu, nu, grads
+
+
+def adamw_against_plain(p, g, mu, nu, gn, s, kernel=None) -> dict:
+    """The update kernel (``kernel``: the wrapper, or it with other
+    scalars) and ``flat_adamw_update_plain`` on copies of the same buffers:
+    each of p, mu and nu bitwise equal or not, and max |kernel - plain|."""
+    import torch
+
+    from tce_rvos_tpu_torch.ops.flat_adamw_cuda import flat_adamw_cuda
+    from tce_rvos_tpu_torch.parallel.flat_adamw import flat_adamw_update_plain
+
+    bufs = {}
+    for side, update in (("kernel", kernel or flat_adamw_cuda), ("plain", flat_adamw_update_plain)):
+        pk, mk, vk = p.clone(), mu.clone(), nu.clone()
+        update(pk, g, mk, vk, gn, s)
+        bufs[side] = (pk, mk, vk)
+    torch.cuda.synchronize()
+    out = {name: dict(equal=bool(torch.equal(a, b)), max_abs_err=float((a - b).abs().max()))
+           for name, a, b in zip(("p", "mu", "nu"), bufs["kernel"], bufs["plain"])}
+    del bufs
+    return out
+
+
+def flagship_layout(tcfg):
+    """The flat layout of the full-width flagship's parameters (built on the
+    meta device: shapes only)."""
+    import torch
+
+    from tce_rvos_tpu_torch import flagship_config
+    from tce_rvos_tpu_torch.models.referformer import ReferFormer
+    from tce_rvos_tpu_torch.parallel.flat_adamw import make_layout
+
+    with torch.device("meta"):
+        model = ReferFormer(flagship_config())
+    return make_layout(model, tcfg, steps_per_epoch=1000)
+
+
+def adamw_library(lay, p, g, s) -> dict:
+    """torch.optim.AdamW over the same parameters (one tensor a parameter,
+    copies of the flat buffers) in the same tier groups at the same LRs:
+    fused (one call of its kernels: ``library_ms``) and the default foreach
+    implementation, each alone and after the port's per-leaf clip
+    (``_foreach_norm``, the norm of the norms, ``_foreach_mul_``), timed
+    with CUDA events around each call (its host share included)."""
+    import torch
+
+    out = {}
+    for impl in ("fused", "foreach"):
+        pl, gl = p.clone(), g.clone()
+        params = [pl[o:o + sz].view(sh) for o, sz, sh in zip(lay.offsets, lay.sizes, lay.shapes)]
+        grads = [gl[o:o + sz].view(sh) for o, sz, sh in zip(lay.offsets, lay.sizes, lay.shapes)]
+        for q, gq in zip(params, grads):
+            q.grad = gq
+        groups = []
+        for (t_lo, t_hi, _), lr in zip(lay.tier_slices, s.lrs):
+            idx = [i for i, o in enumerate(lay.offsets) if t_lo <= o < t_hi]
+            groups.append({"params": [params[i] for i in idx], "lr": lr})
+        opt = torch.optim.AdamW(groups, betas=(s.b1, s.b2), eps=s.eps, weight_decay=lay.wd,
+                                **{impl: True})
+        opt.step()  # its state, allocated at the first step
+        out[impl] = cuda_ms(opt.step, reps=10, warmup=2)
+
+        def clipped():
+            gn = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            torch._foreach_mul_(grads, torch.where(gn < lay.clip, 1.0, lay.clip / gn))
+            opt.step()
+
+        out[f"{impl}_clip"] = cuda_ms(clipped, reps=10, warmup=2)
+        del opt, params, grads, groups, pl, gl
+        torch.cuda.empty_cache()
+    return out
+
+
+def explain_gap(gap: dict, want: dict, got: dict, start: dict, tcfg, grads=None) -> dict:
+    """Where a first step's largest parameter gap (``check_dp_step``'s
+    ``param_worst``) is, read through Adam's first update, which is about
+    ``-lr g / (|g| + eps)`` (plus the decay): on each side the move of the
+    element, its Adam ratio ``a = -(p1 - p0 (1 - lr wd)) / lr`` and the
+    clipped gradient ``g / eps = a / (1 - |a|)`` that ratio implies; with
+    ``grads`` (the reference's clipped gradients) the reference's own."""
+    from tce_rvos_tpu_torch.parallel.flat_adamw import EPS
+    from tce_rvos_tpu_torch.parallel.train_step import param_group, tier_lrs
+
+    name, i = gap["param_worst"]
+    p0 = float(start[name].flatten()[i])
+    lr = tier_lrs(tcfg)[param_group(name, tcfg)]
+    out = dict(name=name, index=i, p0=p0, lr=lr)
+    for side, run in (("want", want), ("got", got)):
+        p1 = float(run["params"][name].flatten()[i])
+        a = -(p1 - p0 * (1 - lr * tcfg.weight_decay)) / lr
+        out[side] = dict(move=p1 - p0, adam=a, g_over_eps=a / max(1 - abs(a), 1e-6))
+    if grads is not None:
+        out["want"]["g_clipped_over_eps"] = float(grads[name].flatten()[i]) / EPS
+    return out
+
+
+def gap_line(w: dict) -> str:
+    return (f"largest at {w['name']}[{w['index']}] (p0 {w['p0']:.6e}, lr {w['lr']:.1e}): moved "
+            f"{w['want']['move']:.6e} against {w['got']['move']:.6e}, Adam ratios "
+            f"{w['want']['adam']:.4f} and {w['got']['adam']:.4f}, clipped gradients of about "
+            f"{w['want']['g_over_eps']:.3f} and {w['got']['g_over_eps']:.3f} eps"
+            + (f" (the reference's: {w['want']['g_clipped_over_eps']:.3f} eps)"
+               if "g_clipped_over_eps" in w["want"] else ""))
+
+
+def phase_flat_adamw(sd, train: dict) -> dict:
+    """Phase 5b, the fused flat AdamW on the card:
+    1. its update kernel against ``flat_adamw_update_plain`` at the
+       flagship's full width (183,506,503 parameters in its four tiers,
+       each at a 256-byte boundary), from seeded buffers, at Adam steps 1
+       and 1000 with the gradient norm below and above the clip, at the
+       default weight decay and at 0.1: p, mu and nu bitwise equal; the
+       same gate refuses the kernel launched without decay or eps;
+    2. its time by CUDA-graph replay, alone and after the norm, against
+       their bounds (28 and 32 bytes an element over 3.35 TB/s), the plain
+       version's and torch.optim.AdamW's (fused and foreach, alone and with
+       the per-leaf clip) over the same parameters and tiers;
+    3. the flagship's f32 step (dropout off, 2x192x320) with the flat
+       AdamW against ``--no-flat_opt`` from the same weights: the loss
+       bitwise equal (the forward through the aligned views runs the
+       per-leaf kernels), the rest at the JAX package's DP tolerances
+       (``dryrun.DP_TOL``), where the largest parameter gap is;
+    4. the same two models' bf16 steps (dropout on) in turns, flat,
+       ``--no-flat_opt``, ``--no-flat_opt``, flat (ms/step each turn, one
+       update launch a flat step and none a ``--no-flat_opt`` one), and
+       one profiled ``--no-flat_opt`` step (device-busy share, device-op
+       count) beside phase 5's profiled flat step (``train``).
+    Phase 5's run gives the main path's launches: one update a step."""
+    import dataclasses
+
+    import torch
+
+    from tce_rvos_tpu_torch import flagship_config
+    from tce_rvos_tpu_torch.config import TrainConfig
+    from tce_rvos_tpu_torch.models.criterion import criterion_from_configs
+    from tce_rvos_tpu_torch.models.referformer import ReferFormer
+    from tce_rvos_tpu_torch.ops.flat_adamw_cuda import flat_adamw_cuda
+    from tce_rvos_tpu_torch.parallel import dryrun
+    from tce_rvos_tpu_torch.parallel.flat_adamw import (
+        flat_adamw_update_plain,
+        global_norm,
+        update_scalars,
+    )
+    from tce_rvos_tpu_torch.parallel.train_step import (
+        batch_to_device,
+        create_train_state,
+        make_train_step,
+    )
+
+    label = "[flat adamw]"
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    tcfg = TrainConfig()
+    lay = flagship_layout(tcfg)
+    n = lay.live_total
+    if lay.frozen_len:  # the default tiers: every parameter live
+        raise AssertionError(f"{label} the flagship's layout freezes {lay.frozen_len} elements")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    p, mu, nu, grads = adamw_cases(lay, gen, dev)
+
+    # 1. the kernel against the plain version, bitwise; then the kernel
+    # launched without its weight decay and without eps, which the same
+    # gate must refuse
+    cases, worst = {}, 0.0
+    for count in (1, 1000):
+        for which, g in grads.items():
+            gn = global_norm(g)
+            for wd in ADAMW_WDS:
+                lay_wd = lay if wd is None else dataclasses.replace(lay, wd=wd)
+                s = update_scalars(lay_wd, count - 1, sched=count - 1)
+                got = adamw_against_plain(p, g, mu, nu, gn, s)
+                errs = {k: v["max_abs_err"] for k, v in got.items()}
+                tag = f"count{count}/{which}/wd{lay_wd.wd}"
+                cases[tag] = dict(gnorm=float(gn), max_abs_err=errs)
+                worst = max(worst, max(errs.values()))
+                log(f"{label} {tag} (gnorm {float(gn):.4e}, clip {lay.clip}): max "
+                    f"|kernel - plain| p {errs['p']:.3e}, mu {errs['mu']:.3e}, nu "
+                    f"{errs['nu']:.3e}; bitwise equal: {all(v['equal'] for v in got.values())}")
+                if not all(v["equal"] for v in got.values()):
+                    raise AssertionError(f"{label} {tag}: the kernel is not bitwise the plain "
+                                         f"version: max |kernel - plain| {errs}")
+    s = update_scalars(lay, 999, sched=999)
+    g = grads["below_clip"]
+    gn = global_norm(g)
+    refused = {}
+    for name, wrong in (("no decay", s._replace(decays=(1.0,) * len(s.his))),
+                        ("no eps", s._replace(eps=0.0))):
+        got = adamw_against_plain(p, g, mu, nu, gn, s,
+                                  kernel=lambda *a, w=wrong: flat_adamw_cuda(*a[:5], w))
+        refused[name] = got["p"]["max_abs_err"]
+        if got["p"]["equal"]:
+            raise AssertionError(f"{label} the gate passes the kernel launched with {name}")
+    log(f"{label} the gate refuses the kernel launched without its weight decay (max |p - "
+        f"plain| {refused['no decay']:.3e}) and without eps ({refused['no eps']:.3e}), at "
+        "count 1000, the default weight decay, below the clip")
+
+    # 2. times
+    g = grads["above_clip"]
+    del grads["below_clip"]
+    s = update_scalars(lay, 999, sched=999)
+    gn = global_norm(g)
+    pk, mk, vk = p.clone(), mu.clone(), nu.clone()
+    ms = graph_ms(lambda: flat_adamw_cuda(pk, g, mk, vk, gn, s))
+    pair_ms = graph_ms(lambda: flat_adamw_cuda(pk, g, mk, vk, global_norm(g), s))
+    norm_ms = graph_ms(lambda: global_norm(g))
+    plain_ms = cuda_ms(lambda: flat_adamw_update_plain(pk, g, mk, vk, gn, s), reps=5, warmup=1)
+    del pk, mk, vk
+    torch.cuda.empty_cache()
+    library = adamw_library(lay, p, g, s)
+    del p, mu, nu, g, grads
+    torch.cuda.empty_cache()
+    bytes_ms = ADAMW_BYTES * n / HBM_BYTES_PER_S * 1e3
+    ops_ms = ADAMW_FLOPS * n / FP32_FLOPS_PER_S * 1e3
+    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    pair_bound_ms = (ADAMW_BYTES + NORM_BYTES) * n / HBM_BYTES_PER_S * 1e3
+    log(f"{label} {n} elements ({sum(lay.sizes)} parameters and their padding to 256-byte "
+        f"boundaries) in {len(lay.tier_slices)} tiers: the update kernel "
+        f"{ms:.4f} ms (graph replay) against its bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{ADAMW_BYTES} B an element over 3.35 TB/s; {ADAMW_FLOPS} flops an element over "
+        f"67 TFLOP/s: {ops_ms:.4f} ms), {100 * bound_ms / ms:.1f}% of it; norm + update "
+        f"{pair_ms:.4f} ms against {pair_bound_ms:.4f}; the norm alone {norm_ms:.4f} ms; the "
+        f"plain version {plain_ms:.3f} ms; torch.optim.AdamW over the same {len(lay.names)} "
+        f"tensors in the same tiers: fused {library['fused']:.3f} ms (with the per-leaf clip "
+        f"{library['fused_clip']:.3f}), foreach {library['foreach']:.3f} ms (with the clip "
+        f"{library['foreach_clip']:.3f})")
+
+    # 3. two flagship models from the same weights, one per optimizer: one
+    # f32 step each (dropout off), flat against --no-flat_opt
+    cfg = flagship_config(compute_dtype="bfloat16")
+    crit = criterion_from_configs(cfg, tcfg)
+    batch = train_batch(PARITY_T, PARITY_HW, seed=3)
+    states, runs = {}, {}
+    for flat_opt in (True, False):
+        model = ReferFormer(cfg)
+        model.load_state_dict(sd, strict=True)
+        model.to(dev).eval()
+        states[flat_opt] = create_train_state(model, TrainConfig(flat_opt=flat_opt),
+                                              steps_per_epoch=1000)
+        _, m = make_train_step(crit)(states[flat_opt], batch)  # f32: no compute dtype
+        runs[flat_opt] = {"metrics": {k: float(v) for k, v in m.items()},
+                          "params": {k: v.detach().cpu() for k, v in model.named_parameters()}}
+    step_gap = dryrun.check_dp_step(runs[True], runs[False], f"{label} f32 step, flat against "
+                                                            "--no-flat_opt")
+    # with every parameter at a 256-byte boundary the forward through the
+    # flat buffer's views runs the kernels the per-leaf tensors get
+    step_gap["loss_equal"] = runs[True]["metrics"]["loss"] == runs[False]["metrics"]["loss"]
+    if not step_gap["loss_equal"]:
+        raise AssertionError(f"{label} the f32 loss through the flat buffer "
+                             f"{runs[True]['metrics']['loss']!r} is not --no-flat_opt's "
+                             f"{runs[False]['metrics']['loss']!r} from the same weights")
+    step_gap["worst"] = explain_gap(step_gap, runs[False], runs[True], sd, tcfg)
+    log(f"{label} the flagship's f32 step with the flat AdamW against --no-flat_opt from the "
+        f"same weights: loss {step_gap['loss_rel']:.3e} rel (bitwise equal: "
+        f"{step_gap['loss_equal']}), grad norm {step_gap['grad_norm_rel']:.3e} rel, parameters "
+        f"{step_gap['param_max_abs']:.3e} abs (limits {dryrun.DP_TOL}); "
+        + gap_line(step_gap["worst"]))
+    del runs
+
+    # 4. their bf16 steps (dropout on) in turns, flat, --no-flat_opt,
+    # --no-flat_opt, flat, then one profiled --no-flat_opt step (phase 5
+    # profiled the flat one)
+    step = make_train_step(crit, cfg.compute_dtype)
+    batches = [batch_to_device(train_batch(TRAIN_T, TRAIN_HW, seed=10 + i), dev)
+               for i in range(ADAMW_AB_STEPS)]
+    turns = {True: [], False: []}
+    for flat_opt in (True, False, False, True):
+        states[flat_opt].model.train()
+        tag = "bf16 steps, flat AdamW" if flat_opt else "bf16 steps, --no-flat_opt"
+        turns[flat_opt].append(train_run(states[flat_opt], step, batches, label, tag))
+    profiles = {True: train["profile"],
+                False: profile_device(lambda: step(states[False], batches[0]),
+                                      f"{label} profiled bf16 step, --no-flat_opt")}
+    bf16 = {}
+    for flat_opt, name in ((True, "flat"), (False, "no_flat_opt")):
+        prof = profiles[flat_opt]
+        bf16[name] = dict(ms_per_step=[r["ms_per_step"] for r in turns[flat_opt]],
+                          step_ms=[r["step_ms"] for r in turns[flat_opt]],
+                          adamw_launches_per_step=[r["adamw_launches"] / r["steps"]
+                                                   for r in turns[flat_opt]],
+                          **{k: prof[k] for k in ("device_ops", "device_busy_ms",
+                                                  "profiled_wall_ms")})
+    del states, batches, step
+    torch.cuda.empty_cache()
+    log(f"{label} bf16 step in turns (flat, --no-flat_opt, --no-flat_opt, flat; median ms/step "
+        f"after {TRAIN_WARMUP} warm-up steps of {ADAMW_AB_STEPS}): flat "
+        f"{bf16['flat']['ms_per_step']}, --no-flat_opt {bf16['no_flat_opt']['ms_per_step']}; "
+        f"profiled step: flat (phase 5) {bf16['flat']['device_ops']} device ops, "
+        f"{bf16['flat']['device_busy_ms']:.3f} ms busy of {bf16['flat']['profiled_wall_ms']:.3f}; "
+        f"--no-flat_opt {bf16['no_flat_opt']['device_ops']} device ops, "
+        f"{bf16['no_flat_opt']['device_busy_ms']:.3f} ms busy of "
+        f"{bf16['no_flat_opt']['profiled_wall_ms']:.3f}; update launches a step "
+        f"{bf16['flat']['adamw_launches_per_step']} and "
+        f"{bf16['no_flat_opt']['adamw_launches_per_step']}")
+    res = dict(elements=n, parameters=sum(lay.sizes), tiers=[list(t) for t in lay.tier_slices],
+               cases=cases,
+               max_abs_err=worst, gate_refuses=refused, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by,
+               bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms, pair_ms=pair_ms,
+               pair_bound_ms=pair_bound_ms, norm_ms=norm_ms, library=library,
+               library_ms=library["fused"], step_gap=step_gap, bf16_step=bf16,
+               seconds=time.perf_counter() - t_phase)
+    log(f"{label} phase 5b wall {res['seconds']:.1f} s")
+    return res
+
 TRAIN_STEPS_3D = 4
 
 
@@ -1938,6 +2315,9 @@ def phase_train_parity(sd, msda_3d: bool = False) -> None:
         metrics[dev] = {k: float(v) for k, v in m.items()}
         secs = time.perf_counter() - t0
         launched = launch_counts()
+        if adamw_launches() != (1 if dev == "cuda" else 0):
+            raise AssertionError(f"{label} {dev} step launched the flat AdamW update "
+                                 f"{adamw_launches()} times, expected once on the GPU only")
         log(f"{label} {dev}: one f32 step on a {PARITY_T}x{PARITY_HW[0]}x{PARITY_HW[1]} "
             f"clip in {secs:.3f} s, loss {metrics[dev]['loss']:.6f}, MSDA launches {launched}")
         if launched != (expected if dev == "cuda" else {k: 0 for k in expected}):
@@ -2577,17 +2957,21 @@ def main_run(rec: dict, argv: list, label: str, launches_per_step: dict, entry=N
     t0 = time.perf_counter()
     state = (entry or train.main)(argv)
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    counts, adamw = launch_counts(), adamw_launches()
     steps = rec["steps"][first:]
     want = {k: v * len(steps) for k, v in launches_per_step.items()}
     if counts != want:
         raise AssertionError(f"{label}: MSDA launches {counts} over {len(steps)} steps, expected "
                              f"{launches_per_step} per step")
+    if adamw != adamw_per_step(state) * len(steps):
+        raise AssertionError(f"{label}: {adamw} flat AdamW update launches over {len(steps)} "
+                             f"steps, expected {adamw_per_step(state)} a step")
     losses = [s["loss"] for s in steps]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{label}: a loss is not finite: {losses}")
     out = dict(steps=len(steps), wall_s=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-               launches=counts, saves=rec["saves"][n_saves:], loads=rec["loads"][n_loads:],
+               launches=counts, adamw_launches=adamw, saves=rec["saves"][n_saves:],
+               loads=rec["loads"][n_loads:],
                attempts=rec["attempts"] - attempts, samples=rec["samples"] - samples,
                invisible_frames=sum(s["invisible"] for s in steps),
                hw=sorted({s["hw"] for s in steps}))
@@ -2618,23 +3002,43 @@ def main_run(rec: dict, argv: list, label: str, launches_per_step: dict, entry=N
     return state, out
 
 
+def adam_counts(state) -> set:
+    """The Adam step counters (bias correction) of ``state``'s optimizer:
+    the flat AdamW's ``count``, or torch.optim.AdamW's per-parameter
+    ``step`` values (empty before its first step)."""
+    return state.optimizer.adam_counts()
+
+
+def same_state(live, saved) -> bool:
+    """Nested state dicts equal, tensors bitwise."""
+    import torch
+
+    if isinstance(saved, dict):
+        return (sorted(map(str, live)) == sorted(map(str, saved))
+                and all(same_state(live[k], saved[k]) for k in saved))
+    if isinstance(saved, (list, tuple)):
+        return len(live) == len(saved) and all(map(same_state, live, saved))
+    if isinstance(saved, torch.Tensor):
+        return live.cpu().equal(saved)
+    return live == saved
+
+
 def assert_state_saved(state, path: str, label: str) -> None:
-    """Every parameter, buffer and AdamW state tensor of ``state`` bitwise
-    equal to the checkpoint directory ``path``."""
+    """Every parameter, buffer and optimizer state tensor of ``state``
+    bitwise equal to the checkpoint directory ``path`` (the flat AdamW's
+    layout, counters, moments and norm, or AdamW's per-parameter state),
+    Adam's counters at the step count."""
     from tce_rvos_tpu_torch.utils.native_ckpt import load_checkpoint
 
     sd, opt_sd, _ = load_checkpoint(path)
     for name, value in state.model.state_dict().items():
         if not value.cpu().equal(sd[name]):
             raise AssertionError(f"{label}: {name} is not the saved tensor")
-    live = state.optimizer.state_dict()["state"]
-    if sorted(live) != sorted(opt_sd["state"]) or not live:
-        raise AssertionError(f"{label}: AdamW holds state for {len(live)} parameters, the "
-                             f"checkpoint for {len(opt_sd['state'])}")
-    for i, entry in opt_sd["state"].items():
-        for k, v in entry.items():
-            if not live[i][k].cpu().equal(v):
-                raise AssertionError(f"{label}: AdamW's {k} of parameter {i} is not the saved one")
+    if not same_state(state.optimizer.state_dict(), opt_sd):
+        raise AssertionError(f"{label}: the optimizer state is not the saved one")
+    if adam_counts(state) != {state.step}:
+        raise AssertionError(f"{label}: Adam's counters {sorted(adam_counts(state))} at step "
+                             f"{state.step}")
 
 
 def data_share(logs: list) -> list:
@@ -2729,10 +3133,10 @@ def phase_main(root: str) -> dict:
         shutil.rmtree(out)
 
         def pth_resumed(state):
-            if state.step != 2 * spe or state.optimizer.state:
+            if state.step != 2 * spe or adam_counts(state) not in (set(), {0}):
                 raise AssertionError(
-                    f"{label} run 3 starts at step {state.step} (expected {2 * spe}) with AdamW "
-                    f"state for {len(state.optimizer.state)} parameters (expected 0)")
+                    f"{label} run 3 starts at step {state.step} (expected {2 * spe}) with Adam "
+                    f"step counters {sorted(adam_counts(state))} (expected none or 0)")
 
         rec["on_first"] = pth_resumed
         out_pth = os.path.join(root, "out_pth")
@@ -2747,8 +3151,8 @@ def phase_main(root: str) -> dict:
             raise AssertionError(f"{label} run 3's first LR {first_lr}, the schedule's at step "
                                  f"{2 * spe} is {want_lr}")
         # a fresh AdamW: its own counters count this epoch's steps only
-        adam_steps = {float(v["step"]) for v in state.optimizer.state.values()}
-        if state.step != 3 * spe or adam_steps != {float(spe)}:
+        adam_steps = adam_counts(state)
+        if state.step != 3 * spe or adam_steps != {spe}:
             raise AssertionError(f"{label} run 3 ends at step {state.step} (expected {3 * spe}) "
                                  f"with AdamW step counters {sorted(adam_steps)} (expected {spe})")
         if [x["epoch"] for x in read_log(out_pth)] != [2]:
@@ -3579,8 +3983,10 @@ def phase_backbones(videos, root: str) -> dict:
                        "video_swin_b_e4": phase_kernels(e=4)},
            "backward": {"video_swin_b_train": phase_backward_kernels()}}
     sd = random_state_dict(flagship_config(backbone=VSWIN_B), seed=0)
+    # the f32 trunk at E = 4 only (the script's time limit)
     res["path"] = {dtype: phase_path(dtype, sd, videos[:2], backbone=VSWIN_B,
-                                     tag="backbones video_swin_b", limits=VSWIN_B_BF16_LIMITS)[0]
+                                     tag="backbones video_swin_b", limits=VSWIN_B_BF16_LIMITS,
+                                     trunk_es=(1, 2, 4, 8) if dtype == "bfloat16" else (4,))[0]
                    for dtype in ("bfloat16", "float32")}
     phase_parity(sd, videos[0], backbone=VSWIN_B)
     res["whole_video"] = whole_video_backbone(root)
@@ -4019,25 +4425,48 @@ def reduction_probe():
     """Wraps the train step's gradient all-reduce and its sum of the logged
     losses: every gradient and every loss bitwise the same after them as
     before (one rank reduces to itself), the backend and world held, and
-    the all-reduce timed to its end on the device (ms per call)."""
+    the all-reduce timed to its end on the device (ms per call); exactly
+    one all-reduce a step, of every parameter's gradient (with the flat
+    AdamW, in place on its gradient buffer)."""
     import torch
     import torch.distributed as dist
 
-    from tce_rvos_tpu_torch.parallel import train_step
+    from tce_rvos_tpu_torch.parallel import collectives, train_step
 
-    rec = {"allreduce_ms": [], "checked_grads": 0, "checked_losses": 0}
+    rec = {"allreduce_ms": [], "checked_grads": 0, "checked_losses": 0, "allreduce_calls": []}
     reduce_grads, sum_losses = train_step.all_reduce_gradients, train_step.sum_over_ranks
+    all_reduce_sum_ = collectives.all_reduce_sum_
 
-    def grads_checked(model):
+    def grads_checked(state):
         if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
             raise AssertionError(f"[dist] the process group is {dist.get_backend()} of "
                                  f"{dist.get_world_size()}, expected NCCL of 1")
+        model = state.model
         before = [None if p.grad is None else p.grad.clone() for p in model.parameters()]
+        calls = []
+
+        def counted(t):
+            calls.append((t.data_ptr(), t.numel()))
+            return all_reduce_sum_(t)
+
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        reduce_grads(model)
+        collectives.all_reduce_sum_ = counted
+        try:
+            reduce_grads(state)
+        finally:
+            collectives.all_reduce_sum_ = all_reduce_sum_
         torch.cuda.synchronize()
         rec["allreduce_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["allreduce_calls"].append(len(calls))
+        buf = getattr(state.optimizer, "grads", None)  # the flat AdamW's gradient buffer
+        n = buf.numel() if buf is not None else sum(p.numel() for p in model.parameters()
+                                                    if p.requires_grad)
+        if len(calls) != 1 or calls[0][1] != n or (buf is not None
+                                                   and calls[0][0] != buf.data_ptr()):
+            raise AssertionError(f"[dist] the gradient all-reduce made the calls {calls}, "
+                                 f"expected one of {n} elements"
+                                 + (" on the flat buffer" if buf is not None else ""))
         for (name, p), b in zip(model.named_parameters(), before):
             if (b is None) != (p.grad is None) or (b is not None and not torch.equal(b, p.grad)):
                 raise AssertionError(f"[dist] the all-reduce changed the gradient of {name}")
@@ -4107,6 +4536,100 @@ def rle_native_against_numpy(masks: list, label: str) -> dict:
     return {"masks": len(masks), "pixels": pixels}
 
 
+def dist_step_spec(cfg, root: str):
+    """The two-rank step's spec for ``dryrun.train_step_on_shard``: seeded
+    weights of ``cfg`` and two seeded 5x384x640 clips (one frame of the
+    second not valid) written under ``root``. Returns (spec, weights)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    spec = {"model": dataclasses.asdict(cfg), "device": "cuda",
+            "weights": os.path.join(root, "dist_weights.pt"),
+            "batch": os.path.join(root, "dist_batch.pt")}
+    weights = random_state_dict(cfg, seed=5)
+    torch.save(weights, spec["weights"])
+    clips = [train_batch(5, (384, 640), seed=s) for s in (50, 51)]
+    batch = {k: np.concatenate([c[k] for c in clips]) for k in clips[0] if k != "targets"}
+    batch["targets"] = {k: np.concatenate([c["targets"][k] for c in clips])
+                        for k in clips[0]["targets"]}
+    batch["targets"]["valid"][1, 2] = 0
+    torch.save(batch, spec["batch"])
+    return spec, weights
+
+
+def gap_rank(rank: int, spec: dict) -> dict:
+    """One of ``probe_dist_gap``'s two gloo processes: phase 13's f32 step
+    (TF32 off) with the flat AdamW's ``ALIGN`` at ``spec["align"]``."""
+    import torch
+
+    from tce_rvos_tpu_torch.parallel import dryrun, flat_adamw
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flat_adamw.ALIGN = spec["align"]
+    step = dryrun.train_step_on_shard(rank, spec)
+    step.pop("grads", None)
+    return step
+
+
+GAP_SETUPS = (("flat", 64, True), ("flat_packed", 1, True), ("no_flat_opt", 64, False))
+
+
+def probe_dist_gap(root: str) -> dict:
+    """``python3 chip_smoke.py --dist-gap``: phase 13's two-rank gloo step
+    against one process, from the same weights and clips, under three
+    set-ups: the flat AdamW with every parameter at a 256-byte boundary
+    (the default), the flat AdamW with its parameters packed (the JAX
+    layout, ``ALIGN`` 1) and ``--no-flat_opt``. For each, the gaps and
+    where the largest parameter gap is (``explain_gap``); and whether each
+    one-process reference's loss is bitwise ``--no-flat_opt``'s."""
+    import torch
+
+    from tce_rvos_tpu_torch import flagship_config
+    from tce_rvos_tpu_torch.config import TrainConfig
+    from tce_rvos_tpu_torch.parallel import dryrun, flat_adamw
+
+    label = "[dist gap]"
+    cfg = flagship_config(**DIST_MODEL)
+    spec, weights = dist_step_spec(cfg, root)
+    out, refs = {}, {}
+    for tag, align, flat_opt in GAP_SETUPS:
+        spec_t = dict(spec, align=align, train={"flat_opt": flat_opt})
+        flat_adamw.ALIGN = align
+        try:
+            want = dryrun.train_step_on_shard(0, spec_t)
+        finally:
+            flat_adamw.ALIGN = 64
+        ranks = dryrun.run_processes(2, gap_rank, (spec_t,), device="cuda", backend="gloo",
+                                     timeout=600)
+        gap = dryrun.check_dp_step(ranks[0], want, f"{label} {tag}")
+        worst = explain_gap(gap, want, ranks[0], weights, TrainConfig(flat_opt=flat_opt),
+                            grads=want["grads"])
+        refs[tag] = want
+        out[tag] = dict(gap=gap, worst=worst, loss=want["metrics"]["loss"],
+                        grad_norm=want["metrics"]["grad_norm"])
+        log(f"{label} {tag}: two ranks against one process: loss {gap['loss_rel']:.3e} rel, "
+            f"grad norm {gap['grad_norm_rel']:.3e} rel, parameters {gap['param_max_abs']:.3e} "
+            f"abs; " + gap_line(worst))
+        del ranks
+    base = refs["no_flat_opt"]
+    for tag in ("flat", "flat_packed"):
+        g = max(float((refs[tag]["grads"][k] - v).abs().max()) for k, v in base["grads"].items())
+        out[tag]["against_no_flat_opt"] = dict(
+            loss_equal=refs[tag]["metrics"]["loss"] == base["metrics"]["loss"],
+            loss_rel=abs(refs[tag]["metrics"]["loss"] / base["metrics"]["loss"] - 1),
+            clipped_grad_max_abs=g)
+        log(f"{label} one process, {tag} against --no-flat_opt: loss bitwise equal "
+            f"{out[tag]['against_no_flat_opt']['loss_equal']} "
+            f"({out[tag]['against_no_flat_opt']['loss_rel']:.3e} rel), clipped gradients "
+            f"{g:.3e} max abs")
+    del refs, base, weights
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_dist(jhmdb_tree: str, root: str) -> dict:
     """Phase 13, the port's multi-process path and its host modules:
     (a) ``train.main`` at world 1 over NCCL through the launcher's
@@ -4129,10 +4652,8 @@ def phase_dist(jhmdb_tree: str, root: str) -> dict:
     (d) ``utils/profiling.trace`` around the one-process step writes a
         Chrome trace holding its annotation and device kernels;
         ``device_memory_stats`` reads the card."""
-    import dataclasses
     import shutil
 
-    import numpy as np
     import torch
 
     from tce_rvos_tpu_torch import flagship_config, native
@@ -4193,18 +4714,9 @@ def phase_dist(jhmdb_tree: str, root: str) -> dict:
 
     # (b) two processes on the card over gloo, against one process
     cfg = flagship_config(**DIST_MODEL)
-    spec = {"model": dataclasses.asdict(cfg), "device": "cuda",
-            "weights": os.path.join(root, "dist_weights.pt"),
-            "batch": os.path.join(root, "dist_batch.pt"),
-            "eval_argv": [os.path.join(root, "out_dist_jhmdb_2") if a.endswith("out_dist_jhmdb")
-                          else a for a in argv]}
-    torch.save(random_state_dict(cfg, seed=5), spec["weights"])
-    clips = [train_batch(5, (384, 640), seed=s) for s in (50, 51)]
-    batch = {k: np.concatenate([c[k] for c in clips]) for k in clips[0] if k != "targets"}
-    batch["targets"] = {k: np.concatenate([c["targets"][k] for c in clips])
-                        for k in clips[0]["targets"]}
-    batch["targets"]["valid"][1, 2] = 0
-    torch.save(batch, spec["batch"])
+    spec, weights = dist_step_spec(cfg, root)
+    spec["eval_argv"] = [os.path.join(root, "out_dist_jhmdb_2") if a.endswith("out_dist_jhmdb")
+                         else a for a in argv]
     # (d) the one-process step under the profiler
     trace_dir = os.path.join(root, "trace")
     reset_launch_counts()
@@ -4246,7 +4758,11 @@ def phase_dist(jhmdb_tree: str, root: str) -> dict:
             raise AssertionError(f"{label} rank {i}'s evaluation launches {r['eval_launches']}")
     if want["launches"] != per_step:
         raise AssertionError(f"{label} one-process step launches {want['launches']}")
-    res["gloo"] = dict(gaps=gaps, loss=want["metrics"]["loss"],
+    from tce_rvos_tpu_torch.config import TrainConfig
+
+    worst = explain_gap(gaps[0], want, ranks[0]["step"], weights, TrainConfig(),
+                        grads=want["grads"])
+    res["gloo"] = dict(gaps=gaps, worst=worst, loss=want["metrics"]["loss"],
                        step_launches=[r["step"]["launches"] for r in ranks],
                        eval_launches=[r["eval_launches"] for r in ranks],
                        eval_samples=run_native["samples"])
@@ -4255,8 +4771,9 @@ def phase_dist(jhmdb_tree: str, root: str) -> dict:
             f"rank {i} loss {g['loss_rel']:.3e} rel, grad norm {g['grad_norm_rel']:.3e} rel, "
             f"parameters {g['param_max_abs']:.3e} abs" for i, g in enumerate(gaps))
         + f"; the ranks' parameters bitwise equal; launches {per_step} a rank; JHMDB metrics "
-        f"merged from two shards equal one process's exactly; {res['gloo_wall_s']:.1f} s")
-    del want, ranks
+        f"merged from two shards equal one process's exactly; {res['gloo_wall_s']:.1f} s; "
+        + gap_line(worst))
+    del want, ranks, weights
 
     # (a) train.main at world 1 over NCCL
     tree = write_tree(os.path.join(root, "dist_tree"), "train", DIST_VIDEOS, seed=21,
@@ -4275,13 +4792,15 @@ def phase_dist(jhmdb_tree: str, root: str) -> dict:
     shutil.rmtree(out)
     res["nccl"] = dict(run, allreduce_ms=red["allreduce_ms"],
                        allreduce_ms_median=statistics.median(red["allreduce_ms"]),
+                       allreduce_calls=red["allreduce_calls"],
                        grads_checked=red["checked_grads"])
     torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_phase
     log(f"{label} train.main over NCCL at world 1: {run['steps']} steps, every gradient and "
         f"loss bitwise through the reductions ({red['checked_grads']} gradients checked); the "
         f"gradient all-reduce {res['nccl']['allreduce_ms_median']:.3f} ms a step (median of "
-        f"{len(red['allreduce_ms'])}); phase 13 wall {res['seconds']:.1f} s")
+        f"{len(red['allreduce_ms'])}), {red['allreduce_calls']} all-reduce calls a step on the "
+        f"flat buffer; phase 13 wall {res['seconds']:.1f} s")
     return res
 
 
@@ -4295,7 +4814,7 @@ def nvidia_smi_line() -> str:
 
 def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, train: dict,
                  serve3: dict, train3: dict, main_runs: dict, evals: dict,
-                 backbones: dict, options: dict, dist: dict) -> dict:
+                 backbones: dict, options: dict, dist: dict, adamw: dict) -> dict:
     """The JSON ``kernels`` record: each kernel's main shape in its
     deployment dtype (the encoder call in bf16: E = 4 for the forwards'
     serving paths, N = 5 for the training steps' backwards) in the top-level
@@ -4318,7 +4837,13 @@ def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, tr
     ``--vlblock --no_rel_coord`` steps) likewise, with the 2D calls held at
     the ``train.main`` runs' largest padded shape (``options_HxW``);
     phase 13's paths (``train.main`` over NCCL at world 1, each gloo rank's
-    step and evaluation) likewise."""
+    step and evaluation) likewise. The flat AdamW update (``flat_adamw``)
+    replaces no Pallas kernel but the update XLA fuses
+    (``make_flat_adamw_fused``); its ``launches`` are phase 5's flagship
+    training run's, its numbers phase 5b's at the flagship's 183,506,503
+    elements, ``library_ms`` torch.optim.AdamW(fused=True).step over the
+    same parameters and tiers, with the norm + update pair and the other
+    library timings beside them."""
     def entry(name, source, replaces, also, main, launches, by_path, shapes):
         return {"name": name, "route": "cuda", "source": f"tce_rvos_tpu_torch/csrc/{source}",
                 "replaces": f"tce_rvos_tpu/ops/{replaces}",
@@ -4418,6 +4943,23 @@ def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, tr
               by_path({"serve": 0, "train": 0, "serve_3d": 0,
                        "train_3d": train3["backward_launches_3d"]}, "msda3d_bwd"),
               {**flat(bwd3), **at_main["bwd3"]}),
+        {"name": "flat_adamw", "route": "cuda", "source": "tce_rvos_tpu_torch/csrc/flat_adamw.cu",
+         "replaces": "tce_rvos_tpu/parallel/flat_adamw.py:238",
+         "replaces_kind": "not Pallas: the update XLA fuses (make_flat_adamw_fused)",
+         "launches": train["plain"]["adamw_launches"],
+         "launches_by_path": {
+             "train": train["plain"]["adamw_launches"],
+             "train_ckpt": train["ckpt"]["adamw_launches"],
+             "train_3d": train3["adamw_launches"],
+             "train_main": main_runs["run1"]["adamw_launches"],
+             "train_main_3d": main_runs["run4"]["adamw_launches"],
+             "train_main_nccl_world1": dist["nccl"]["adamw_launches"]},
+         "max_abs_err": adamw["max_abs_err"], "ms": adamw["ms"], "plain_ms": adamw["plain_ms"],
+         "bound_ms": adamw["bound_ms"], "bound_by": adamw["bound_by"],
+         "library_ms": adamw["library_ms"], "elements": adamw["elements"],
+         "pair_ms": adamw["pair_ms"], "pair_bound_ms": adamw["pair_bound_ms"],
+         "norm_ms": adamw["norm_ms"], "library_all_ms": adamw["library"],
+         "cases": adamw["cases"]},
     ]}
 
 
@@ -4473,6 +5015,8 @@ def main() -> int:
     done("4 parity")
     train = phase_train(sd)
     done("5 train")
+    adamw = phase_flat_adamw(sd, train)
+    done("5b flat adamw")
     phase_train_parity(sd)
     done("6 train parity")
     # the 3D f32 step, GPU and CPU each against float64, at two weight seeds
@@ -4509,18 +5053,40 @@ def main() -> int:
         # phase 13 evaluates phase 10's JHMDB tree
         dist = phase_dist(os.path.join(root, "eval", "jhmdb"), root)
         done("13 dist")
-    log("[numbers] " + json.dumps({"envelope": envelope, "protocols": protocols,
+    log("[numbers] " + json.dumps({"flat_adamw": adamw, "envelope": envelope,
+                                   "protocols": protocols,
                                    "main": main_runs, "eval": evals, "backbones": backbones,
                                    "options": options, "dist": dist, "times_s": times}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels_line(kern, bwd, kern3, bwd3, paths["bfloat16"]["launches"], train,
-                                  serve3, train3, main_runs, evals, backbones, options, dist)))
+                                  serve3, train3, main_runs, evals, backbones, options, dist,
+                                  adamw)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 
 
+def dist_gap_main() -> int:
+    """``python3 chip_smoke.py --dist-gap``: the kernels' build, then
+    ``probe_dist_gap``; its numbers as the last line but one."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = nvidia_smi_line()
+    log(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    phase_build()
+    with tempfile.TemporaryDirectory(prefix="dist_gap_") as root:
+        out = probe_dist_gap(root)
+    print(json.dumps(out))
+    print(smi)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dist_gap_main() if sys.argv[1:] == ["--dist-gap"] else main())

@@ -16,10 +16,13 @@ would run sine in silence) and ``--msda_impl`` other than ``auto``.
 either package and are accepted as they are.
 
 The training and data flags keep the JAX package's names and defaults too.
-``--flat_opt`` and ``--dropout_rng_impl`` choose TPU implementations of the
-same update and the same dropout distribution; the port accepts every
-value and runs ``torch.optim.AdamW`` and torch's generator for all of
-them. ``--ckpt_backend orbax`` selects the retained checkpoint manager
+``--flat_opt`` (the default) trains with the fused flat AdamW
+(``parallel/flat_adamw.py``: flat parameter and gradient buffers, one
+update kernel a step), ``--no-flat_opt`` with ``torch.optim.AdamW`` over
+one group per tier: the same update, as in the JAX package, whose
+checkpoints of one cannot resume the other. ``--dropout_rng_impl`` chooses
+a TPU RNG of the same dropout distribution; the port accepts every value
+and draws from torch's generator. ``--ckpt_backend orbax`` selects the retained checkpoint manager
 (``utils/native_ckpt.py::CheckpointManager``), ``msgpack`` the plain
 checkpoint directories. ``--device`` (default ``cuda``) is the port's own.
 """
@@ -164,8 +167,9 @@ def add_data_args(p: argparse.ArgumentParser):
     p.add_argument("--pretrain_coco", action="store_true")
     p.add_argument("--flat_opt", default=True,
                    action=argparse.BooleanOptionalAction,
-                   help="accepted for the JAX package's command lines: both values "
-                        "run torch.optim.AdamW (the same update)")
+                   help="the fused flat AdamW (one update kernel over flat parameter "
+                        "and gradient buffers); --no-flat_opt selects torch.optim.AdamW "
+                        "over one group per tier (the same update)")
     p.add_argument("--dropout_rng_impl", default="unsafe_rbg",
                    choices=["unsafe_rbg", "rbg", "threefry2x32"],
                    help="accepted for the JAX package's command lines: every value "

@@ -114,10 +114,11 @@ class ModelConfig:
 class TrainConfig:
     """Optimizer, schedule and loss weights: the fields of
     ``tce_rvos_tpu/config.py::TrainConfig`` with their names and defaults,
-    except ``flat_opt`` and ``dropout_rng_impl``, which choose TPU-specific
-    implementations (a fused flat AdamW, the TPU's hardware RNG) and have
-    no counterpart here: the port uses ``torch.optim.AdamW`` and torch's
-    generator, seeded from ``seed``."""
+    except ``dropout_rng_impl``, which chooses the TPU's hardware RNG and
+    has no counterpart here: the port draws dropout from torch's
+    generator, seeded from ``seed``. ``flat_opt`` (default True) trains
+    with the fused flat AdamW (``parallel/flat_adamw.py``), False with
+    ``torch.optim.AdamW`` over one group per tier: the same update."""
 
     lr: float = 1e-4
     lr_backbone: float = 2e-5
@@ -159,6 +160,11 @@ class TrainConfig:
     # mirror of ModelConfig.freeze_text_encoder for the optimizer: a frozen
     # text encoder gets no parameter group, so no update and no weight decay
     freeze_text_encoder: bool = False
+
+    # the fused flat AdamW (parallel/flat_adamw.py): one flat parameter and
+    # gradient buffer, one norm and one update kernel a step; False runs
+    # torch.optim.AdamW over one group per tier (the same update)
+    flat_opt: bool = True
 
     seed: int = 42
 

@@ -106,7 +106,8 @@ def train_step_on_shard(rank: int, spec: Dict) -> Dict:
     this rank's share of the batch at ``spec["batch"]`` (every clip when
     there is no process group), on ``spec["device"]``, with
     ``TrainConfig(**spec.get("train", {}))``. Returns the metrics as floats,
-    the parameters after the step and (rank 0) the clipped gradients, on
+    the parameters after the step and (rank 0) the clipped gradients (the
+    flat AdamW's times the clip's factor: its buffer stays unclipped), on
     the CPU."""
     from tce_rvos_tpu_torch.config import ModelConfig, TrainConfig
     from tce_rvos_tpu_torch.models.criterion import criterion_from_configs
@@ -126,30 +127,33 @@ def train_step_on_shard(rank: int, spec: Dict) -> Dict:
     out = {"metrics": {k: float(v) for k, v in metrics.items()},
            "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
     if rank == 0:
-        out["grads"] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+        scale = state.optimizer.unapplied_clip()
+        out["grads"] = {n: (p.grad * scale).cpu() for n, p in model.named_parameters()
                         if p.grad is not None}
     return out
 
 
-def check_dp_step(got: Dict, want: Dict, label: str) -> Dict[str, float]:
+def check_dp_step(got: Dict, want: Dict, label: str) -> Dict:
     """A rank's step (``train_step_on_shard``) against the one-process step
-    on the whole batch, at ``DP_TOL``; returns the largest gaps."""
+    on the whole batch, at ``DP_TOL``; returns the largest gaps and where
+    the parameters' largest is (``param_worst``: name, flat index)."""
     gl, wl = got["metrics"]["loss"], want["metrics"]["loss"]
     gg, wg = got["metrics"]["grad_norm"], want["metrics"]["grad_norm"]
     if not (np.isfinite(gl) and abs(gl - wl) <= DP_TOL["loss_rtol"] * abs(wl)):
         raise AssertionError(f"{label}: loss {gl!r} against {wl!r}")
     if not abs(gg - wg) <= DP_TOL["grad_norm_rtol"] * abs(wg):
         raise AssertionError(f"{label}: grad norm {gg!r} against {wg!r}")
-    worst = 0.0
+    worst, where = 0.0, None
     for name, p in want["params"].items():
         q = got["params"][name]
         gap = (q.double() - p.double()).abs()
         limit = DP_TOL["param_atol"] + DP_TOL["param_rtol"] * p.double().abs()
         if not bool((gap <= limit).all()):
             raise AssertionError(f"{label}: parameter {name} off by {float(gap.max())!r}")
-        worst = max(worst, float(gap.max()))
+        if gap.numel() and float(gap.max()) > worst:
+            worst, where = float(gap.max()), (name, int(gap.argmax()))
     return {"loss_rel": abs(gl - wl) / abs(wl), "grad_norm_rel": abs(gg - wg) / abs(wg),
-            "param_max_abs": worst}
+            "param_max_abs": worst, "param_worst": where}
 
 
 # ---- the dry run ------------------------------------------------------------------

@@ -1,15 +1,20 @@
 """Training step (counterpart of ``tce_rvos_tpu/parallel/train_step.py``):
 AdamW with the reference's name-keyed LR tiers, the MultiStep or Cyclic
-schedule, global-norm clipping, and one update per batch.
+schedule, global-norm clipping, and one update per batch. Two optimizers
+run the same update, as in the JAX package: by default (``flat_opt``) the
+fused flat AdamW of ``parallel/flat_adamw.py`` (one flat parameter buffer,
+one flat gradient buffer, one norm and one update kernel a step), and with
+``--no-flat_opt`` ``torch.optim.AdamW`` over one group per tier, the
+counterpart of the JAX per-leaf optax chain, described below.
 
   * LR tiers by parameter name (the reference's ``main.py`` groups): base,
     backbone (``backbone.0``), text encoder (``text_encoder``) and the linear
     projections (``reference_points``, ``sampling_offsets``) at ``lr *
     lr_linear_proj_mult``; ``--pretrain_enc`` freezes everything outside
     ``transformer.encoder.``, ``freeze_text_encoder`` the text encoder.
-  * ``torch.optim.AdamW`` with one parameter group per tier, betas
-    (0.9, 0.999), eps 1e-8 and decoupled weight decay, which is optax's
-    ``adamw`` update; the frozen tier gets no group, so no update and no
+  * ``--no-flat_opt``: ``torch.optim.AdamW`` with one parameter group per
+    tier, betas (0.9, 0.999), eps 1e-8 and decoupled weight decay, which is
+    optax's ``adamw`` update; the frozen tier gets no group, so no update and no
     decay. A trainable parameter that received no gradient is given a zero
     one, so that its moments and its decay run as they do in optax.
   * The schedules are evaluated in float32, as optax evaluates them, at the
@@ -38,22 +43,20 @@ cannot train it, and the port adds no feature the JAX package lacks.
 Data parallelism (``parallel/mesh.py``): in a ``torch.distributed`` world
 each rank's loss is its part of the global-batch loss
 (``models/criterion.py``), the gradients are summed over the ranks in one
-all-reduce of their flattened concatenation between ``backward`` and the
-clip (which then sees the global gradient, as the JAX step's does), and
-the logged losses are summed the same way. The step does not go through
-``DistributedDataParallel``: ``functional_call``'s bf16 cast would bypass
-its forward. gloo has no average, and the sum is what the global batch
+all-reduce between ``backward`` and the clip (which then sees the global
+gradient, as the JAX step's does): in place on the flat gradient buffer,
+or with ``--no-flat_opt`` on the concatenation of the gradients, copied
+back. The logged losses are summed the same way. The step does not go
+through ``DistributedDataParallel``: ``functional_call``'s bf16 cast would
+bypass its forward. gloo has no average, and the sum is what the global batch
 needs. Dropout draws from ``seed + rank``, as the JAX trainer's
 ``seed + process_index``.
-
-Not ported: the fused flat AdamW (a TPU launch-count optimisation with the
-same update).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -63,7 +66,9 @@ from torch.func import functional_call
 from tce_rvos_tpu_torch.config import TrainConfig
 from tce_rvos_tpu_torch.models.criterion import CriterionConfig, criterion
 from tce_rvos_tpu_torch.models.x3d import X3D_CONFIGS
-from tce_rvos_tpu_torch.parallel.collectives import all_reduce_sum_, initialized, process_index
+from tce_rvos_tpu_torch.parallel import collectives
+from tce_rvos_tpu_torch.parallel.collectives import initialized, process_index
+from tce_rvos_tpu_torch.parallel.flat_adamw import STATE_KEY, FlatAdamW, make_layout
 from tce_rvos_tpu_torch.utils.precision import resolve_dtype
 
 Schedule = Callable[[int], float]
@@ -117,50 +122,161 @@ def cyclic_schedule(lo: float, hi: float, half_period: int) -> Schedule:
     return schedule
 
 
+def tier_lrs(cfg: TrainConfig) -> Dict[str, float]:
+    """Each tier's base LR."""
+    return {"base": cfg.lr, "backbone": cfg.lr_backbone, "text_encoder": cfg.lr_text_encoder,
+            "linear_proj": cfg.lr * cfg.lr_linear_proj_mult}
+
+
+def shared_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Tuple[Schedule, Dict[str, float]]:
+    """One schedule for every tier and each tier's factor of it: the Cyclic
+    triangle (the reference's CyclicLR, one for every group) with every
+    factor 1, or MultiStep from 1 with the tier's base LR. The flat AdamW
+    takes the product; ``--no-flat_opt`` takes MultiStep from each base LR
+    (``_tier_schedules``), as the JAX package's per-leaf chain does."""
+    if cfg.cyclic_lr:
+        return (cyclic_schedule(*cfg.cyclic_lr_boundary, steps_per_epoch // 2),
+                dict.fromkeys(TIERS, 1.0))
+    return multistep_schedule(1.0, cfg, steps_per_epoch), tier_lrs(cfg)
+
+
 def base_lr_schedule(cfg: TrainConfig, steps_per_epoch: int = 1) -> Schedule:
-    """The base tier's LR by step: the ``lr`` metric of the train step."""
+    """The base tier's LR by step under ``--no-flat_opt``."""
     return _tier_schedules(cfg, steps_per_epoch)["base"]
 
 
 def _tier_schedules(cfg: TrainConfig, steps_per_epoch: int) -> Dict[str, Schedule]:
-    if cfg.cyclic_lr:  # one triangle for every tier, as the reference's CyclicLR
-        sched = cyclic_schedule(*cfg.cyclic_lr_boundary, steps_per_epoch // 2)
-        return {tier: sched for tier in TIERS}
-    lrs = {"base": cfg.lr, "backbone": cfg.lr_backbone, "text_encoder": cfg.lr_text_encoder,
-           "linear_proj": cfg.lr * cfg.lr_linear_proj_mult}
-    return {tier: multistep_schedule(lr, cfg, steps_per_epoch) for tier, lr in lrs.items()}
+    common, rels = shared_schedule(cfg, steps_per_epoch)
+    if cfg.cyclic_lr:
+        return dict.fromkeys(TIERS, common)
+    return {tier: multistep_schedule(lr, cfg, steps_per_epoch) for tier, lr in rels.items()}
+
+
+class LeafAdamW(torch.optim.AdamW):
+    """The ``--no-flat_opt`` optimizer: ``torch.optim.AdamW`` with one
+    group per non-empty, non-frozen tier (each group's ``"tier"`` names
+    it) and the tiers' schedules, behind the train step's optimizer
+    interface (``FlatAdamW``'s): ``zero_grad``, ``all_reduce``, ``update``
+    (the per-leaf clip, then AdamW), ``seed``, ``lr``, ``lrs``, ``adam_counts``,
+    ``unapplied_clip`` and ``update_launches``."""
+
+    update_launches = 0  # it launches no kernel of the port
+
+    def __init__(self, model: nn.Module, cfg: TrainConfig, steps_per_epoch: int = 1):
+        by_tier: Dict[str, List[nn.Parameter]] = {tier: [] for tier in TIERS}
+        for name, p in model.named_parameters():
+            tier = param_group(name, cfg)
+            if tier != "frozen":
+                by_tier[tier].append(p)
+        self.schedules = _tier_schedules(cfg, steps_per_epoch)
+        self.clip = cfg.clip_max_norm
+        self.sched = 0
+        self._model = model
+        super().__init__([{"params": ps, "tier": tier, "lr": self.schedules[tier](0)}
+                          for tier, ps in by_tier.items() if ps],
+                         betas=BETAS, eps=EPS, weight_decay=cfg.weight_decay)
+
+    @torch.no_grad()
+    def all_reduce(self) -> None:
+        """Sum every parameter's gradient over the ranks in one all-reduce
+        of their flattened concatenation, copied back. A parameter without
+        a gradient takes part with zeros and keeps None if the sum is zero,
+        so that ranks agree on the buffer's layout and one rank reduces to
+        itself bitwise."""
+        params = [p for p in self._model.parameters() if p.requires_grad]
+        flat = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1)
+                          for p in params])
+        collectives.all_reduce_sum_(flat)
+        sums = [g.view_as(p) for p, g in zip(params, flat.split([p.numel() for p in params]))]
+        have = [i for i, p in enumerate(params) if p.grad is not None]
+        torch._foreach_copy_([params[i].grad for i in have], [sums[i] for i in have])
+        for i in sorted(set(range(len(params))) - set(have)):
+            if sums[i].any():
+                params[i].grad = sums[i].clone()
+
+    def update(self) -> torch.Tensor:
+        """The global-norm clip of the gradients in ``p.grad`` (in place),
+        each tier's LR at ``sched``, one AdamW step; returns the norm before
+        the clip."""
+        grads = [p.grad for p in self._model.parameters() if p.grad is not None]
+        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        torch._foreach_mul_(grads, torch.where(gnorm < self.clip, 1.0, self.clip / gnorm))
+        for group in self.param_groups:
+            group["lr"] = self.schedules[group["tier"]](self.sched)
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        self.step()
+        self.sched += 1
+        return gnorm
+
+    def seed(self, step: int) -> None:
+        """A weights-only resume: the schedules at ``step``; AdamW's
+        per-parameter ``step`` stays absent (0)."""
+        self.sched = int(step)
+
+    def lr(self) -> float:
+        """The base tier's LR at the current schedule step."""
+        return self.schedules["base"](self.sched)
+
+    def lrs(self) -> Dict[str, float]:
+        """Each tier's LR at the current schedule step."""
+        return {g["tier"]: self.schedules[g["tier"]](self.sched) for g in self.param_groups}
+
+    def adam_counts(self) -> set:
+        """AdamW's per-parameter step counters (empty before its first step)."""
+        return {int(v["step"]) for v in self.state.values()}
+
+    def unapplied_clip(self) -> float:
+        """1: ``update`` clips ``p.grad`` in place."""
+        return 1.0
+
+    def load_state_dict(self, state_dict: Mapping) -> None:
+        """torch's, refusing a state written by the flat AdamW with a
+        ``ValueError`` that names the flag."""
+        if STATE_KEY in state_dict:
+            raise ValueError(
+                "the optimizer state was written by the fused flat AdamW (--flat_opt, the "
+                "default), and this run trains with torch.optim.AdamW (--no-flat_opt): resume "
+                "without --no-flat_opt")
+        super().load_state_dict(state_dict)
 
 
 def make_optimizer(model: nn.Module, cfg: TrainConfig, steps_per_epoch: int = 1
-                   ) -> Tuple[torch.optim.AdamW, Dict[str, Schedule]]:
-    """AdamW with one group per non-empty, non-frozen tier (each group's
-    ``"tier"`` names it), and the tiers' schedules."""
-    by_tier: Dict[str, List[nn.Parameter]] = {tier: [] for tier in TIERS}
-    for name, p in model.named_parameters():
-        tier = param_group(name, cfg)
-        if tier != "frozen":
-            by_tier[tier].append(p)
-    schedules = _tier_schedules(cfg, steps_per_epoch)
-    groups = [{"params": ps, "tier": tier, "lr": schedules[tier](0)}
-              for tier, ps in by_tier.items() if ps]
-    opt = torch.optim.AdamW(groups, betas=BETAS, eps=EPS, weight_decay=cfg.weight_decay)
-    return opt, schedules
+                   ) -> Tuple[LeafAdamW, Dict[str, Schedule]]:
+    """The ``--no-flat_opt`` optimizer and the tiers' schedules."""
+    opt = LeafAdamW(model, cfg, steps_per_epoch)
+    return opt, opt.schedules
+
+
+Optimizer = Union[FlatAdamW, LeafAdamW]
 
 
 @dataclasses.dataclass
 class TrainState:
-    model: nn.Module          # float32 master weights
-    optimizer: torch.optim.AdamW
-    schedules: Dict[str, Schedule]
-    clip_max_norm: float
-    step: int = 0
+    """The model (float32 master weights) and its optimizer; ``step`` is
+    the optimizer's schedule step."""
+
+    model: nn.Module
+    optimizer: Optimizer
+
+    @property
+    def step(self) -> int:
+        return self.optimizer.sched
+
+    @step.setter
+    def step(self, value: int) -> None:
+        self.optimizer.sched = int(value)
 
 
 def create_train_state(model: nn.Module, cfg: TrainConfig, steps_per_epoch: int = 1
                        ) -> TrainState:
     """The trainer's entry: seeds torch's generator (dropout) from
-    ``cfg.seed`` plus the process's rank and builds the optimizer over ``model``'s parameters.
-    Raises ``ValueError`` for a model with an X3D backbone."""
+    ``cfg.seed`` plus the process's rank and builds the optimizer over
+    ``model``'s parameters: ``FlatAdamW`` when ``cfg.flat_opt`` (which moves
+    the parameters into its flat buffer: build the state after the model is
+    on its device), else ``LeafAdamW``. Raises ``ValueError`` for a model
+    with an X3D backbone."""
     backbone = getattr(getattr(model, "cfg", None), "backbone", None)
     if backbone in X3D_CONFIGS:
         raise ValueError(
@@ -171,8 +287,9 @@ def create_train_state(model: nn.Module, cfg: TrainConfig, steps_per_epoch: int 
             "(tce_rvos_tpu/parallel/train_step.py:203-212), which raises "
             "ModifyScopeVariableError")
     torch.manual_seed(cfg.seed + process_index())
-    opt, schedules = make_optimizer(model, cfg, steps_per_epoch)
-    return TrainState(model, opt, schedules, cfg.clip_max_norm)
+    if cfg.flat_opt:
+        return TrainState(model, FlatAdamW(model, make_layout(model, cfg, steps_per_epoch)))
+    return TrainState(model, LeafAdamW(model, cfg, steps_per_epoch))
 
 
 def batch_to_device(batch: Mapping, device: torch.device) -> Dict:
@@ -228,20 +345,24 @@ def make_train_step(crit_cfg: CriterionConfig, compute_dtype: Optional[str] = No
     backward, clip and AdamW update of ``state.model`` in place. ``batch``
     holds the model inputs and a ``targets`` dict (numpy or tensors). The
     metrics are the weighted losses, ``loss``, ``grad_norm`` (before the
-    clip) and the base tier's ``lr`` at this step. The caller chooses the
-    module's mode: ``train()`` draws dropout, ``eval()`` does not. In a
-    process group the gradients and the metrics' losses are the sums over
-    the ranks (the global batch's)."""
+    clip) and the base tier's ``lr`` at this step. The gradients stay in
+    ``p.grad`` after the step: clipped with ``--no-flat_opt``, unclipped in
+    the flat buffer (the update applies the clip's factor). The caller
+    chooses the module's mode: ``train()`` draws dropout, ``eval()`` does
+    not. In a process group the gradients and the metrics' losses are the
+    sums over the ranks (the global batch's)."""
 
     def step(state: TrainState, batch: Mapping):
         model = state.model
         batch = batch_to_device(batch, next(model.parameters()).device)
-        state.optimizer.zero_grad(set_to_none=True)
+        # FlatAdamW zeroes its gradient buffer in place (each .grad its view,
+        # so that backward adds into it); LeafAdamW sets them to None
+        state.optimizer.zero_grad()
         total, losses = forward_losses(model, batch, crit_cfg, compute_dtype)
         total.backward()
-        all_reduce_gradients(model)
+        all_reduce_gradients(state)
         metrics = sum_over_ranks({**losses, "loss": total})
-        metrics["lr"] = state.schedules["base"](state.step)
+        metrics["lr"] = state.optimizer.lr()
         metrics["grad_norm"] = apply_gradients(state)
         return state, metrics
 
@@ -252,47 +373,22 @@ def sum_over_ranks(values: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor
     """Detached scalars, each summed over the ranks in one all-reduce."""
     if not initialized():
         return {k: v.detach() for k, v in values.items()}
-    flat = all_reduce_sum_(torch.stack([v.detach().float() for v in values.values()]))
+    flat = collectives.all_reduce_sum_(torch.stack([v.detach().float() for v in values.values()]))
     return dict(zip(values, flat.unbind()))
 
 
-@torch.no_grad()
-def all_reduce_gradients(model: nn.Module) -> None:
+def all_reduce_gradients(state: TrainState) -> None:
     """Sum every parameter's gradient over the ranks (nothing outside a
-    process group), in one all-reduce of their flattened concatenation. A
-    parameter without a gradient takes part with zeros and keeps None if
-    the sum is zero, so that ranks agree on the buffer's layout and one
-    rank reduces to itself bitwise."""
-    if not initialized():
-        return
-    params = [p for p in model.parameters() if p.requires_grad]
-    flat = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1)
-                      for p in params])
-    all_reduce_sum_(flat)
-    sums = [g.view_as(p) for p, g in zip(params, flat.split([p.numel() for p in params]))]
-    have = [i for i, p in enumerate(params) if p.grad is not None]
-    torch._foreach_copy_([params[i].grad for i in have], [sums[i] for i in have])
-    for i in sorted(set(range(len(params))) - set(have)):
-        if sums[i].any():
-            params[i].grad = sums[i].clone()
+    process group) in one all-reduce (``state.optimizer.all_reduce``)."""
+    if initialized():
+        state.optimizer.all_reduce()
 
 
 def apply_gradients(state: TrainState) -> torch.Tensor:
-    """The update from the gradients in ``p.grad``: the global-norm clip,
-    each tier's LR at ``state.step``, one AdamW step, then ``state.step``
-    advanced. Returns the norm before the clip."""
-    grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-    gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-    torch._foreach_mul_(grads, torch.where(gnorm < state.clip_max_norm, 1.0,
-                                           state.clip_max_norm / gnorm))
-    for group in state.optimizer.param_groups:
-        group["lr"] = state.schedules[group["tier"]](state.step)
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-    state.optimizer.step()
-    state.step += 1
-    return gnorm
+    """The update from the gradients (``state.optimizer.update``): the
+    global-norm clip, each tier's LR at the schedule step, one AdamW step,
+    the step advanced. Returns the norm before the clip."""
+    return state.optimizer.update()
 
 
 def seed_schedule_step(state: TrainState, step: int) -> TrainState:
@@ -300,9 +396,9 @@ def seed_schedule_step(state: TrainState, step: int) -> TrainState:
     resume that carried no optimizer state (a reference-format ``.pth``):
     the reference restores its lr_scheduler on resume (main.py:195-211), so
     MultiStep ``lr_drop`` boundaries count from epoch 0, while its Adam
-    starts fresh. AdamW's per-parameter ``step`` stays absent (0): a
-    bias-correction counter fast-forwarded over zero moments would scale
-    the first updates after the resume by about
-    (1/(1-b1)) / sqrt(1/(1-b2)) = 3.2x."""
-    state.step = int(step)
+    starts fresh. AdamW's per-parameter ``step`` stays absent (0), and
+    ``FlatAdamW``'s ``count`` 0: a bias-correction counter fast-forwarded
+    over zero moments would scale the first updates after the resume by
+    about (1/(1-b1)) / sqrt(1/(1-b2)) = 3.2x."""
+    state.optimizer.seed(step)
     return state

@@ -121,7 +121,9 @@ def restore_train_state(state, resume_path, ckpt_manager, steps_per_epoch):
     gets only the schedules' counter fast-forwarded to ``start_epoch *
     steps_per_epoch`` (``seed_schedule_step``): the reference restores its
     lr_scheduler on resume, so MultiStep ``lr_drop`` boundaries count from
-    epoch 0, never from the resume point."""
+    epoch 0, never from the resume point. Optimizer state written under the
+    other ``--flat_opt`` value, or over another flat layout, is refused
+    with a ``ValueError`` that names the flag."""
     from tce_rvos_tpu_torch.parallel.train_step import seed_schedule_step
     from tce_rvos_tpu_torch.utils.native_ckpt import load_any_checkpoint
 

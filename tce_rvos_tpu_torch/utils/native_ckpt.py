@@ -3,7 +3,9 @@
 torch.save of {'model', 'optimizer', 'lr_scheduler', 'epoch', 'args'}
 (main.py:262-275).
 
-A checkpoint is a directory of ``model.pt`` (the model's state_dict),
+A checkpoint is a directory of ``model.pt`` (the model's state_dict, a
+tensor that is a view of a larger storage copied unless the dict holds all
+of that storage),
 ``optimizer.pt`` (``optimizer.state_dict()``, absent when not saved) and
 ``meta.json`` (epoch, step), each written under a temporary name and
 renamed, ``meta.json`` last, by rank 0 only; in a ``torch.distributed``
@@ -16,6 +18,7 @@ reference-format ``.pth`` file or URL, which carries no optimizer state.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import shutil
@@ -53,9 +56,22 @@ def save_checkpoint(
     barrier()
 
 
+def _own_storage(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """``state_dict`` with a copy of every tensor whose storage the dict
+    does not hold whole: torch.save writes a view's whole storage, and a
+    partial state dict of the flat AdamW's parameters (views of one
+    buffer, ``parallel/flat_adamw.py``) would drag the buffer along."""
+    held: Dict[int, int] = collections.Counter()
+    tensors = {k: v for k, v in state_dict.items() if isinstance(v, torch.Tensor)}
+    for v in tensors.values():
+        held[v.untyped_storage().data_ptr()] += v.numel() * v.element_size()
+    return {k: v.clone() if k in tensors and held[v.untyped_storage().data_ptr()]
+            < v.untyped_storage().nbytes() else v for k, v in state_dict.items()}
+
+
 def _write_checkpoint(path, state_dict, optimizer_state, meta) -> None:
     os.makedirs(path, exist_ok=True)
-    _replace_into(path, MODEL_FILE, lambda f: torch.save(dict(state_dict), f))
+    _replace_into(path, MODEL_FILE, lambda f: torch.save(_own_storage(state_dict), f))
     if optimizer_state is not None:
         _replace_into(path, OPTIMIZER_FILE, lambda f: torch.save(optimizer_state, f))
     elif os.path.exists(os.path.join(path, OPTIMIZER_FILE)):

@@ -9,14 +9,16 @@
   tiny flagship model, saved as the reference's ``{"model", "epoch"}``,
   loads with no missing and no unexpected keys, bitwise equal to
   ``state_dict_from_jax``, with its epoch and no optimizer state;
-* ``seed_schedule_step`` against the JAX one (the optax chain and the flat
-  AdamW): after the fast-forward the same per-tier LRs at each step, across
-  a MultiStep drop and on the Cyclic triangle, the same parameters
-  (rtol 0, atol 1e-7 on parameters of about 0.1: a tenth of the smallest
-  tier's step), and the Adam step counters at 0 on both sides;
-* resumes against an uninterrupted run: with optimizer state, bitwise the
-  same parameters and the same LRs; from a weights-only ``.pth``, the same
-  LR sequence with a fresh AdamW.
+* ``seed_schedule_step`` against the JAX one, each side with its optimizer
+  of the same ``flat_opt`` (the optax chain against ``torch.optim.AdamW``,
+  the flat AdamW against the port's ``FlatAdamW``): after the fast-forward
+  the same per-tier LRs at each step, across a MultiStep drop and on the
+  Cyclic triangle, the same parameters (rtol 0, atol 1e-7 on parameters of
+  about 0.1: a tenth of the smallest tier's step), and the Adam step
+  counters at 0 on both sides;
+* resumes against an uninterrupted run, with either optimizer: with
+  optimizer state, bitwise the same parameters and the same LRs; from a
+  weights-only ``.pth``, the same LR sequence with a fresh AdamW.
 """
 
 import json
@@ -37,6 +39,7 @@ from tce_rvos_tpu.utils.checkpoint import export_state_dict
 from tce_rvos_tpu_torch.config import ModelConfig, TrainConfig
 from tce_rvos_tpu_torch.models.referformer import ReferFormer
 from tce_rvos_tpu_torch.parallel import train_step
+from tce_rvos_tpu_torch.parallel.flat_adamw import FlatAdamW
 from tce_rvos_tpu_torch.train import restore_train_state
 from tce_rvos_tpu_torch.utils.checkpoint import drop_class_heads
 from tce_rvos_tpu_torch.utils.convert import state_dict_from_jax
@@ -76,11 +79,24 @@ def _grads(model, n_steps: int, seed: int = 1):
 
 
 def _step(state, grads):
-    """One update of the port from given gradients; returns the tiers' LRs."""
+    """One update of the port from given gradients (into the flat AdamW's
+    gradient buffer, or as new ``.grad`` tensors after ``--no-flat_opt``'s
+    ``zero_grad``); returns the tiers' LRs of the update, as float32."""
+    opt = state.optimizer
+    opt.zero_grad()
     for name, p in state.model.named_parameters():
-        p.grad = grads[name].clone()
+        if p.grad is None:
+            p.grad = grads[name].clone()
+        else:
+            p.grad.copy_(grads[name])
+    lrs = {t: np.float32(lr) for t, lr in opt.lrs().items()}
     train_step.apply_gradients(state)
-    return {g["tier"]: g["lr"] for g in state.optimizer.param_groups}
+    return lrs
+
+
+def _adam_step(state) -> int:
+    """The port's Adam step counter (bias correction): 0 before any update."""
+    return max(state.optimizer.adam_counts(), default=0)
 
 
 def _trained_state():
@@ -210,9 +226,12 @@ def test_seed_schedule_step_matches_jax(flat, schedule):
     assert int(jstate.step) == start
     assert _adam_counts(jstate.opt_state) and set(_adam_counts(jstate.opt_state)) == {0}
 
-    state = train_step.create_train_state(model, TrainConfig(**kw), spe)
+    state = train_step.create_train_state(model, TrainConfig(flat_opt=flat, **kw), spe)
+    assert isinstance(state.optimizer, FlatAdamW) == flat
     state = train_step.seed_schedule_step(state, start)
-    assert state.step == start and state.optimizer.state == {}  # AdamW's step absent: 0
+    assert state.step == start and _adam_step(state) == 0  # AdamW's step absent: 0
+    if flat:
+        assert state.optimizer.sched == start
 
     jparams, opt_state = jstate.params, jstate.opt_state
     for k, grads in enumerate(_grads(model, n_steps)):
@@ -231,7 +250,15 @@ def test_seed_schedule_step_matches_jax(flat, schedule):
 
 
 def test_resume_reproduces_an_uninterrupted_run(tmp_path):
-    cfg, spe = TrainConfig(lr_drop=(2, 3)), 2
+    check_resume(tmp_path, flat_opt=True)
+
+
+def test_resume_with_no_flat_opt_reproduces_an_uninterrupted_run(tmp_path):
+    check_resume(tmp_path, flat_opt=False)
+
+
+def check_resume(tmp_path, flat_opt: bool):
+    cfg, spe = TrainConfig(lr_drop=(2, 3), flat_opt=flat_opt), 2
     grads = _grads(Tiers(), 8)
     full = train_step.create_train_state(Tiers(), cfg, spe)
     lrs_full = []
@@ -258,7 +285,7 @@ def test_resume_reproduces_an_uninterrupted_run(tmp_path):
     fresh, start_epoch = restore_train_state(
         train_step.create_train_state(Tiers(seed=9), cfg, spe), str(tmp_path / "ref.pth"),
         None, spe)
-    assert start_epoch == 2 and fresh.step == 4 and fresh.optimizer.state == {}
+    assert start_epoch == 2 and fresh.step == 4 and _adam_step(fresh) == 0
     assert [_step(fresh, grads[k]) for k in range(4, 8)] == lrs_full[4:]
 
     # the manager: restore() takes the latest step, whatever the path says

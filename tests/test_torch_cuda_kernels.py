@@ -1,7 +1,9 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions, on the card: the 2D MSDA forward and backward (flat and staged
-path, two levels with the runtime loops and the flagship's L = P = 4) and
-the 3D ones (the runtime loops, the flagship shape and its edge cases).
+path, two levels with the runtime loops and the flagship's L = P = 4), the
+3D ones (the runtime loops, the flagship shape and its edge cases) and the
+fused flat AdamW update (``csrc/flat_adamw.cu``: its float4 and its
+one-float path, four tiers, the clip on and off, early and late steps).
 
 The file imports torch, numpy, pytest and the port only, so that it runs
 on a machine with a GPU and no JAX:
@@ -19,7 +21,9 @@ import pytest
 import torch
 
 from tce_rvos_tpu_torch.ops.msda import ms_deform_attn_3d_plain, ms_deform_attn_plain
+from tce_rvos_tpu_torch.ops.flat_adamw_cuda import UpdateScalars, flat_adamw_cuda
 from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn, ms_deform_attn_3d
+from tce_rvos_tpu_torch.parallel.flat_adamw import flat_adamw_update_plain
 
 SHAPES_SEP_2D = ((40, 64), (4, 8))  # 2560-pixel level: the Pallas sep kernel
 SHAPES_SEP_3D = ((40, 32), (4, 8))  # 1280-pixel level: the Pallas 3D sep kernel
@@ -232,3 +236,89 @@ def test_cuda_3d_backward_matches_plain_gradients():
                 rtol, atol = (1e-2, 1e-3) if (i == 0 and dtype == torch.bfloat16) else (1e-4, 1e-5)
                 torch.testing.assert_close(a, b, rtol=rtol, atol=atol * float(b.abs().max()),
                                            msg=lambda m: f"{name} {dtype}: {m}")
+
+
+def adamw_inputs(n: int, seed: int = 0):
+    """Seeded flat AdamW buffers of ``n`` live elements: p, g, mu, nu (nu
+    non-negative), as numpy. Each element's gradient and moments share a
+    magnitude from 1e-8 to 1, so that ``sqrt(nu)`` runs from far below eps
+    to far above it."""
+    rng = np.random.RandomState(seed)
+    mag = (10.0 ** rng.uniform(-8, 0, n)).astype(np.float32)
+    p = rng.randn(n).astype(np.float32) * np.float32(0.1)
+    g = rng.randn(n).astype(np.float32) * mag
+    mu = rng.randn(n).astype(np.float32) * mag * np.float32(1e-3)
+    nu = rng.rand(n).astype(np.float32) * np.square(mag * np.float32(1e-3))
+    return p, g, mu, nu
+
+
+def adamw_scalars(n: int, count: int, lr: float = 1e-4, wd: float = 5e-4) -> UpdateScalars:
+    """Four tiers over ``n`` elements (ends not on 4-element boundaries),
+    the f32 values the port's ``update_scalars`` gives."""
+    f32 = np.float32
+    his = (n // 5 + 1, n // 2 + 3, 3 * n // 4 + 2, n)
+    lrs = [f32(f32(lr) * f32(r)) for r in (1.0, 0.2, 0.1, 1.0)]
+    c = f32(count)
+    return UpdateScalars(his=his, lrs=tuple(float(x) for x in lrs),
+                         decays=tuple(float(f32(1) - x * f32(wd)) for x in lrs),
+                         clip=float(f32(0.1)), b1=float(f32(0.9)), omb1=float(f32(1 - 0.9)),
+                         b2=float(f32(0.999)), omb2=float(f32(1 - 0.999)),
+                         bc1=float(f32(1) - f32(0.9) ** c), bc2=float(f32(1) - f32(0.999) ** c),
+                         eps=float(f32(1e-8)))
+
+
+def adamw_run(update, arrays, offset: int, n: int, gnorm: float, s: UpdateScalars):
+    """``update`` (the kernel or the plain version) on copies of ``arrays``
+    on the card, the live range ``offset`` floats into p and g; returns
+    (p, mu, nu)."""
+    p, g, mu, nu = (torch.from_numpy(a).cuda() for a in arrays)
+    p, g = p[offset:], g[offset:]
+    mu, nu = mu[:n].clone(), nu[:n].clone()
+    update(p, g, mu, nu, torch.tensor(gnorm, device="cuda"), s)
+    torch.cuda.synchronize()
+    return p, mu, nu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd", [5e-4, 0.1])
+def test_cuda_flat_adamw_matches_plain(wd):
+    """The update kernel against ``flat_adamw_update_plain`` on the card:
+    on the float4 path (aligned, n not a multiple of 4) and the one-float
+    path (the live range one float past a 16-byte boundary), with the
+    gradient norm below and above the clip, at Adam steps 1 and 1000, at
+    the default weight decay and at one (0.1) whose term dominates the
+    rounding; p, mu and nu bitwise equal (every operation is rounded alone
+    on both sides), one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs this comparison on the GPU")
+    n = 1_000_003
+    for offset in (0, 1):  # float4 path, one-float path
+        for gnorm in (0.05, 7.0):
+            for count in (1, 1000):
+                arrays = adamw_inputs(n + offset, seed=count)
+                s = adamw_scalars(n, count, wd=wd)
+                before = flat_adamw_cuda.launches
+                got = adamw_run(flat_adamw_cuda, arrays, offset, n, gnorm, s)
+                assert flat_adamw_cuda.launches == before + 1
+                want = adamw_run(flat_adamw_update_plain, arrays, offset, n, gnorm, s)
+                for name, a, b in zip(("p", "mu", "nu"), got, want):
+                    assert torch.equal(a, b), (
+                        f"{name} offset {offset} gnorm {gnorm} count {count} wd {wd}: max "
+                        f"|kernel - plain| {float((a - b).abs().max()):.3e}")
+
+
+@pytest.mark.cuda
+def test_cuda_flat_adamw_gate_refuses_adam_without_decay_or_eps():
+    """The bitwise gate above sees the kernel launched without its weight
+    decay (every decay 1) and without eps: each misses the plain AdamW's
+    p, at the default weight decay too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs this comparison on the GPU")
+    n = 1_000_003
+    arrays = adamw_inputs(n, seed=1)
+    s = adamw_scalars(n, 1)
+    want = adamw_run(flat_adamw_update_plain, arrays, 0, n, 7.0, s)
+    for name, wrong in (("no decay", s._replace(decays=(1.0,) * len(s.his))),
+                        ("no eps", s._replace(eps=0.0))):
+        got = adamw_run(flat_adamw_cuda, arrays, 0, n, 7.0, wrong)
+        assert not torch.equal(got[0], want[0]), name

@@ -13,6 +13,11 @@ reference's ``num_boxes`` divided by the world size, weakens it by the
 world size; ``test_averaged_gradients_weaken_the_visibility_loss`` holds
 that this recipe misses the one-process step where the port's holds it.
 
+Each case trains with the flat AdamW (the default: the all-reduce is one
+call on its gradient buffer), and the ``summed`` batch also with
+``--no-flat_opt`` (``summed_no_flat_opt``: the concatenated gradients),
+held against JAX with the optimizer of the same ``flat_opt``.
+
 The ranks run in one module-scoped spawn (tests/torch_dist_cases.py); the
 tolerances are the JAX package's DP test's (tests/test_dp_invariance.py:
 loss rtol 1e-5, grad norm 1e-4, parameters atol 1e-4 / rtol 1e-3) between
@@ -32,13 +37,14 @@ from torch_parity_helpers import (
     OPTIONS_A,
     OPTIONS_STEP_SEED,
     check_step_against_jax,
-    jax_train_steps,
+    jax_train_runs,
     model_inputs,
     tiny_model,
     train_targets,
 )
 
 TRAIN = dict(lr_drop=(1,))  # check_two_train_steps' configuration
+NO_FLAT = dict(TRAIN, flat_opt=False)
 
 
 def _batch(targets):
@@ -49,8 +55,9 @@ def _batch(targets):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The specs, the one-process steps and the two ranks' results of every
-    case: ``summed`` (the port's step), ``clamp`` (clip 1 has no valid
-    frame) and ``averaged`` (the DDP recipe on ``summed``'s batch)."""
+    case: ``summed`` (the port's step), ``summed_no_flat_opt`` (the same with
+    ``--no-flat_opt``), ``clamp`` (clip 1 has no valid frame) and
+    ``averaged`` (the DDP recipe on ``summed``'s batch)."""
     import torch_dist_cases
 
     tmp = tmp_path_factory.mktemp("dp")
@@ -64,12 +71,13 @@ def runs(tmp_path_factory):
         torch.save(_batch(tg), tmp / f"{name}.pt")
         specs[name] = {"model": OPTIONS_A, "train": TRAIN, "device": "cpu",
                        "weights": str(tmp / "weights.pt"), "batch": str(tmp / f"{name}.pt")}
+    specs["summed_no_flat_opt"] = dict(specs["summed"], train=NO_FLAT)
     one = {name: dryrun.train_step_on_shard(0, spec) for name, spec in specs.items()}
     ranks = dryrun.run_processes(2, torch_dist_cases.dp_cases, (specs,))
     return {"targets": targets, "one": one, "ranks": ranks}
 
 
-@pytest.mark.parametrize("case", ["summed", "clamp"])
+@pytest.mark.parametrize("case", ["summed", "clamp", "summed_no_flat_opt"])
 def test_two_ranks_step_like_one_process_on_both_clips(runs, case):
     want = runs["one"][case]
     for rank, got in enumerate(runs["ranks"]):
@@ -118,17 +126,34 @@ def test_averaged_gradients_weaken_the_visibility_loss(runs):
     assert avg["metrics"]["loss_vis"] == pytest.approx(want["metrics"]["loss_vis"], rel=1e-5)
 
 
-def test_two_ranks_step_matches_jax_on_the_global_batch(runs):
+@pytest.fixture(scope="module")
+def jax_steps(runs):
+    """The JAX step on the global batch with the flat AdamW and with the
+    optax chain, sharing one compiled gradient."""
     tiny = tiny_model("options_a")
     batch = _batch(runs["targets"])
     inputs = {k: v for k, v in batch.items() if k != "targets"}
-    want = jax_train_steps(tiny, JaxTrainConfig(**TRAIN), runs["targets"], 1, inputs)[0]
-    before = {k: v.numpy() for k, v in state_dict_from_jax(tiny[3]).items()}
+    steps = jax_train_runs(tiny, [JaxTrainConfig(**TRAIN), JaxTrainConfig(**NO_FLAT)],
+                           runs["targets"], 1, inputs)
+    return {"summed": steps[0][0], "summed_no_flat_opt": steps[1][0]}
+
+
+def _check_ranks_against_jax(runs, want, case, train) -> None:
+    before = {k: v.numpy() for k, v in state_dict_from_jax(tiny_model("options_a")[3]).items()}
     for rank, got in enumerate(runs["ranks"]):
-        step = got["summed"]
-        grads = step["grads"] if rank == 0 else runs["ranks"][0]["summed"]["grads"]
+        step = got[case]
+        grads = step["grads"] if rank == 0 else runs["ranks"][0][case]["grads"]
         check_step_against_jax(
             0, step["metrics"], {n: g.numpy() for n, g in grads.items()},
             {n: before[n] for n in grads}, {n: p.numpy() for n, p in step["params"].items()},
-            want, TrainConfig(**TRAIN))
-    assert np.isfinite(runs["ranks"][0]["summed"]["metrics"]["loss_vis"])
+            want, TrainConfig(**train))
+    assert np.isfinite(runs["ranks"][0][case]["metrics"]["loss_vis"])
+
+
+def test_two_ranks_step_matches_jax_on_the_global_batch(runs, jax_steps):
+    _check_ranks_against_jax(runs, jax_steps["summed"], "summed", TRAIN)
+
+
+def test_two_ranks_step_with_no_flat_opt_matches_jax_on_the_global_batch(runs, jax_steps):
+    _check_ranks_against_jax(runs, jax_steps["summed_no_flat_opt"], "summed_no_flat_opt",
+                             NO_FLAT)

@@ -2,7 +2,8 @@
 CPU, on a synthetic Ref-YouTube-VOS train tree (2 videos x 4 frames, as
 tests/test_train_main_e2e.py), with that test's tiny flags and a tiny text
 encoder: one epoch, then a resume that restores the saved weights and
-optimizer state bitwise and trains the next epoch; the retained checkpoint
+optimizer state bitwise and trains the next epoch, with the flat AdamW (the
+default) and with ``--no-flat_opt``; the retained checkpoint
 manager (``--ckpt_backend orbax``); the port's and the JAX package's
 parsers give the same configs; and the flags the port refuses.
 """
@@ -16,6 +17,7 @@ import torch
 
 from tce_rvos_tpu import cli as jax_cli
 from tce_rvos_tpu_torch import cli
+from tce_rvos_tpu_torch.parallel.flat_adamw import FlatAdamW
 from tce_rvos_tpu_torch.train import main
 from tce_rvos_tpu_torch.utils.native_ckpt import load_checkpoint
 from torch_parity_helpers import torch_threads  # noqa: F401 (autouse fixture)
@@ -50,24 +52,49 @@ def _logs(out):
         return [json.loads(line) for line in fh]
 
 
+def _assert_same(live, saved, where: str) -> None:
+    """Nested state dicts equal, tensors bitwise."""
+    if isinstance(saved, dict):
+        assert sorted(map(str, live)) == sorted(map(str, saved)), where
+        for k in saved:
+            _assert_same(live[k], saved[k], f"{where}.{k}")
+    elif isinstance(saved, (list, tuple)):
+        assert len(live) == len(saved), where
+        for i, (a, b) in enumerate(zip(live, saved)):
+            _assert_same(a, b, f"{where}[{i}]")
+    elif isinstance(saved, torch.Tensor):
+        assert torch.equal(live, saved), where
+    else:
+        assert live == saved, where
+
+
 def _assert_state_is(state, path):
+    """The state's weights and optimizer state bitwise the checkpoint's
+    (the flat AdamW's layout, counters and moments, or AdamW's
+    per-parameter state with ``--no-flat_opt``), Adam's counters at the
+    step count."""
     sd, opt_sd, _ = load_checkpoint(str(path))
     for name, value in state.model.state_dict().items():
         assert torch.equal(value, sd[name]), name
-    saved = opt_sd["state"]
-    live = state.optimizer.state_dict()["state"]
-    assert sorted(live) == sorted(saved) and len(saved) > 0
-    for i, entry in saved.items():
-        for k, v in entry.items():
-            assert torch.equal(live[i][k], v), (i, k)
+    _assert_same(state.optimizer.state_dict(), opt_sd, "optimizer")
+    assert state.optimizer.adam_counts() == {state.step}
 
 
 def test_main_one_epoch_then_resume(ytvos_root, tmp_path, tiny_text):
+    check_one_epoch_then_resume(ytvos_root, tmp_path, flat_opt=True)
+
+
+def test_main_one_epoch_then_resume_no_flat_opt(ytvos_root, tmp_path, tiny_text):
+    check_one_epoch_then_resume(ytvos_root, tmp_path, flat_opt=False)
+
+
+def check_one_epoch_then_resume(ytvos_root, tmp_path, flat_opt: bool):
     out = tmp_path / "out"
-    argv = _argv(ytvos_root, out)
+    argv = _argv(ytvos_root, out) + ([] if flat_opt else ["--no-flat_opt"])
     state = main(argv + ["--epochs", "1"])
     steps_per_epoch = 4  # 2 videos x 2 anchors, batch 1
     assert state.step == steps_per_epoch
+    assert isinstance(state.optimizer, FlatAdamW) == flat_opt
     for name in ("checkpoint", "checkpoint0000"):
         assert sorted(p.name for p in (out / name).iterdir()) == [
             "meta.json", "model.pt", "optimizer.pt"]
@@ -131,9 +158,9 @@ def test_parser_matches_jax(argv):
                                jax_cli.data_config_from_args(jargs))):
         port_fields = dataclasses.asdict(port_cfg)
         jax_fields = dataclasses.asdict(jax_cfg)
-        # the TPU implementation choices, which the port accepts and maps
-        # to torch.optim.AdamW and torch's generator
-        assert set(jax_fields) - set(port_fields) <= {"flat_opt", "dropout_rng_impl"}
+        # the TPU's dropout RNG, which the port accepts and maps to torch's
+        # generator
+        assert set(jax_fields) - set(port_fields) <= {"dropout_rng_impl"}
         assert set(port_fields) <= set(jax_fields)
         for k, v in port_fields.items():
             assert v == jax_fields[k], k

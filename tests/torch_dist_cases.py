@@ -27,9 +27,9 @@ def averaged_step(rank: int, spec: Dict) -> Dict:
     world = collectives.process_count()
     reduce_sum = train_step.all_reduce_gradients
 
-    def averaged(model):
-        reduce_sum(model)
-        for p in model.parameters():
+    def averaged(state):
+        reduce_sum(state)
+        for p in state.model.parameters():
             if p.grad is not None:
                 p.grad /= world
 

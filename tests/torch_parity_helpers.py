@@ -28,6 +28,7 @@ from tce_rvos_tpu.models.build import build_model as jax_build_model
 from tce_rvos_tpu.models.criterion import criterion as jax_criterion
 from tce_rvos_tpu.models.criterion import criterion_from_configs as jax_criterion_from_configs
 from tce_rvos_tpu.parallel import train_step as jax_ts
+from tce_rvos_tpu.parallel.flat_adamw import make_flat_adamw_fused
 from tce_rvos_tpu_torch.config import ModelConfig, TrainConfig
 from tce_rvos_tpu_torch.models.criterion import criterion_from_configs
 from tce_rvos_tpu_torch.models.referformer import ReferFormer
@@ -238,14 +239,22 @@ def train_targets(seed=0, num_classes: int = 1):
 def jax_train_steps(tiny, tcfg, targets, n_steps, inputs=None):
     """Per step: (losses, grad norm, grads, params after), as numpy with the
     port's names and layouts, on ``inputs`` (the tiny model's own unless
-    given) and ``targets``. The JAX package's ``make_train_step`` always
+    given) and ``targets``, with ``tcfg``'s optimizer: the fused flat AdamW
+    (``make_flat_adamw_fused``) when ``tcfg.flat_opt``, else the optax chain
+    of ``make_optimizer``. The JAX package's ``make_train_step`` always
     draws dropout, so the loss is built here from ``model.apply(...,
     deterministic=True)`` and ``criterion``."""
+    return jax_train_runs(tiny, [tcfg], targets, n_steps, inputs)[0]
+
+
+def jax_train_runs(tiny, tcfgs, targets, n_steps, inputs=None):
+    """``jax_train_steps`` for each config of ``tcfgs`` (which differ in
+    their optimizer only), the gradient compiled once."""
     jcfg, model, variables, _, own_inputs = tiny
     inputs = own_inputs if inputs is None else inputs
     params = variables["params"]
     frozen = {k: v for k, v in variables.items() if k != "params"}
-    crit = jax_criterion_from_configs(jcfg, tcfg)
+    crit = jax_criterion_from_configs(jcfg, tcfgs[0])
     j_inputs = {k: jnp.asarray(v) for k, v in inputs.items()}
     j_targets = {k: jnp.asarray(v) for k, v in targets.items()}
 
@@ -254,48 +263,65 @@ def jax_train_steps(tiny, tcfg, targets, n_steps, inputs=None):
         losses = jax_criterion(crit, out, j_targets)
         return sum(losses.values()), losses
 
-    tx = jax_ts.make_optimizer(params, tcfg, steps_per_epoch=1)
+    def optimizer(tcfg):
+        """(init, update(grads, opt_state, params) -> (grad norm, params,
+        opt_state)) of ``tcfg``'s optimizer."""
+        if tcfg.flat_opt:
+            tx = make_flat_adamw_fused(params, tcfg, steps_per_epoch=1)
 
-    def update(grads, opt_state, params):
-        updates, opt_state = tx.update(grads, opt_state, params)
-        return optax.global_norm(grads), optax.apply_updates(params, updates), opt_state
+            def update(grads, opt_state, params):
+                params, opt_state = tx.apply_params(grads, opt_state, params)
+                return opt_state.gnorm, params, opt_state
+        else:
+            tx = jax_ts.make_optimizer(params, tcfg, steps_per_epoch=1)
+
+            def update(grads, opt_state, params):
+                updates, opt_state = tx.update(grads, opt_state, params)
+                return optax.global_norm(grads), optax.apply_updates(params, updates), opt_state
+        return tx.init, update
 
     # jitted, as eager optax ops compile per leaf shape; the gradient and the
-    # update compile at once in two threads (XLA releases the GIL)
-    opt_shapes = jax.eval_shape(tx.init, params)
-    with ThreadPoolExecutor(2) as pool:
+    # updates compile at once in threads (XLA releases the GIL)
+    txs = [optimizer(tcfg) for tcfg in tcfgs]
+    with ThreadPoolExecutor(1 + len(txs)) as pool:
         grad_fn = pool.submit(
             lambda: jax.jit(jax.value_and_grad(loss_fn, has_aux=True)).lower(params).compile())
-        update_fn = pool.submit(
-            lambda: jax.jit(update).lower(params, opt_shapes, params).compile())
-        grad_fn, update_fn = grad_fn.result(), update_fn.result()
-
-    def jax_step(params, opt_state):
-        (_, losses), grads = grad_fn(params)
-        gnorm, params, opt_state = update_fn(grads, opt_state, params)
-        return losses, gnorm, grads, params, opt_state
+        update_fns = [pool.submit(lambda init=init, update=update: jax.jit(update).lower(
+            params, jax.eval_shape(init, params), params).compile()) for init, update in txs]
+        grad_fn, update_fns = grad_fn.result(), [f.result() for f in update_fns]
 
     def port_layout(tree):
         flat = traverse_util.flatten_dict(tree, sep="/")
         return {k: v.numpy() for k, v in state_dict_from_jax(
             {f"params/{k}": np.array(v) for k, v in flat.items()}).items()}
 
-    opt_state = jax.jit(tx.init)(params)
-    steps = []
-    for _ in range(n_steps):
-        losses, gnorm, grads, params, opt_state = jax_step(params, opt_state)
-        steps.append(({k: float(v) for k, v in losses.items()}, float(gnorm),
-                      port_layout(grads), port_layout(params)))
-    return steps
+    runs = []
+    for (init, _), update_fn in zip(txs, update_fns):
+        p, opt_state = params, jax.jit(init)(params)
+        steps = []
+        for _ in range(n_steps):
+            (_, losses), grads = grad_fn(p)
+            gnorm, p, opt_state = update_fn(grads, opt_state, p)
+            steps.append(({k: float(v) for k, v in losses.items()}, float(gnorm),
+                          port_layout(grads), port_layout(p)))
+        runs.append(steps)
+    return runs
 
 
-def check_two_train_steps(variant: str, batch=None, jax_batch=None, n_steps: int = 2) -> None:
+def check_two_train_steps(variant: str, batch=None, jax_batch=None, n_steps: int = 2,
+                          flat_opt: bool = False, want=None) -> None:
     """Two steps (or ``n_steps``) of the port's ``make_train_step`` on the
     tiny model of ``VARIANTS[variant]`` (f32, dropout off) against
-    ``jax.value_and_grad`` of the JAX model's loss and the optax chain of
-    ``make_optimizer``, from the same weights, on ``batch`` (model inputs
-    and ``targets``; by default the tiny model's inputs and
-    ``train_targets()``), the JAX side on ``jax_batch`` if given.
+    ``jax.value_and_grad`` of the JAX model's loss and the JAX optimizer of
+    the same ``flat_opt``: by default the port's ``--no-flat_opt`` AdamW
+    against the optax chain of ``make_optimizer``, as these tests held it
+    before the flat AdamW; with ``flat_opt=True`` the port's ``FlatAdamW``
+    against ``make_flat_adamw_fused``; from the same weights,
+    on ``batch`` (model inputs and ``targets``; by default the tiny model's
+    inputs and ``train_targets()``), the JAX side on ``jax_batch`` if given
+    (or its steps ``want``, ``jax_train_steps``' result, if given). The
+    flat AdamW leaves its gradient buffer unclipped: its gradients are
+    held times the clip's factor.
 
     Losses and the pre-clip grad norm at 2e-3. Each parameter's (clipped)
     gradient: its difference within 2e-3 of the tensor's gradient in L2
@@ -324,7 +350,7 @@ def check_two_train_steps(variant: str, batch=None, jax_batch=None, n_steps: int
     and the second step's gradients would be taken at other parameters)."""
     tiny = tiny_model(variant)
     _, _, _, flat, inputs = tiny
-    kw = dict(lr_drop=(1,))
+    kw = dict(lr_drop=(1,), flat_opt=flat_opt)
     if batch is None:
         batch = dict(inputs, targets=train_targets())
     jax_batch = batch if jax_batch is None else jax_batch
@@ -332,8 +358,11 @@ def check_two_train_steps(variant: str, batch=None, jax_batch=None, n_steps: int
     # the JAX steps (mostly XLA's compile, which releases the GIL) in a
     # thread, while the port builds its model and takes its first step
     jax_steps = ThreadPoolExecutor(1)
-    want = jax_steps.submit(jax_train_steps, tiny, JaxTrainConfig(**kw), jax_batch["targets"],
-                            n_steps, jax_inputs)
+    if want is None:
+        want = jax_steps.submit(jax_train_steps, tiny, JaxTrainConfig(**kw),
+                                jax_batch["targets"], n_steps, jax_inputs)
+    else:
+        want = jax_steps.submit(lambda: want)
 
     tcfg = TrainConfig(**kw)
     cfg = ModelConfig(**VARIANTS[variant])
@@ -348,8 +377,9 @@ def check_two_train_steps(variant: str, batch=None, jax_batch=None, n_steps: int
         if k == 0:
             want = want.result()
             jax_steps.shutdown()
+        scale = float(state.optimizer.unapplied_clip())
         check_step_against_jax(
-            k, metrics, {n: p.grad.numpy() for n, p in port.named_parameters()}, before,
+            k, metrics, {n: p.grad.numpy() * scale for n, p in port.named_parameters()}, before,
             {n: p.detach().numpy() for n, p in port.named_parameters()}, want[k], tcfg)
         with torch.no_grad():  # the next step starts where the JAX one does
             for name, p in port.named_parameters():
