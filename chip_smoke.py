@@ -155,7 +155,7 @@ Phases (each one fails the run, nothing is caught and carried on from):
                loss logged); ``--vlblock --no_rel_coord`` against the
                flagship (trunk at E = 1 and 4, 3 train steps); the 2D kernels
                held against plain at the runs' largest padded shape;
- 13. dist    - the multi-process path and the host modules (run last):
+ 13. dist    - the multi-process path and the host modules (run after 11):
                the C RLE built and taken by phase 10's JHMDB evaluation
                (``--batch_size 1``), bitwise equal to numpy on its masks,
                samples/s with each; two processes sharing the card over
@@ -169,7 +169,17 @@ Phases (each one fails the run, nothing is caught and carried on from):
                through the launcher's environment (4 bf16 steps), its
                gradient all-reduce (one call on the flat AdamW's
                gradient buffer) and loss sum bitwise, timed;
- 14. numbers - card name and power limit, clips/s and ms per trunk
+ 14. sp      - the frame-sharded forward of one video
+               (``parallel/mesh.py::shard_time_axis``): two processes
+               sharing the card over gloo, 5 frames each of one 10x384x640
+               clip, the flagship at full width and depth and its
+               ``--msda_3d`` variant: the gathered outputs against the
+               one-process forward (f32 at ``SP_F32_TOL``; bf16 mask
+               decisions within ``SP_BF16_MARGIN`` of 0), NCCL at world 1
+               bitwise, each rank's launches; forward ms and peak GiB of
+               each rank and of one process. The kernels phase holds the 3D
+               forward at the sharded calls (Nq = 5 of N = 10, 20 of 40);
+ 15. numbers - card name and power limit, clips/s and ms per trunk
                forward, peak memory per E, and a JSON ``kernels`` line.
 
 The last line of standard output is the device JSON line. Without a CUDA
@@ -792,7 +802,8 @@ def phase_ab(ab_dir: str = AB_DIR, rounds: int = 3) -> dict:
     time is the median of its readings. ``ab_dir`` holds the other builds'
     sources, named by ``AB_PREFIXES`` (``fwd_*.cu`` with ``tce_msda_fwd``,
     ``bwd_*.cu`` with ``tce_msda_bwd``, ``fwd3d_*.cu`` with
-    ``tce_msda3d_fwd``, ``bwd3d_*.cu`` with ``tce_msda3d_bwd``; e.g. an
+    ``tce_msda3d_fwd_nq``, ``bwd3d_*.cu`` with ``tce_msda3d_bwd``; ``bind``
+    raises, naming the file, for a 3D forward without Nq); e.g. an
     earlier version's sources, from git), built in parallel; without it only
     the package kernels are timed. At the 2D encoder call every build also
     runs on ``own_pixel`` locations; at the 3D encoder call on
@@ -4804,6 +4815,295 @@ def phase_dist(jhmdb_tree: str, root: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the frame-sharded forward of one video over two processes
+# ---------------------------------------------------------------------------
+
+SP_T, SP_HW = 10, (384, 640)  # one 10x384x640 clip (360x640 frames, padded), 5 frames a rank
+# f32 (TF32 off), two ranks' gathered outputs against the one-process
+# forward on the card, (rtol, atol as a share of the largest |value|, as
+# ``compare`` takes it): the same function with the attention GEMMs at
+# other query lengths and cuDNN/cuBLAS at other batch sizes, so the sums
+# round differently; the mask logits are a dynamic head's sums over the
+# mask features, and carry more of it
+SP_F32_TOL = {"pred_logits": (1e-4, 1e-4), "pred_boxes": (1e-4, 1e-4),
+              "pred_masks": (1e-3, 1e-3)}
+# bf16: a pixel's mask decision (logit > 0) may differ from the one-process
+# forward's only where that logit lies within SP_BF16_MARGIN of the largest
+# |logit| of 0, and on at most SP_BF16_FLIPPED of the pixels: the batch
+# sizes of every GEMM and convolution differ, and bf16 rounds each
+# differently (the logits' relative RMS gap is 2.0-2.1e-2, as phase 3's
+# batched-against-serial one). Twice the larger of the 2D and 3D readings
+# of the calibration run on an H100 (PERF.md §5, §6): margins 2.348e-2
+# and 2.487e-3, shares 2.840e-3 and 1.432e-5, the same on both ranks and
+# in two calls
+SP_BF16_MARGIN, SP_BF16_FLIPPED = 4.7e-2, 5.7e-3
+
+
+def sp_clip_inputs(path: str) -> None:
+    """``synthetic_video(0)``'s 10 frames normalised and padded to 384x640
+    as the engine does, with CAPTIONS[0], saved as model inputs (numpy)."""
+    import numpy as np
+
+    from tce_rvos_tpu_torch.infer import IMAGENET_MEAN, IMAGENET_STD
+    from tce_rvos_tpu_torch.models.text_encoder import tokenize
+
+    h, w = FRAME_HW
+    frames = np.stack(synthetic_video(0)[:SP_T])
+    video = np.zeros((1, SP_T, *SP_HW, 3), np.float32)
+    video[0, :, :h, :w] = (frames - IMAGENET_MEAN) / IMAGENET_STD
+    mask = np.ones((1, SP_T, *SP_HW), bool)
+    mask[0, :, :h, :w] = False
+    ids, attn = tokenize([CAPTIONS[0]])
+    import torch
+
+    torch.save(dict(video=video, video_mask=mask, text_ids=np.asarray(ids, np.int64),
+                    text_attn_mask=np.asarray(attn, np.int64),
+                    sizes=np.asarray([[h, w]], np.int64)), path)
+
+
+def sp_timed(model, inputs: dict, shard) -> dict:
+    """A warm-up forward, then one timed (host clock around work that ends
+    in a synchronize) with the launch counts and the peak memory of this
+    process; the outputs gathered into the whole clip's, on the CPU."""
+    import torch
+
+    from tce_rvos_tpu_torch.parallel.collectives import all_gather_frames
+    from tce_rvos_tpu_torch.parallel.dryrun import SP_OUTPUTS
+
+    with torch.inference_mode():
+        model(**inputs, frame_shard=shard)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = model(**inputs, frame_shard=shard)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        outs = {k: all_gather_frames(out[k], shard, clip_axis=True).float().cpu()
+                for k in SP_OUTPUTS}
+    return dict(outs, ms=ms, peak_gib=peak, launches=launches)
+
+
+def sp_runs(spec: dict, shard_fn) -> dict:
+    """Each model of ``spec["models"]`` (2D, 3D) in f32 then bf16 through
+    ``sp_timed``, its inputs laid out by ``shard_fn`` (inputs -> (inputs,
+    shard))."""
+    import torch
+
+    from tce_rvos_tpu_torch.parallel import dryrun
+
+    res = {}
+    for name, case in spec["models"].items():
+        model = dryrun.sp_model(case)
+        for dtype in ("float32", "bfloat16"):
+            model.to(getattr(torch, dtype))
+            inputs, shard = shard_fn(dryrun.sp_model_inputs(dict(case, dtype=dtype)))
+            res[f"{name}/{dtype}"] = dict(sp_timed(model, inputs, shard),
+                                          shard=None if shard is None else
+                                          (shard.rank, shard.world, shard.first, shard.count))
+        del model
+        torch.cuda.empty_cache()
+    return res
+
+
+def sp_rank(rank: int, spec: dict) -> dict:
+    """What each of the two processes sharing the card runs (gloo): the
+    frame-sharded forward of each model and dtype on its 5 frames."""
+    import torch
+    import torch.distributed as dist
+
+    from tce_rvos_tpu_torch.parallel.mesh import shard_time_axis
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if dist.get_backend() != "gloo" or dist.get_world_size() != 2:
+        raise AssertionError(f"rank {rank}: {dist.get_backend()} of {dist.get_world_size()}")
+    return sp_runs(spec, shard_time_axis)
+
+
+def sp_decisions(got, want) -> dict:
+    """bf16 mask decisions against the one-process forward's: the share of
+    pixels whose decision (logit > 0) differs, the largest |one-process
+    logit| among them as a share of the largest |logit|, and the relative
+    RMS difference of the logits."""
+    g, w = got.double(), want.double()
+    scale = max(float(w.abs().max()), 1.0)
+    flipped = (g > 0) != (w > 0)
+    worst = float(w.abs()[flipped].max()) / scale if bool(flipped.any()) else 0.0
+    return {"flipped_share": float(flipped.double().mean()), "worst_margin": worst,
+            "rel_rms": float(((g - w) ** 2).mean().sqrt() / (w ** 2).mean().sqrt())}
+
+
+def phase_sp_kernels(shapes=FLAGSHIP_SHAPES) -> dict:
+    """The 3D forward kernel at the frame-sharded forward's calls: rank 1's
+    queries (frames 5-9 of each 10-frame clip) over the whole gathered
+    value, at E = 1 (Nq = 5 of N = 10) and E = 4 (Nq = 20 of N = 40), at
+    the encoder (Q = S) and decoder (Q = 5) shapes, f32 and bf16: against
+    the plain version (FWD_TOL) and bitwise against the matching rows of
+    the whole call; times and bounds as ``phase_kernels``."""
+    import torch
+
+    from tce_rvos_tpu_torch.ops.msda import ms_deform_attn_3d_plain
+    from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn_3d
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(14)
+    s = sum(h * w for h, w in shapes)
+    half = SP_T // 2
+    results = {}
+    for e in (1, 4):
+        n = SP_T * e
+        rows = (torch.arange(e)[:, None] * SP_T + half + torch.arange(half)).reshape(-1).to(dev)
+        for call, q in (("encoder", s), ("decoder", 5)):
+            for dtype in (torch.float32, torch.bfloat16):
+                key = f"sp_e{e}_{call}/{dtype_name(dtype)}"
+                label = f"msda3d_fwd {key} Nq={len(rows)} N={n} Q={q}"
+                value, loc, attn = msda_inputs(call, n, q, dtype, gen, dev, frames=True,
+                                               shapes=shapes)
+                lq, aq = loc[rows].contiguous(), attn[rows].contiguous()
+                got, max_err = hold_forward(ms_deform_attn_3d, ms_deform_attn_3d_plain, label,
+                                            value, shapes, lq, aq)
+                if not torch.equal(got, ms_deform_attn_3d(value, shapes, loc, attn)[rows]):
+                    raise AssertionError(f"{label}: not the whole call's rows bitwise")
+                ms = graph_ms(lambda: ms_deform_attn_3d(value, shapes, lq, aq))
+                plain_ms = cuda_ms(lambda: ms_deform_attn_3d_plain(value, shapes, lq, aq),
+                                   reps=3, warmup=1)
+                bound = msda_bound(value, lq, aq, got, shapes)
+                rtol, atol = FWD_TOL[dtype_name(dtype)]
+                results[key] = dict(Nq=len(rows), N=n, Q=q, max_abs_err=max_err, ms=ms,
+                                    plain_ms=plain_ms, rtol=rtol, atol=atol, levels=shapes,
+                                    **bound)
+                log(f"[kernels] {label}: max|err|={max_err:.3e} (rtol {rtol}, atol {atol}), "
+                    f"the whole call's rows bitwise; kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+                    f"  bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}; {bound['bytes']} "
+                    f"bytes, value {bound['value_bytes_read']} of {bound['value_bytes_all']})")
+    return results
+
+
+def phase_sp(root: str) -> dict:
+    """Phase 14, the frame-sharded forward of one video
+    (``parallel/mesh.py::shard_time_axis``): the flagship at full width and
+    depth (ResNet-50, RoBERTa-base, f_token 8, IQT, box refinement, binary,
+    4 + 4 layers) and its ``--msda_3d`` variant, from seeded random
+    weights, on one 10x384x640 clip with one caption:
+    (a) two processes sharing the card over gloo, 5 frames each, f32 with
+        TF32 off: each rank's gathered logits, boxes and masks against the
+        one-process forward on the card at SP_F32_TOL;
+    (b) the same in bf16: the gaps printed, the mask decisions held to
+        SP_BF16_MARGIN;
+    (c) both for ``--msda_3d`` (the 3D MSDA reads the gathered value);
+    (e) NCCL at world 1: a shard of the whole clip gives the unsharded f32
+        forward bitwise;
+    (f) each rank's launches: the 2D model's 12 2D forwards, the 3D
+        model's 8 3D and 4 2D forwards, as one process's.
+    (d), the 3D kernel at the sharded call's shapes, runs with phase 2
+    (``phase_sp_kernels``). Each rank's forward ms (the two share the card,
+    and their collectives are staged through the host) and peak GiB beside
+    the one-process forward's: numbers, not a claim."""
+    import dataclasses
+
+    import torch
+
+    from tce_rvos_tpu_torch import flagship_config
+    from tce_rvos_tpu_torch.parallel import dryrun
+    from tce_rvos_tpu_torch.parallel.mesh import init_distributed, shard_time_axis
+
+    label = "[sp]"
+    t_phase = time.perf_counter()
+    inputs = os.path.join(root, "sp_inputs.pt")
+    sp_clip_inputs(inputs)
+    spec = {"models": {}}
+    for name, msda_3d, seed in (("2d", False, 0), ("3d", True, 1)):
+        cfg = flagship_config(msda_3d=msda_3d)
+        weights = os.path.join(root, f"sp_weights_{name}.pt")
+        torch.save(random_state_dict(cfg, seed=seed), weights)
+        spec["models"][name] = {"model": dataclasses.asdict(cfg), "device": "cuda",
+                                "weights": weights, "inputs": inputs}
+    want = sp_runs(spec, lambda x: (x, None))  # one process, the whole clip
+    t0 = time.perf_counter()
+    ranks = dryrun.run_processes(2, sp_rank, (spec,), device="cuda", backend="gloo",
+                                 timeout=600)
+    wall = time.perf_counter() - t0
+    # (e) NCCL at world 1, the 2D model in f32
+    with nccl_world_one():
+        init_distributed("cuda")
+        case = spec["models"]["2d"]
+        model = dryrun.sp_model(case)
+        local, shard = shard_time_axis(dryrun.sp_model_inputs(case))
+        if shard is None or (shard.world, shard.count) != (1, SP_T):
+            raise AssertionError(f"{label} NCCL world 1: shard {shard}")
+        nccl = sp_timed(model, local, shard)
+        del model
+    torch.cuda.empty_cache()
+    for k in dryrun.SP_OUTPUTS:
+        if not torch.equal(nccl[k], want["2d/float32"][k]):
+            raise AssertionError(f"{label} NCCL world 1: {k} is not the unsharded forward's")
+    per = {"2d": {"msda_fwd": 12, "msda_bwd": 0, "msda3d_fwd": 0, "msda3d_bwd": 0},
+           "3d": {"msda_fwd": 4, "msda_bwd": 0, "msda3d_fwd": 8, "msda3d_bwd": 0}}
+    res = {"wall_s": wall, "nccl_world1": {"ms": nccl["ms"], "peak_gib": nccl["peak_gib"],
+                                           "launches": nccl["launches"]}}
+    for tag, w in want.items():
+        name, dtype = tag.split("/")
+        entry = {"one_process": {"ms": w["ms"], "peak_gib": w["peak_gib"],
+                                 "launches": w["launches"]}, "ranks": []}
+        if w["launches"] != per[name]:
+            raise AssertionError(f"{label} {tag} one process launched {w['launches']}")
+        for k, shape in (("pred_logits", (1, SP_T, 5, 1)), ("pred_boxes", (1, SP_T, 5, 4)),
+                         ("pred_masks", (1, SP_T, 5, SP_HW[0] // 4, SP_HW[1] // 4))):
+            if tuple(w[k].shape) != shape or not bool(torch.isfinite(w[k]).all()):
+                raise AssertionError(f"{label} {tag} one process: {k} {tuple(w[k].shape)}, "
+                                     "or not finite")
+        for i, r in enumerate(ranks):
+            got = r[tag]
+            if got["shard"] != (i, 2, i * SP_T // 2, SP_T // 2):
+                raise AssertionError(f"{label} rank {i} {tag}: shard {got['shard']}")
+            if got["launches"] != per[name]:
+                raise AssertionError(f"{label} rank {i} {tag}: launches {got['launches']}, "
+                                     f"expected {per[name]}")
+            gaps = {k: float((got[k].double() - w[k].double()).abs().max())
+                    for k in dryrun.SP_OUTPUTS}
+            gaps.update({f"{k}_of_scale": gaps[k] / max(float(w[k].abs().max()), 1.0)
+                         for k in dryrun.SP_OUTPUTS})
+            if dtype == "bfloat16":
+                gaps["decisions"] = sp_decisions(got["pred_masks"], w["pred_masks"])
+            entry["ranks"].append(dict(ms=got["ms"], peak_gib=got["peak_gib"],
+                                       launches=got["launches"], gaps=gaps))
+        res[tag] = entry
+        log(f"{label} {tag}: two ranks of 5 frames against one process of {SP_T}: " + "; ".join(
+            f"rank {i} " + ", ".join(f"{k} {v:.3e}" for k, v in r["gaps"].items()
+                                     if not isinstance(v, dict))
+            + ("; mask decisions differ on {flipped_share:.3e} of pixels (worst margin "
+               "{worst_margin:.3e}, rel RMS {rel_rms:.3e})".format(**r["gaps"]["decisions"])
+               if "decisions" in r["gaps"] else "")
+            for i, r in enumerate(entry["ranks"]))
+            + f"; forward ms {w['ms']:.1f} one process, "
+            + ", ".join(f"{r['ms']:.1f}" for r in entry["ranks"]) + " the ranks; peak GiB "
+            + f"{w['peak_gib']:.2f} one process, "
+            + ", ".join(f"{r['peak_gib']:.2f}" for r in entry["ranks"])
+            + f" the ranks; launches {per[name]}")
+        for i, r in enumerate(ranks):  # the gates, after the numbers are logged
+            if dtype == "float32":
+                for k, (rtol, atol) in SP_F32_TOL.items():
+                    compare(r[tag][k].numpy(), w[k].numpy(), rtol, atol,
+                            f"{label} rank {i} {tag} {k}")
+            else:
+                d = entry["ranks"][i]["gaps"]["decisions"]
+                if d["worst_margin"] > SP_BF16_MARGIN or d["flipped_share"] > SP_BF16_FLIPPED:
+                    raise AssertionError(
+                        f"{label} rank {i} {tag}: mask decisions differ on "
+                        f"{d['flipped_share']:.3e} of pixels (limit {SP_BF16_FLIPPED}), up to "
+                        f"{d['worst_margin']:.3e} of the largest |logit| from 0 (limit "
+                        f"{SP_BF16_MARGIN})")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"{label} NCCL world 1: a shard of the whole clip gives the unsharded f32 forward "
+        f"bitwise ({nccl['ms']:.1f} ms); two gloo ranks {wall:.1f} s; phase 14 wall "
+        f"{res['seconds']:.1f} s; nvidia-smi: {nvidia_smi_line()}")
+    return res
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4814,7 +5114,7 @@ def nvidia_smi_line() -> str:
 
 def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, train: dict,
                  serve3: dict, train3: dict, main_runs: dict, evals: dict,
-                 backbones: dict, options: dict, dist: dict, adamw: dict) -> dict:
+                 backbones: dict, options: dict, dist: dict, adamw: dict, sp: dict) -> dict:
     """The JSON ``kernels`` record: each kernel's main shape in its
     deployment dtype (the encoder call in bf16: E = 4 for the forwards'
     serving paths, N = 5 for the training steps' backwards) in the top-level
@@ -4837,7 +5137,12 @@ def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, tr
     ``--vlblock --no_rel_coord`` steps) likewise, with the 2D calls held at
     the ``train.main`` runs' largest padded shape (``options_HxW``);
     phase 13's paths (``train.main`` over NCCL at world 1, each gloo rank's
-    step and evaluation) likewise. The flat AdamW update (``flat_adamw``)
+    step and evaluation) likewise; phase 14's (each gloo rank's
+    frame-sharded forward of the 2D flagship, ``sp_rank{i}``, and of the
+    ``--msda_3d`` one, ``sp_3d_rank{i}``, the one-process forwards and the
+    NCCL world-1 shard, all in f32) likewise, with the 3D forward held at
+    the sharded calls (``sp/sp_e{1,4}_*``: Nq = 5 of N = 10 and 20 of 40).
+    The flat AdamW update (``flat_adamw``)
     replaces no Pallas kernel but the update XLA fuses
     (``make_flat_adamw_fused``); its ``launches`` are phase 5's flagship
     training run's, its numbers phase 5b's at the flagship's 183,506,503
@@ -4912,12 +5217,18 @@ def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, tr
            **{f"gloo_rank{i}_eval_jhmdb": c
               for i, c in enumerate(dist["gloo"]["eval_launches"])}}
 
+    p14 = {**{f"sp{'_3d' if name == '3d' else ''}_rank{i}": r["launches"]
+              for name in ("2d", "3d") for i, r in enumerate(sp[f"{name}/float32"]["ranks"])},
+           "sp_one_process": sp["2d/float32"]["one_process"]["launches"],
+           "sp_3d_one_process": sp["3d/float32"]["one_process"]["launches"],
+           "sp_nccl_world1": sp["nccl_world1"]["launches"]}
+
     def by_path(d, kname):
         return {**d, "train_main": m2[kname], "train_main_3d": m3[kname],
                 **{path: counts[kname] for path, counts in p10.items()},
                 **({path: counts[kname] for p in (p11, p12) for path, counts in p.items()}
                    if kname in ("msda_fwd", "msda_bwd") else {}),
-                **{path: counts[kname] for path, counts in p13.items()}}
+                **{path: counts[kname] for p in (p13, p14) for path, counts in p.items()}}
 
     return {"kernels": [
         entry("msda_fwd", "msda_fwd.cu", "pallas_msda.py:166", ["pallas_msda.py:265"],
@@ -4997,7 +5308,8 @@ def main() -> int:
     bwd = phase_backward_kernels()
     phase_edge_kernels()
     phase_ab()
-    kern3 = {"e4": phase_kernels(e=4, is_3d=True), "e1": phase_kernels(e=1, is_3d=True)}
+    kern3 = {"e4": phase_kernels(e=4, is_3d=True), "e1": phase_kernels(e=1, is_3d=True),
+             "sp": phase_sp_kernels()}  # phase 14's calls: fewer query frames than N
     bwd3 = {"n5": phase_backward_kernels(5, is_3d=True),
             "n10": phase_backward_kernels(10, is_3d=True)}
     done("2 kernels")
@@ -5053,15 +5365,18 @@ def main() -> int:
         # phase 13 evaluates phase 10's JHMDB tree
         dist = phase_dist(os.path.join(root, "eval", "jhmdb"), root)
         done("13 dist")
+        sp = phase_sp(root)
+        done("14 sp")
     log("[numbers] " + json.dumps({"flat_adamw": adamw, "envelope": envelope,
                                    "protocols": protocols,
                                    "main": main_runs, "eval": evals, "backbones": backbones,
-                                   "options": options, "dist": dist, "times_s": times}))
+                                   "options": options, "dist": dist, "sp": sp,
+                                   "times_s": times}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels_line(kern, bwd, kern3, bwd3, paths["bfloat16"]["launches"], train,
                                   serve3, train3, main_runs, evals, backbones, options, dist,
-                                  adamw)))
+                                  adamw, sp)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

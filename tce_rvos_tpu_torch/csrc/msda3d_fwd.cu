@@ -21,8 +21,13 @@
 // with (x, y) = loc * (W_l, H_l) - 0.5 and frames outside [0, N - 1]
 // contributing nothing. Time is the call's whole batch axis (N frames), as
 // in the JAX package. value [N, S, M, D] f32 or bf16, loc
-// [N, Q, M, L, P, 3] f32 (x, y, f), attn [N, Q, M, L, P] f32, out
-// [N, Q, M*D] in the value's dtype. D = 32. Sums are taken in f32 and
+// [Nq, Q, M, L, P, 3] f32 (x, y, f), attn [Nq, Q, M, L, P] f32, out
+// [Nq, Q, M*D] in the value's dtype. D = 32. The rows are the Nq query
+// frames; N, the value's frames, sets f_im and the frame bounds. A row's
+// own frame is read only through its f coordinate, so Nq < N is the
+// frame-sharded forward's call: a rank's queries over the whole clip's
+// gathered value (parallel/mesh.py::shard_time_axis). The model's other
+// calls have Nq = N. Sums are taken in f32 and
 // written once in the value's dtype. The coordinates are rounded as the
 // plain version rounds them (__fmul_rn, __fsub_rn: no FMA contraction), so
 // both floor to the same pixel and frame: at zero temporal offset f_im is
@@ -134,11 +139,11 @@ template <typename T, int kL, int kP>
 __global__ void __launch_bounds__(kThreads, 2)
 msda3d_fwd_kernel(const T* __restrict__ value, const __grid_constant__ Levels lv,
                   const int n_levels, const float* __restrict__ loc,
-                  const float* __restrict__ attn, T* __restrict__ out, const int N, const int S,
-                  const int Q, const int M, const int P) {
+                  const float* __restrict__ attn, T* __restrict__ out, const int Nq,
+                  const int N, const int S, const int Q, const int M, const int P) {
   const Lane ln = lane_of_row();
   const long long row = (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / kLanesPerRow;
-  if (row >= (long long)N * Q * M) return;  // whole rows: the 16 lanes stay together
+  if (row >= (long long)Nq * Q * M) return;  // whole rows: the 16 lanes stay together
   const int m = (int)(row % M);
   const int taps = n_levels * P;
   const long long pix = (long long)M * kChannels;  // stride of one pixel
@@ -150,10 +155,10 @@ msda3d_fwd_kernel(const T* __restrict__ value, const __grid_constant__ Levels lv
 // L = P = 4 (the flagship's) unrolled; other L and P take the runtime loops.
 template <typename T>
 int launch(const T* value, const Levels& lv, int n_levels, const float* loc, const float* attn,
-           T* out, int N, int S, int Q, int M, int P, cudaStream_t stream) {
+           T* out, int Nq, int N, int S, int Q, int M, int P, cudaStream_t stream) {
   auto* kernel = n_levels == 4 && P == 4 ? msda3d_fwd_kernel<T, 4, 4> : msda3d_fwd_kernel<T, 0, 0>;
-  kernel<<<blocks_for(N, Q, M), kThreads, 0, stream>>>(value, lv, n_levels, loc, attn, out, N,
-                                                        S, Q, M, P);
+  kernel<<<blocks_for(Nq, Q, M), kThreads, 0, stream>>>(value, lv, n_levels, loc, attn, out, Nq,
+                                                         N, S, Q, M, P);
   return (int)cudaGetLastError();
 }
 
@@ -161,22 +166,25 @@ int launch(const T* value, const Levels& lv, int n_levels, const float* loc, con
 
 // value_dtype: 0 = float32, 1 = bfloat16. level_hw: host array of
 // n_levels (H, W) pairs. value and out must start on a 16-byte boundary.
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// arguments the kernel does not take).
-extern "C" int tce_msda3d_fwd(const void* value, int value_dtype, const int* level_hw,
-                              int n_levels, const void* loc, const void* attn, void* out,
-                              int N, int S, int Q, int M, int D, int P, void* stream) {
-  if (D != kChannels || n_levels < 1 || n_levels > kMaxLevels || P < 1 ||
+// Nq: the query frames (rows of loc, attn and out); N: the value's frames.
+// The name's _nq marks this argument, which the entry point's earlier
+// tce_msda3d_fwd (one N for both) lacked. Returns cudaGetLastError() after
+// the launch (cudaErrorInvalidValue for arguments the kernel does not take).
+extern "C" int tce_msda3d_fwd_nq(const void* value, int value_dtype, const int* level_hw,
+                                 int n_levels, const void* loc, const void* attn, void* out,
+                                 int Nq, int N, int S, int Q, int M, int D, int P,
+                                 void* stream) {
+  if (D != kChannels || n_levels < 1 || n_levels > kMaxLevels || P < 1 || Nq < 0 || N < 0 ||
       (value_dtype != 0 && value_dtype != 1) ||
       reinterpret_cast<uintptr_t>(value) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
     return (int)cudaErrorInvalidValue;
   Levels lv;
   if (!make_levels(level_hw, n_levels, S, &lv)) return (int)cudaErrorInvalidValue;
-  if ((long long)N * Q * M == 0) return (int)cudaSuccess;
+  if ((long long)Nq * Q * M == 0) return (int)cudaSuccess;
   const auto call = [&](auto* typed_out) {
     using T = std::remove_pointer_t<decltype(typed_out)>;
     return launch(static_cast<const T*>(value), lv, n_levels, static_cast<const float*>(loc),
-                  static_cast<const float*>(attn), typed_out, N, S, Q, M, P,
+                  static_cast<const float*>(attn), typed_out, Nq, N, S, Q, M, P,
                   static_cast<cudaStream_t>(stream));
   };
   return value_dtype == 0 ? call(static_cast<float*>(out))

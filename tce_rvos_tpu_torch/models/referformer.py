@@ -23,8 +23,19 @@ layer under ``"aux_outputs"``, for the criterion's ``_i`` losses; serving
 never pays for them. ``cfg.freeze_text_encoder`` stops the gradient at the
 text encoder's outputs. ``valid_indices`` ([b], A2D/JHMDB evaluation) keeps
 only each clip's annotated frame after the position encodings: from there
-on t = 1, as in the JAX package (reference tce_rvos.py:234-243). Not ported
-yet: the ``vis_loss`` and ``contrastive`` heads.
+on t = 1, as in the JAX package (reference tce_rvos.py:234-243).
+
+The frame-sharded forward: ``frame_shard`` (from
+``parallel/mesh.py::shard_time_axis``, which also cuts ``video`` and
+``video_mask`` to the rank's frames) runs the rank's frames of the clip,
+gathering over the ranks what mixes frames (``models/transformer.py``,
+``models/segmentation.py``); every output is then the rank's frames of the
+one-process forward's. It is inference only, as the JAX package's
+(``deterministic=True``): it raises with grad enabled or in training
+mode, and it refuses, naming the option, a temporal backbone (whose 3D
+windows and temporal convolutions would need their own exchange),
+``valid_indices`` and the serving split (``precomputed_feats``,
+``backbone_only``).
 """
 
 from __future__ import annotations
@@ -149,11 +160,15 @@ class ReferFormer(nn.Module):
         backbone_only: bool = False,
         aux_outputs: bool = False,
         valid_indices: Optional[torch.Tensor] = None,  # [b] (a2d/jhmdb: t -> 1)
+        frame_shard=None,                     # the rank's t frames of the clip
     ):
         cfg = self.cfg
         c = cfg.hidden_dim
         bv, t = video_mask.shape[0], video_mask.shape[1]
         b = bv if text_ids is None else text_ids.shape[0]
+        if frame_shard is not None:
+            self._check_frame_shard(frame_shard, t, valid_indices, precomputed_feats,
+                                    backbone_only)
 
         if precomputed_feats is None:
             if self.temporal_backbone:  # clips [bv, 3, t, H, W]
@@ -219,11 +234,12 @@ class ReferFormer(nn.Module):
         tr = self.transformer(
             srcs, text_embed, masks_l, poses[len(feats) - 3:][: cfg.num_feature_levels],
             self.query_embed.weight,
-            bbox_embed=self.bbox_embed if cfg.with_box_refine else None)
+            bbox_embed=self.bbox_embed if cfg.with_box_refine else None,
+            frame_shard=frame_shard)
         # ---- segmentation ----
         mask_features = self.pixel_decoder(
             list(zip(feats, feat_masks)), text_features, text_pad_mask, text_pos,
-            poses[:4], tr["memory_features"], t)
+            poses[:4], tr["memory_features"], t, frame_shard)
         mask_features = mask_features.reshape((b, t) + tuple(mask_features.shape[1:]))
 
         def layer_outputs(lvl):
@@ -266,6 +282,25 @@ class ReferFormer(nn.Module):
         if aux_outputs:
             out["aux_outputs"] = [layer_outputs(lvl) for lvl in range(cfg.dec_layers - 1)]
         return out
+
+    def _check_frame_shard(self, shard, t: int, valid_indices, precomputed_feats,
+                           backbone_only: bool) -> None:
+        """Raises for what the frame-sharded forward does not take."""
+        if self.training or torch.is_grad_enabled():
+            raise ValueError("frame_shard: the frame-sharded forward is inference only "
+                             "(call it in eval mode under torch.no_grad or inference_mode)")
+        if self.temporal_backbone:
+            raise ValueError(f"--backbone {self.cfg.backbone}: a temporal backbone's windows "
+                             "and convolutions span frames; the frame-sharded forward takes "
+                             "a 2D backbone")
+        if valid_indices is not None:
+            raise ValueError("valid_indices: the frame-sharded forward keeps every frame "
+                             "(A2D/JHMDB's annotated-frame selection is not sharded)")
+        if precomputed_feats is not None or backbone_only:
+            raise ValueError("precomputed_feats / backbone_only: the serving split is not "
+                             "frame-sharded; run the plain forward")
+        if t != shard.count:
+            raise ValueError(f"frame_shard holds {shard.count} frames, the video {t}")
 
 
 def init_weights(model: ReferFormer, generator: torch.Generator) -> None:

@@ -13,7 +13,11 @@
     class losses.
 
 Convolutions work on NCHW; the V-L blocks take channel-last clips
-[b, t, h, w, C] like the JAX module.
+[b, t, h, w, C] like the JAX module. Under a ``frame_shard`` (the
+frame-sharded forward, ``parallel/mesh.py``) a V-L block's reduced queries
+of the rank's frames attend to the whole clip's reduced keys, values and
+key-padding mask, gathered over the ranks; the rest of the head is per
+frame.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from tce_rvos_tpu_torch.models.layers import (
     layer_norm,
     with_pos,
 )
+from tce_rvos_tpu_torch.parallel.collectives import all_gather_frames
 from tce_rvos_tpu_torch.utils.interpolate import resize_bilinear, resize_nearest
 
 
@@ -69,9 +74,10 @@ class VisionLanguageBlock(nn.Module):
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, tgt, memory, tgt_key_padding_mask, memory_key_padding_mask,
-                pos, query_pos):
+                pos, query_pos, frame_shard=None):
         """tgt, query_pos [b, t, h, w, C]; tgt_key_padding_mask [b, t, h, w];
-        memory, pos [b, S_txt, C]."""
+        memory, pos [b, S_txt, C]; ``frame_shard``: the t frames are the
+        rank's of the clip's T."""
         b, t, h, w, c = tgt.shape
         q = k = with_pos(tgt, query_pos)
         v = tgt
@@ -83,8 +89,10 @@ class VisionLanguageBlock(nn.Module):
             v = _cl_resize(v, (nh, nw), resize_nearest)
             kpm = resize_nearest(kpm.float(), (nh, nw)).bool()
         sq = t * nh * nw
-        tgt2 = self.self_attn(q.reshape(b, sq, c), k.reshape(b, sq, c), v.reshape(b, sq, c),
-                              key_padding_mask=kpm.reshape(b, sq))
+        k, v, kpm = (all_gather_frames(x, frame_shard, clip_axis=True) for x in (k, v, kpm))
+        sk = k.shape[1] * nh * nw  # the whole clip's keys
+        tgt2 = self.self_attn(q.reshape(b, sq, c), k.reshape(b, sk, c), v.reshape(b, sk, c),
+                              key_padding_mask=kpm.reshape(b, sk))
         tgt2 = tgt2.reshape(b, t, nh, nw, c)
         if self.sr_ratio > 1:
             tgt2 = _cl_resize(tgt2, (h, w), resize_bilinear, align_corners=False)
@@ -137,7 +145,8 @@ class CrossModalFPNDecoder(nn.Module):
                     conv_dim, 8, dim_feedforward, sr_ratio=self.SR_RATIOS[stage - 1]))
         self.mask_features = Conv2d(conv_dim, mask_dim, 3, norm=False)
 
-    def _stage(self, stage, x, x_mask, pos, y, nf, text_features, text_pad_mask, text_pos):
+    def _stage(self, stage, x, x_mask, pos, y, nf, text_features, text_pad_mask, text_pos,
+               frame_shard=None):
         n, _, h, w = x.shape
         b, t, c = n // nf, nf, self.conv_dim
         vis = getattr(self, f"adapter_{stage}")(x)
@@ -145,7 +154,7 @@ class CrossModalFPNDecoder(nn.Module):
             vis = getattr(self, f"cross_attn_{stage}")(
                 vis.permute(0, 2, 3, 1).reshape(b, t, h, w, c),
                 text_features, x_mask.reshape(b, t, h, w), text_pad_mask, text_pos,
-                pos.reshape(b, t, h, w, c),
+                pos.reshape(b, t, h, w, c), frame_shard,
             ).reshape(n, h, w, c).permute(0, 3, 1, 2)
         if y is not None:
             vis = vis + resize_nearest(y, (h, w))
@@ -160,14 +169,16 @@ class CrossModalFPNDecoder(nn.Module):
         poses: Sequence[torch.Tensor],       # 4 x [N, H, W, C]
         memory: Sequence[torch.Tensor],      # 3 x [N, C, h, w] 8x -> 32x
         nf: int,
+        frame_shard=None,                    # the rank's nf frames of the clip (inference)
     ) -> torch.Tensor:
         y = None
         items = list(zip(memory[::-1], features[1:][::-1], poses[1:][::-1]))
         for idx, (mem, feat, pos) in enumerate(items):
             y = self._stage(4 - idx, mem, feat[1], pos, y, nf,
-                            text_features, text_pad_mask, text_pos)
+                            text_features, text_pad_mask, text_pos, frame_shard)
         x, x_mask = features[0]
-        y = self._stage(1, x, x_mask, poses[0], y, nf, text_features, text_pad_mask, text_pos)
+        y = self._stage(1, x, x_mask, poses[0], y, nf, text_features, text_pad_mask, text_pos,
+                        frame_shard)
         return self.mask_features(y)
 
 

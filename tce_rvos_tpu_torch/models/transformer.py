@@ -31,6 +31,18 @@ encoder layer's deformable self-attention instead of FTF: the coarsest
 level's pixels of a clip's t frames attend to each other (scoped to the
 clip, as FTF is), so the whole-video attention grows as T squared: at
 T = 160 and 6x10 coarsest pixels, 9,600 tokens.
+
+``frame_shard`` (a ``parallel/mesh.py::FrameShard``; inference only) runs
+the rank's frames of one clip sharded over processes along time. The ops
+that mix frames then take the whole clip's keys, values and key-padding
+masks, gathered over the ranks (``collectives.all_gather_frames``), and
+the rank's own queries attend to them: FTF's token self-attention (tokens
+and their positions), ``LastLayerAsToken`` (the coarsest pixels), IQT
+(``qk`` and ``tgt``) and, with ``msda_3d``, the 3D MSDA's value (after
+``value_proj`` and the padding fill), whose local queries take their
+global frame reference ``(i T + first + j + 0.5) / (b T)``. Everything
+else is per frame and runs on the rank's frames alone. Without a shard
+every path is the one-process forward.
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ from tce_rvos_tpu_torch.models.layers import (
     with_pos,
 )
 from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn, ms_deform_attn_3d
+from tce_rvos_tpu_torch.parallel.collectives import all_gather_frames
 from tce_rvos_tpu_torch.utils.boxes import inverse_sigmoid
 
 SpatialShapes = Tuple[Tuple[int, int], ...]
@@ -78,7 +91,9 @@ class MSDeformAttn(nn.Module):
     plain version on the CPU. With ``is_3d`` every point has a third
     (frame) offset and the op is ``ms_deform_attn_3d``: the temporal
     reference is the query's own frame along the batch axis, ``(n + 0.5) /
-    N``, so zero temporal offsets give the 2D result."""
+    N``, so zero temporal offsets give the 2D result. Under a
+    ``frame_shard`` the 3D op reads the whole clip's gathered value, N the
+    b * T frames, and frame n is the query's global index."""
 
     def __init__(self, d_model: int = 256, n_levels: int = 4, n_heads: int = 8,
                  n_points: int = 4, is_3d: bool = False):
@@ -111,6 +126,7 @@ class MSDeformAttn(nn.Module):
         input_flatten: torch.Tensor,     # [N, S, C]
         spatial_shapes: SpatialShapes,
         padding_mask: Optional[torch.Tensor] = None,  # [N, S]
+        frame_shard=None,
     ):
         m, l, p = self.n_heads, self.n_levels, self.n_points
         n, q_len, _ = query.shape
@@ -119,6 +135,8 @@ class MSDeformAttn(nn.Module):
         if padding_mask is not None:
             value = value.masked_fill(padding_mask[..., None], 0.0)
         value = value.reshape(n, s, m, self.d_model // m)
+        if self.is_3d:  # any frame of the clip may be read
+            value = all_gather_frames(value, frame_shard)
         offsets = self.sampling_offsets(query).reshape(n, q_len, m, l, p, self.coords)
         attn = self.attention_weights(query).reshape(n, q_len, m, l * p)
         attn = torch.softmax(attn, -1).reshape(n, q_len, m, l, p)
@@ -136,8 +154,15 @@ class MSDeformAttn(nn.Module):
             # the query's own frame along the batch-as-time axis: f_im =
             # loc_f * N - 0.5 lands exactly on frame n at zero offset. f32,
             # as the (f32) reference points make the spatial coordinates
-            ref_f = (torch.arange(n, dtype=loc.dtype, device=loc.device) + 0.5) / n
-            loc_f = ref_f[:, None, None, None, None] + offsets[..., 2] / n
+            # clip i's frame first + j is frame i T + first + j of the
+            # (gathered) value; without a shard the rank holds the whole batch
+            n_all = value.shape[0]
+            sh = frame_shard
+            first, count, frames = (0, n, n) if sh is None else (sh.first, sh.count, sh.frames)
+            own = (torch.arange(n // count, device=loc.device)[:, None] * frames
+                   + first + torch.arange(count, device=loc.device)).reshape(-1)
+            ref_f = (own.to(loc.dtype) + 0.5) / n_all
+            loc_f = ref_f[:, None, None, None, None] + offsets[..., 2] / n_all
             loc = torch.cat([loc, loc_f[..., None]], -1)
         # coordinates and weights stay float32 into the kernel
         loc = loc.float().contiguous()
@@ -205,7 +230,7 @@ class FrameTokenLayer(nn.Module):
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, src, pos, token, token_pos, spatial_shapes, padding_mask,
-                valid_ratios, clip_frames: int):
+                valid_ratios, clip_frames: int, frame_shard=None):
         n, n_tok, c = token.shape
         t = clip_frames
         b = n // t
@@ -215,10 +240,14 @@ class FrameTokenLayer(nn.Module):
         token2, _, _ = self.token_frame_atten(
             with_pos(token, token_pos), ref, src, spatial_shapes, padding_mask)
         token = self.norm1(token + self.dropout(token2))
-        # 2) joint self-attention over one clip's t*To tokens
+        # 2) joint self-attention over one clip's t*To tokens (the rank's
+        # tokens over the whole clip's under a frame shard)
+        qk_l = with_pos(token, token_pos)
+        qk = qk_l.reshape(b, t * n_tok, c)
+        keys = all_gather_frames(qk_l, frame_shard).reshape(b, -1, c)
+        values = all_gather_frames(token, frame_shard).reshape(b, -1, c)
         flat = token.reshape(b, t * n_tok, c)
-        qk = with_pos(flat, token_pos.reshape(b, t * n_tok, c))
-        token = self.norm2(flat + self.dropout(self.token_self_atten(qk, qk, flat)))
+        token = self.norm2(flat + self.dropout(self.token_self_atten(qk, keys, values)))
         token = token.reshape(n, n_tok, c)
         # 3) frame features <- tokens
         src2 = self.frame_token_atten(with_pos(src, pos), with_pos(token, token_pos), token)
@@ -245,7 +274,7 @@ class LastLayerAsToken(nn.Module):
         self.norm2 = layer_norm(d_model)
         self.dropout = nn.Dropout(dropout)
 
-    def forward(self, src, pos, last_start: int, clip_frames: int):
+    def forward(self, src, pos, last_start: int, clip_frames: int, frame_shard=None):
         n, _, c = src.shape
         t = clip_frames
         b = n // t
@@ -253,7 +282,9 @@ class LastLayerAsToken(nn.Module):
         n_tok = tok.shape[1]
         flat = tok.reshape(b, t * n_tok, c)
         flat_pos = pos[:, last_start:].reshape(b, t * n_tok, c)
-        flat = flat + self.dropout(self.inter_frame_att(with_pos(flat, flat_pos), flat, flat))
+        # keys and values: the whole clip's pixels (gathered under a frame shard)
+        kv = all_gather_frames(flat.reshape(n, n_tok, c), frame_shard).reshape(b, -1, c)
+        flat = flat + self.dropout(self.inter_frame_att(with_pos(flat, flat_pos), kv, kv))
         flat = ffn(flat, self.linear1, self.linear2, self.norm2, self.dropout, self.activation)
         return torch.cat([src[:, :last_start], flat.reshape(n, n_tok, c)], 1)
 
@@ -279,16 +310,16 @@ class EncoderLayer(nn.Module):
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, src, pos, reference_points, spatial_shapes, valid_ratios,
-                padding_mask, memory_bus, memory_pos, clip_frames: int):
+                padding_mask, memory_bus, memory_pos, clip_frames: int, frame_shard=None):
         if self.inter_frame_atten is not None:
             last_start = sum(h * w for h, w in spatial_shapes[:-1])
-            src = self.inter_frame_atten(src, pos, last_start, clip_frames)
+            src = self.inter_frame_atten(src, pos, last_start, clip_frames, frame_shard)
         if self.ftoken_layers is not None:
             src, memory_bus = self.ftoken_layers(
                 src, pos, memory_bus, memory_pos, spatial_shapes, padding_mask,
-                valid_ratios, clip_frames)
+                valid_ratios, clip_frames, frame_shard)
         src2, _, _ = self.self_attn(
-            with_pos(src, pos), reference_points, src, spatial_shapes, padding_mask)
+            with_pos(src, pos), reference_points, src, spatial_shapes, padding_mask, frame_shard)
         src = self.norm1(src + self.dropout(src2))
         src = ffn(src, self.linear1, self.linear2, self.norm2, self.dropout, self.activation)
         return src, memory_bus
@@ -296,7 +327,8 @@ class EncoderLayer(nn.Module):
 
 class DecoderLayer(nn.Module):
     """Deformable decoder layer; with IQT the self-attention runs over each
-    query slot's t frames instead of over the query slots of one frame."""
+    query slot's t frames instead of over the query slots of one frame
+    (under a frame shard, the rank's frames over the whole clip's)."""
 
     def __init__(self, d_model=256, d_ffn=1024, dropout=0.1, activation="relu", n_levels=4,
                  n_heads=8, n_points=4, is_query_atten=False, msda_3d=False):
@@ -313,29 +345,31 @@ class DecoderLayer(nn.Module):
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes,
-                padding_mask, clip_frames: int):
+                padding_mask, clip_frames: int, frame_shard=None):
         qk = with_pos(tgt, query_pos)
         if self.is_query_atten:
             n, q_len, c = tgt.shape
             t = clip_frames
             b = n // t
 
-            def to_iqt(x):  # [b*t, Q, C] -> [b*Q, t, C], dense
+            def to_iqt(x):  # [b*t', Q, C] -> [b*Q, t', C], dense
                 # at b = 1 the reshape is a strided view (and the first
                 # layer's value a stride-0 broadcast), which sends the
                 # projections down other GEMM paths than at b > 1: in bf16
                 # an expression's output would depend on how many others
                 # share its batch. Dense, its rows come out bitwise equal
-                return (x.reshape(b, t, q_len, c).transpose(1, 2)
-                        .reshape(b * q_len, t, c).contiguous())
+                return (x.reshape(b, -1, q_len, c).transpose(1, 2)
+                        .reshape(b * q_len, -1, c).contiguous())
 
-            tgt2 = self.self_attn(to_iqt(qk), to_iqt(qk), to_iqt(tgt))
+            tgt2 = self.self_attn(to_iqt(qk), to_iqt(all_gather_frames(qk, frame_shard)),
+                                  to_iqt(all_gather_frames(tgt, frame_shard)))
             tgt2 = tgt2.reshape(b, q_len, t, c).transpose(1, 2).reshape(n, q_len, c)
         else:
             tgt2 = self.self_attn(qk, qk, tgt)
         tgt = self.norm2(tgt + self.dropout(tgt2))
         tgt2, loc, attn_w = self.cross_attn(
-            with_pos(tgt, query_pos), reference_points, src, spatial_shapes, padding_mask)
+            with_pos(tgt, query_pos), reference_points, src, spatial_shapes, padding_mask,
+            frame_shard)
         tgt = self.norm1(tgt + self.dropout(tgt2))
         tgt = ffn(tgt, self.linear1, self.linear2, self.norm3, self.dropout, self.activation)
         return tgt, loc, attn_w
@@ -389,6 +423,7 @@ class DeformableTransformer(nn.Module):
         pos_embeds: Sequence[torch.Tensor],  # L x [N, H_l, W_l, C] float32
         query_embed: torch.Tensor,           # [q, C]
         bbox_embed: Optional[Sequence[nn.Module]] = None,
+        frame_shard=None,                    # the rank's frames of the clip (inference)
     ) -> Dict[str, object]:
         c = self.d_model
         spatial_shapes = tuple((int(s.shape[2]), int(s.shape[3])) for s in srcs)
@@ -412,7 +447,8 @@ class DeformableTransformer(nn.Module):
         ckpt = self.use_checkpoint
         for layer in self.encoder.layers:
             output, memory_bus = run_layer(layer, ckpt, output, pos_flat, enc_ref, spatial_shapes,
-                                           valid_ratios, mask_flat, memory_bus, memory_pos, t)
+                                           valid_ratios, mask_flat, memory_bus, memory_pos, t,
+                                           frame_shard)
         memory = output
 
         # ---- decoder ----
@@ -430,7 +466,7 @@ class DeformableTransformer(nn.Module):
             else:
                 ref_input = reference_points[:, :, None] * valid_ratios[:, None]
             out, loc, attn_w = run_layer(layer, ckpt, out, query_pos, ref_input, memory,
-                                         spatial_shapes, mask_flat, t)
+                                         spatial_shapes, mask_flat, t, frame_shard)
             # top-30 sampling locations for visualisation
             nq = loc.shape[1]
             loc_n = loc / valid_ratios[:, None, None, :, None, :]

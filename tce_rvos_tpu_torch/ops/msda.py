@@ -24,7 +24,11 @@ fractional frame ``f_im = f * N - 0.5`` of the batch axis (N frames) and
 lerps the bilinear taps of frames ``floor(f_im)`` and ``floor(f_im) + 1``
 with weights ``1 - df`` and ``df``; frames outside [0, N - 1] add nothing.
 Time is the whole batch axis of the call, as in the JAX package: with clips
-or expressions stacked on it, a tap can reach into a neighbouring clip.
+or expressions stacked on it, a tap can reach into a neighbouring clip. The
+query batch Nq may be smaller than the value's N frames: under the
+frame-sharded forward (``parallel/mesh.py::shard_time_axis``) a rank's
+queries of its own frames read the whole clip's gathered value, and their
+f coordinate is taken over all N frames.
 
 Taps are gathered and summed in float32 for a float32 or bfloat16 value
 (float64 for a float64 one, which only the CPU takes); the result is cast
@@ -116,10 +120,11 @@ def ms_deform_attn_3d_plain(
     sampling_locations: torch.Tensor,
     attention_weights: torch.Tensor,
 ) -> torch.Tensor:
-    """value [N, S, M, D], loc [N, Q, M, L, P, 3] (x, y, f in [0, 1]),
-    attn [N, Q, M, L, P] -> [N, Q, M*D] in the value's dtype."""
+    """value [N, S, M, D], loc [Nq, Q, M, L, P, 3] (x, y, f in [0, 1]; f
+    over the value's N frames), attn [Nq, Q, M, L, P] -> [Nq, Q, M*D] in
+    the value's dtype."""
     n, s, m, d = value.shape
-    q = sampling_locations.shape[1]
+    nq, q = sampling_locations.shape[:2]
     starts = level_splits(spatial_shapes)
     if starts[-1] != s:
         raise ValueError(f"spatial_shapes cover {starts[-1]} pixels, value has {s}")
@@ -127,12 +132,12 @@ def ms_deform_attn_3d_plain(
     vf = value.to(ctype)
     loc = sampling_locations.to(ctype)
     attn = attention_weights.to(ctype)
-    f = loc[..., 2] * n - 0.5  # [N, Q, M, L, P]
+    f = loc[..., 2] * n - 0.5  # [Nq, Q, M, L, P]
     f0 = torch.floor(f)
     df = f - f0
     f0i = f0.to(torch.int64)
     heads = torch.arange(m, device=value.device)[:, None]  # against [..., M, P]
-    out = torch.zeros((n, q, m, d), dtype=ctype, device=value.device)
+    out = torch.zeros((nq, q, m, d), dtype=ctype, device=value.device)
     for lvl, (h, w) in enumerate(spatial_shapes):
         hw = h * w
         # (frame, pixel) flattened, so that one index picks both
@@ -146,6 +151,6 @@ def ms_deform_attn_3d_plain(
             fwgt = torch.where((fi >= 0) & (fi < n), fwgt, torch.zeros_like(fwgt))
             row0 = fi.clamp(0, n - 1) * hw
             for flat_idx, wgt in corners:
-                tap = value_l[row0 + flat_idx, heads]  # [N, Q, M, P, D]
+                tap = value_l[row0 + flat_idx, heads]  # [Nq, Q, M, P, D]
                 out = out + torch.einsum("nqmpd,nqmp->nqmd", tap, fwgt * wgt * a)
-    return out.reshape(n, q, m * d).to(value.dtype)
+    return out.reshape(nq, q, m * d).to(value.dtype)

@@ -21,6 +21,11 @@ they raise; nothing falls back. Only CPU tensors go to the plain versions
 (``ops/msda.py``), which autograd differentiates. ``<op>.launches`` counts
 forward kernel launches and ``<op>.backward_launches`` backward ones, for
 each of the two ops.
+
+The 3D forward takes a query batch Nq that differs from the value's N
+frames (the frame-sharded forward's call, ``parallel/mesh.py``); its
+backward kernel does not, and ``launch_backward`` raises for a backward of
+such a call.
 """
 
 from __future__ import annotations
@@ -54,16 +59,27 @@ _SHAPE_ARGS = [_I32] * 6 + [_PTR]  # N, S, Q, M, D, P, stream
 
 
 _FWD_ARGS = [_PTR, _I32, ctypes.POINTER(_I32), _I32, _PTR, _PTR, _PTR] + _SHAPE_ARGS
+_FWD3_ARGS = _FWD_ARGS[:7] + [_I32] + _SHAPE_ARGS  # Nq before N
 _BWD_ARGS = [_PTR, _I32, ctypes.POINTER(_I32), _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR] + _SHAPE_ARGS
 
 
 def bind(source, backward: bool, is_3d: bool = False):
-    """The C entry point (``tce_msda[3d]_{fwd,bwd}``) of the library built
-    from ``source``: a file of ``csrc/`` or the path of another build of the
-    same entry points (``chip_smoke.py`` times such builds against these)."""
-    fn = getattr(load_library(str(source)),
-                 f"tce_msda{'3d' if is_3d else ''}_{'bwd' if backward else 'fwd'}")
-    fn.argtypes = _BWD_ARGS if backward else _FWD_ARGS
+    """The C entry point (``tce_msda[3d]_{fwd,bwd}``; the 3D forward's is
+    ``tce_msda3d_fwd_nq``, which takes the query frames Nq before N) of the
+    library built from ``source``: a file of ``csrc/`` or the path of
+    another build of the same entry points (``chip_smoke.py`` times such
+    builds against these). Raises, naming the file, for a build that lacks
+    the entry point, such as a 3D forward from before it took Nq."""
+    name = f"tce_msda{'3d' if is_3d else ''}_{'bwd' if backward else 'fwd'}"
+    if is_3d and not backward:
+        name += "_nq"
+    lib = load_library(str(source))
+    if not hasattr(lib, name):
+        raise ValueError(f"{source} exports no {name}"
+                         + (" (a 3D forward taking one N for queries and frames, "
+                            "tce_msda3d_fwd, cannot be bound)" if name.endswith("_nq") else ""))
+    fn = getattr(lib, name)
+    fn.argtypes = _BWD_ARGS if backward else (_FWD3_ARGS if is_3d else _FWD_ARGS)
     fn.restype = _I32
     return fn
 
@@ -137,12 +153,14 @@ def _check(value, spatial_shapes, loc, attn, coords: int = 2) -> None:
     if value.dim() != 4 or value.shape[-1] != CHANNELS:
         raise ValueError(f"value must be [N, S, M, {CHANNELS}], got {tuple(value.shape)}")
     n, s, m, _ = value.shape
+    # the 3D op's queries may be fewer frames than the value's (Nq < N)
+    nq = loc.shape[0] if coords == 3 and loc.dim() == 6 else n
     n_levels = len(spatial_shapes)
     if not 1 <= n_levels <= MAX_LEVELS:
         raise ValueError(f"1..{MAX_LEVELS} levels supported, got {n_levels}")
     if level_splits(spatial_shapes)[-1] != s:
         raise ValueError(f"spatial_shapes {spatial_shapes} do not cover S={s}")
-    if loc.dim() != 6 or loc.shape[0] != n or loc.shape[2] != m \
+    if loc.dim() != 6 or loc.shape[0] != nq or loc.shape[2] != m \
             or loc.shape[3] != n_levels or loc.shape[5] != coords:
         raise ValueError(f"sampling_locations must be [N, Q, M, L, P, {coords}], "
                          f"got {tuple(loc.shape)}")
@@ -174,14 +192,17 @@ def _dims(value, loc):
 
 
 def launch_forward(kernel, name: str, value, spatial_shapes, loc, attn) -> torch.Tensor:
-    """One launch of a forward entry point (``bind``) -> [N, Q, M*32]."""
+    """One launch of a forward entry point (``bind``) -> [Nq, Q, M*32]
+    (Nq = N in 2D; the 3D entry point takes Nq, the rows of ``loc``)."""
     n, s, q, m, d, p = _dims(value, loc)
-    out = torch.empty((n, q, m * d), dtype=value.dtype, device=value.device)
+    nq = loc.shape[0]
+    rows = (nq,) if loc.shape[-1] == 3 else ()
+    out = torch.empty((nq, q, m * d), dtype=value.dtype, device=value.device)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = kernel(value.data_ptr(), _DTYPE_CODE[value.dtype], _level_hw(spatial_shapes),
                     len(spatial_shapes), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
-                    n, s, q, m, d, p, stream)
+                    *rows, n, s, q, m, d, p, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
     return out
@@ -190,7 +211,13 @@ def launch_forward(kernel, name: str, value, spatial_shapes, loc, attn) -> torch
 def launch_backward(kernel, name: str, value, spatial_shapes, loc, attn, grad_out):
     """One launch of a backward entry point (``bind``) -> (d_value in the
     value's dtype, d_loc, d_attn). ``grad_out`` is made contiguous and, if
-    its pointer is not 16-byte aligned, copied to a buffer that is."""
+    its pointer is not 16-byte aligned, copied to a buffer that is. The
+    kernels take as many query rows as value frames (Nq = N): a 3D forward
+    call with fewer query frames has no backward here."""
+    if loc.shape[0] != value.shape[0]:
+        raise NotImplementedError(
+            f"no {name} for {loc.shape[0]} query frames over {value.shape[0]} value frames "
+            "(the frame-sharded forward is inference only)")
     grad_out = _aligned(grad_out.contiguous(), 16)
     if grad_out.dtype != value.dtype or grad_out.device != value.device:
         raise TypeError(f"grad_out is {grad_out.dtype} on {grad_out.device}; "
@@ -242,8 +269,8 @@ def msda_backward(value, spatial_shapes, loc, attn, grad_out):
 
 
 def msda3d_forward(value, spatial_shapes, loc, attn) -> torch.Tensor:
-    """One launch of the 3D forward kernel (loc [N, Q, M, L, P, 3]) ->
-    [N, Q, M*32] in the value's dtype."""
+    """One launch of the 3D forward kernel (value [N, S, M, 32], loc
+    [Nq, Q, M, L, P, 3]) -> [Nq, Q, M*32] in the value's dtype."""
     out = _forward(True, value, spatial_shapes, loc, attn)
     ms_deform_attn_3d.launches += 1
     return out
@@ -283,7 +310,9 @@ class MSDeformAttnFunction(torch.autograd.Function):
 
 class MSDeformAttn3DFunction(torch.autograd.Function):
     """3D MSDA on CUDA tensors: the 3D forward kernel, and the 3D backward
-    kernel as its gradient; saves what ``MSDeformAttnFunction`` saves."""
+    kernel as its gradient; saves what ``MSDeformAttnFunction`` saves. The
+    backward kernel takes Nq = N only: a backward of a call whose queries
+    are fewer frames than the value's raises (``launch_backward``)."""
 
     @staticmethod
     def forward(ctx, value, spatial_shapes, loc, attn):
@@ -321,9 +350,9 @@ def ms_deform_attn_3d(
     sampling_locations: torch.Tensor,
     attention_weights: torch.Tensor,
 ) -> torch.Tensor:
-    """value [N, S, M, 32] f32|bf16, loc [N, Q, M, L, P, 3] f32 (x, y and
-    the frame coordinate over the batch axis), attn [N, Q, M, L, P] f32 ->
-    [N, Q, M*32] in the value's dtype."""
+    """value [N, S, M, 32] f32|bf16, loc [Nq, Q, M, L, P, 3] f32 (x, y and
+    the frame coordinate over the value's N frames), attn [Nq, Q, M, L, P]
+    f32 -> [Nq, Q, M*32] in the value's dtype."""
     if value.device.type == "cpu":
         return ms_deform_attn_3d_plain(value, spatial_shapes, sampling_locations,
                                        attention_weights)

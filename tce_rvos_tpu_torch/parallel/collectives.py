@@ -12,7 +12,9 @@
     JSON bytes in a uint8 array (no pickle), padded to the longest payload
     and all-gathered, on the device under NCCL and on the host under gloo;
   * ``merge_in_sample_order``: the evaluators' merge of per-sample records;
-  * ``reduce_dict_mean`` (logging) and ``barrier``.
+  * ``reduce_dict_mean`` (logging) and ``barrier``;
+  * ``all_gather_frames``: the frame-sharded forward's gather of the
+    ranks' frames into the whole clip (``mesh.py::shard_time_axis``).
 
 Outside a process group every function is the one-process identity.
 """
@@ -147,3 +149,31 @@ def reduce_dict_mean(d: Dict[str, float]) -> Dict[str, float]:
     vals = np.asarray([float(d[k]) for k in keys], np.float32)
     mean = _all_gather_array(vals).mean(axis=0)
     return {k: float(v) for k, v in zip(keys, mean)}
+
+
+def all_gather_frames(x: torch.Tensor, shard, clip_axis: bool = False) -> torch.Tensor:
+    """The ranks' frames of ``x`` gathered into the whole clip's, laid out
+    as one process lays it out: ``x`` [b * t, ...] (``clip_axis``:
+    [b, t, ...]) holds this rank's t = ``shard.count`` frames of each of b
+    clips; the result [b * T, ...] ([b, T, ...]) holds rank r's frames at
+    ``[first_r, first_r + t)`` of each clip, b-major. Without a shard
+    (None) or outside a process group ``x`` is the whole clip and comes
+    back as it is. No autograd (the frame-sharded forward is inference
+    only). Under gloo a CUDA tensor is staged through the host; under NCCL
+    it stays on the device. The ranks' shards are equal
+    (``shard_time_axis`` shards only a T that divides by the world)."""
+    if shard is None or not initialized():
+        return x
+    t = shard.count
+    if (clip_axis and x.shape[1] != t) or (not clip_axis and x.shape[0] % t):
+        raise ValueError(f"all_gather_frames: {tuple(x.shape)} does not hold {t} frames a clip")
+    local = x.detach() if clip_axis else x.detach().reshape(-1, t, *x.shape[1:])
+    # carried as bytes (gloo takes neither bfloat16 nor bool); the last
+    # axis grows by the item size, the frame axis 1 stays
+    local = local.contiguous().view(torch.uint8)
+    if x.device.type != "cpu" and dist.get_backend(shard.group) == "gloo":
+        local = local.cpu()
+    parts = [torch.empty_like(local) for _ in range(shard.world)]
+    dist.all_gather(parts, local, group=shard.group)
+    out = torch.cat(parts, 1).to(x.device).view(x.dtype)
+    return out if clip_axis else out.reshape(-1, *out.shape[2:])

@@ -13,8 +13,13 @@ on a tiny flagship-shaped model:
     same parameters afterwards;
   * the evaluators' merge of ragged per-rank shards
     (``collectives.merge_in_sample_order``) gives one process's records;
-  * a checkpoint written by rank 0 reads back bitwise on every rank.
-The frame-sharded forward of the JAX dryrun is not ported (``mesh.py``).
+  * a checkpoint written by rank 0 reads back bitwise on every rank;
+  * the frame-sharded forward (the JAX dryrun's "sp inference" step,
+    ``mesh.py::shard_time_axis``): the tiny flagship at 1 + 1 layers on one
+    32x32 clip of ``world`` frames (one a rank) and of ``2 * world``
+    frames, each rank's outputs gathered over the ranks
+    (``collectives.all_gather_frames``) and held against the one-process
+    forward at ``SP_TOL``.
 """
 
 from __future__ import annotations
@@ -29,6 +34,16 @@ import numpy as np
 import torch
 
 DP_TOL = {"loss_rtol": 1e-5, "grad_norm_rtol": 1e-4, "param_atol": 1e-4, "param_rtol": 1e-3}
+# the frame-sharded forward's gathered outputs against one process's, f32:
+# the same function with the attentions' GEMMs at other query lengths, so
+# the sums differ in their last bits (the order of DP_TOL's parameter bar).
+# atol is a share of the output's largest |value| (at least 1), as
+# chip_smoke.py's ``compare`` takes it: at random weights the mask logits
+# reach |42| and differ by up to 1.1e-4 where they cancel to 0.02, while
+# in float64 the two forwards agree to 1e-13
+SP_TOL = {"atol": 1e-4, "rtol": 1e-4}
+SP_OUTPUTS = ("pred_logits", "pred_boxes", "pred_masks")
+MODEL_INPUTS = ("video", "video_mask", "text_ids", "text_attn_mask", "sizes")
 
 
 def _rank_main(rank: int, world: int, workdir: str, device: str, backend: Optional[str],
@@ -156,6 +171,69 @@ def check_dp_step(got: Dict, want: Dict, label: str) -> Dict:
             "param_max_abs": worst, "param_worst": where}
 
 
+# ---- the frame-sharded forward -----------------------------------------------------
+
+
+def sp_model(spec: Dict):
+    """The model ``spec["model"]`` (a ``ModelConfig``'s fields) with the
+    weights at ``spec["weights"]``, on ``spec["device"]`` in
+    ``spec["dtype"]`` (float32 by default), in eval mode."""
+    from tce_rvos_tpu_torch.config import ModelConfig
+    from tce_rvos_tpu_torch.models.referformer import ReferFormer
+
+    model = ReferFormer(ModelConfig(**spec["model"]))
+    model.load_state_dict(torch.load(spec["weights"], map_location="cpu", weights_only=True))
+    return model.to(device=spec["device"], dtype=getattr(torch, spec.get("dtype", "float32"))).eval()
+
+
+def sp_model_inputs(spec: Dict) -> Dict[str, torch.Tensor]:
+    """The model inputs at ``spec["inputs"]`` on ``spec["device"]``, the
+    video in ``spec["dtype"]`` (as the engine casts it)."""
+    batch = torch.load(spec["inputs"], weights_only=False)
+    inputs = {k: torch.as_tensor(batch[k]).to(spec["device"]) for k in MODEL_INPUTS}
+    inputs["video"] = inputs["video"].to(getattr(torch, spec.get("dtype", "float32")))
+    return inputs
+
+
+def sp_forward(spec: Dict, group=None) -> Dict:
+    """One inference forward of ``sp_model(spec)`` on
+    ``sp_model_inputs(spec)``: frame-sharded over the ranks of ``group``
+    (the default group; ``mesh.shard_time_axis``) with ``SP_OUTPUTS``
+    gathered into the whole clip's, or with ``spec["plain"]`` the
+    one-process forward. Returns the outputs on the CPU and ``sharded``,
+    whether a shard was made."""
+    from tce_rvos_tpu_torch.parallel.collectives import all_gather_frames
+    from tce_rvos_tpu_torch.parallel.mesh import shard_time_axis
+
+    model, inputs = sp_model(spec), sp_model_inputs(spec)
+    shard = None
+    if not spec.get("plain"):
+        inputs, shard = shard_time_axis(inputs, group)
+    with torch.inference_mode():
+        out = model(**inputs, frame_shard=shard)
+        res = {k: all_gather_frames(out[k], shard, clip_axis=True).cpu() for k in SP_OUTPUTS}
+    res["sharded"] = shard is not None
+    return res
+
+
+def sp_gaps(got: Dict, want: Dict, label: str, tol: Dict = SP_TOL) -> Dict:
+    """The largest |difference| of each of ``SP_OUTPUTS`` (shapes equal),
+    raising past ``tol`` (``SP_TOL``: atol as a share of the largest
+    |reference|, at least 1)."""
+    gaps = {}
+    for k in SP_OUTPUTS:
+        g, w = got[k].double(), want[k].double()
+        if g.shape != w.shape:
+            raise AssertionError(f"{label}: {k} {tuple(g.shape)} against {tuple(w.shape)}")
+        err = (g - w).abs()
+        scale = max(float(w.abs().max()), 1.0)
+        if not bool((err <= tol["atol"] * scale + tol["rtol"] * w.abs()).all()):
+            raise AssertionError(f"{label}: {k} off by {float(err.max())!r} (scale {scale:.3g}, "
+                                 f"tolerance {tol})")
+        gaps[k] = float(err.max())
+    return gaps
+
+
 # ---- the dry run ------------------------------------------------------------------
 
 
@@ -218,6 +296,7 @@ def _merge_and_checkpoint(rank: int, workdir: str, step: Dict) -> Dict:
 def _dryrun_rank(rank: int, spec: Dict) -> Dict:
     step = train_step_on_shard(rank, spec)
     step.update(_merge_and_checkpoint(rank, spec["workdir"], step))
+    step["sp"] = {tag: sp_forward(s) for tag, s in spec["sp"].items()}
     return step
 
 
@@ -231,22 +310,36 @@ def dryrun(world: int = 2, device: str = "cpu", backend: Optional[str] = None,
     from tce_rvos_tpu_torch.models.build import build_model
 
     model = TINY if model is None else model
+    sp_model = dict(model, dec_layers=1)  # the JAX dryrun's sp step: 1 + 1 layers
     with tempfile.TemporaryDirectory(prefix="tce_dryrun_") as workdir:
         spec = {"model": model, "device": device, "workdir": workdir,
                 "weights": os.path.join(workdir, "weights.pt"),
-                "batch": os.path.join(workdir, "batch.pt")}
+                "batch": os.path.join(workdir, "batch.pt"), "sp": {}}
         torch.save(build_model(ModelConfig(**model), device="cpu", seed=seed).state_dict(),
                    spec["weights"])
         torch.save(random_batch(world, hw=hw, seed=seed), spec["batch"])
+        sp_weights = os.path.join(workdir, "sp_weights.pt")
+        torch.save(build_model(ModelConfig(**sp_model), device="cpu", seed=seed).state_dict(),
+                   sp_weights)
+        for t in (world, 2 * world):  # one frame a rank, then two
+            spec["sp"][f"t{t}"] = {"model": sp_model, "device": device, "weights": sp_weights,
+                                   "inputs": os.path.join(workdir, f"sp_t{t}.pt")}
+            torch.save(random_batch(1, t=t, hw=hw, seed=seed + t), spec["sp"][f"t{t}"]["inputs"])
         want = train_step_on_shard(0, spec)  # one process, the whole batch
+        want_sp = {tag: sp_forward(dict(s, plain=True)) for tag, s in spec["sp"].items()}
         ranks = run_processes(world, _dryrun_rank, (spec,), device=device, backend=backend)
     gaps = [check_dp_step(r, want, f"rank {i}") for i, r in enumerate(ranks)]
     for i, r in enumerate(ranks[1:], 1):
         for name, p in ranks[0]["params"].items():
             if not torch.equal(r["params"][name], p):
                 raise AssertionError(f"rank {i} holds another {name} than rank 0")
+    sp = [{tag: sp_gaps(r["sp"][tag], w, f"rank {i} sp {tag}") for tag, w in want_sp.items()}
+          for i, r in enumerate(ranks)]
+    if not all(r["sp"][tag]["sharded"] for r in ranks for tag in want_sp):
+        raise AssertionError("a rank ran the sp forward without a frame shard")
     return {"world": world, "loss": want["metrics"]["loss"], "gaps": gaps,
-            "merged": ranks[0]["merged"], "checkpoint_tensors": ranks[0]["checkpoint_tensors"]}
+            "merged": ranks[0]["merged"], "checkpoint_tensors": ranks[0]["checkpoint_tensors"],
+            "sp": sp}
 
 
 def main(argv=None) -> Dict:

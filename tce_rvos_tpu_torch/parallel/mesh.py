@@ -16,21 +16,33 @@ update is the global-batch step's.
   * ``replicate`` broadcasts rank 0's parameters and buffers;
   * ``shard_batch`` has no counterpart: each rank's sampler
     (``data/loader.py::ShardedSampler``) hands it its share of the batch;
-  * ``shard_time_axis`` (the frame-sharded forward of one long video) is
-    not ported: no JAX entry point shards frames, only its multi-chip
-    dryrun does.
+  * ``shard_time_axis`` cuts one video along its frame axis over the
+    ranks (the JAX package's sequence-parallel layout, run by its
+    multi-chip dryrun): each rank runs ``ReferFormer.forward(...,
+    frame_shard=shard)`` on its contiguous frames. The port has no GSPMD
+    to derive the collectives from the sharding, so the model gathers what
+    mixes frames itself (``collectives.all_gather_frames``: the keys and
+    values of the FTF, ``LastLayerAsToken``, IQT and V-L block attentions
+    and the 3D MSDA's value), and the rank's outputs are its frames of the
+    one-process forward's.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Union
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
-from tce_rvos_tpu_torch.parallel.collectives import broadcast_, initialized, process_count
+from tce_rvos_tpu_torch.parallel.collectives import (
+    broadcast_,
+    initialized,
+    process_count,
+    process_index,
+)
 
 BACKEND_ENV = "TCE_DIST_BACKEND"  # overrides the backend (gloo to share one GPU)
 
@@ -76,3 +88,54 @@ def replicate(model: nn.Module) -> nn.Module:
         for t in (*model.parameters(), *model.buffers()):
             broadcast_(t.data)
     return model
+
+
+FRAME_INPUTS = ("video", "video_mask")  # the forward's inputs whose axis 1 is the frames
+
+
+@dataclass(frozen=True)
+class FrameShard:
+    """One rank's share of a clip's frames under the frame-sharded forward:
+    the process ``group`` (None: the default group, or no group at world
+    1), this rank's index in it and its size, the clip's frame count
+    ``frames`` (T), and this rank's frames ``[first, first + count)``."""
+
+    group: Any
+    rank: int
+    world: int
+    frames: int
+    first: int
+    count: int
+
+
+def shard_time_axis(inputs: Dict[str, Any], group=None) -> Tuple[Dict[str, Any],
+                                                                   Optional[FrameShard]]:
+    """The sequence-parallel layout of one video's inference over the
+    ranks of ``group`` (the default process group, or one process outside
+    a group): counterpart of ``tce_rvos_tpu/parallel/mesh.py::
+    shard_time_axis``, which replaces the reference's 32-frame chunking
+    of a video longer than a chip can hold. ``video`` [b, T, H, W, 3] and
+    ``video_mask`` [b, T, H, W] are cut along axis 1 into contiguous
+    shards, rank r taking frames ``[r T / world, (r + 1) T / world)``;
+    returns the rank's inputs and its ``FrameShard``, which
+    ``ReferFormer.forward(..., frame_shard=...)`` takes.
+
+    When T does not divide by the world, the JAX package leaves the arrays
+    replicated; here every rank then runs the whole clip, with no shard
+    (``None``). ``text_ids``, ``text_attn_mask`` and ``sizes`` stay whole
+    on every rank: GSPMD may cut them in JAX when their axis 1 happens to
+    divide by the mesh, which never changes its result."""
+    if group is None:
+        world, rank = process_count(), process_index()
+    else:
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+    frames = int(inputs["video_mask"].shape[1])
+    if frames % world:
+        return dict(inputs), None
+    count = frames // world
+    shard = FrameShard(group, rank, world, frames, rank * count, count)
+    out = dict(inputs)
+    for key in FRAME_INPUTS:
+        if inputs.get(key) is not None:
+            out[key] = inputs[key][:, shard.first:shard.first + count]
+    return out, shard

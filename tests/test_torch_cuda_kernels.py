@@ -1,7 +1,9 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions, on the card: the 2D MSDA forward and backward (flat and staged
 path, two levels with the runtime loops and the flagship's L = P = 4), the
-3D ones (the runtime loops, the flagship shape and its edge cases) and the
+3D ones (the runtime loops, the flagship shape and its edge cases, and the
+forward's query frames fewer than the value's, as the frame-sharded
+forward calls it) and the
 fused flat AdamW update (``csrc/flat_adamw.cu``: its float4 and its
 one-float path, four tiers, the clip on and off, early and late steps).
 
@@ -206,6 +208,35 @@ def test_cuda_3d_kernel_matches_plain():
             want = ms_deform_attn_3d_plain(v, shapes, loc, attn)
             torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol,
                                        msg=lambda m: f"{name} {dtype}: {m}")
+
+
+@pytest.mark.cuda
+def test_cuda_3d_kernel_takes_fewer_query_frames():
+    """The frame-sharded forward's 3D call: the queries of frames [3, 6)
+    and [7, 8) of N = 8 over the whole value (Nq < N). The kernel against
+    the plain version (f32 and bf16, as above) and bitwise against the
+    matching rows of the whole call; the backward of such a call raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs this comparison on the GPU")
+    arrays = op_inputs_3d(FLAGSHIP, n=8, q=600, m=8, d=32, p=4, seed=1)
+    value, loc, attn = (torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays)
+    for dtype, rtol, atol in ((torch.float32, 1e-5, 1e-5), (torch.bfloat16, 8e-3, 1e-2)):
+        v = value.to(dtype)
+        whole = ms_deform_attn_3d(v, FLAGSHIP, loc, attn)
+        for first, count in ((3, 3), (7, 1)):
+            rows = slice(first, first + count)
+            before = ms_deform_attn_3d.launches
+            got = ms_deform_attn_3d(v, FLAGSHIP, loc[rows].contiguous(), attn[rows].contiguous())
+            torch.cuda.synchronize()
+            assert ms_deform_attn_3d.launches == before + 1 and got.shape[0] == count
+            want = ms_deform_attn_3d_plain(v, FLAGSHIP, loc[rows], attn[rows])
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol,
+                                       msg=lambda m: f"Nq={count} {dtype}: {m}")
+            assert torch.equal(got, whole[rows])
+    ins = [value.clone().requires_grad_(True), loc[3:6].contiguous(), attn[3:6].contiguous()]
+    out = ms_deform_attn_3d(ins[0], FLAGSHIP, ins[1], ins[2])
+    with pytest.raises(NotImplementedError, match="query frames"):
+        out.sum().backward()
 
 
 @pytest.mark.cuda

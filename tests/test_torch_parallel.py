@@ -161,6 +161,14 @@ def test_dryrun_at_world_2():
     assert res["merged"] == 3 and res["checkpoint_tensors"] > 300
     for gap in res["gaps"]:
         assert gap["loss_rel"] <= 1e-5 and gap["param_max_abs"] <= 1e-4
+    # the frame-sharded forward at one and two frames a rank, each rank's
+    # gathered outputs against one process (held at SP_TOL inside)
+    assert len(res["sp"]) == 2
+    for sp in res["sp"]:
+        assert sorted(sp) == ["t2", "t4"]
+        for gaps in sp.values():
+            assert sorted(gaps) == sorted(dryrun.SP_OUTPUTS)
+            assert all(np.isfinite(g) and g < 1e-2 for g in gaps.values())
 
 
 def test_samplers_read_the_process_group_world():

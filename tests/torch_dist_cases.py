@@ -1,5 +1,6 @@
 """What the ranks of the port's multi-process tests run
-(tests/test_torch_dp_step.py, tests/test_torch_parallel.py).
+(tests/test_torch_dp_step.py, tests/test_torch_parallel.py,
+tests/test_torch_frame_shard.py).
 
 ``parallel/dryrun.py::run_processes`` spawns the ranks, which import the
 functions of this module by name, so it imports neither JAX nor the test
@@ -187,3 +188,40 @@ def train_main_cases(rank: int, argv: List[str], out: str) -> Dict:
     runs["orbax"] = {"step": state.step, "params": params(state),
                      "dirs": sorted(os.listdir(os.path.join(orbax_out, "orbax")))}
     return runs
+
+
+def frame_shard_cases(rank: int, specs: Dict[str, Dict], bitwise: str) -> Dict:
+    """The frame-sharded forward (``parallel/dryrun.py::sp_forward``) of
+    each spec over the world; this rank's inputs as ``shard_time_axis``
+    cuts them for each spec's inputs; and, in a group of this rank alone
+    (world 1), the sharded forward of ``specs[bitwise]`` beside its plain
+    forward, for the test to hold bitwise; and ``all_gather_frames`` of
+    this rank's frames of two seeded 4-frame clips in f32, bf16 and bool,
+    in both layouts, beside the whole clips."""
+    import torch.distributed as dist
+
+    from tce_rvos_tpu_torch.parallel import dryrun
+    from tce_rvos_tpu_torch.parallel.collectives import all_gather_frames
+    from tce_rvos_tpu_torch.parallel.mesh import shard_time_axis
+
+    out: Dict = {"sp": {tag: dryrun.sp_forward(spec) for tag, spec in specs.items()},
+                 "inputs": {}}
+    for tag, spec in specs.items():
+        batch = torch.load(spec["inputs"], weights_only=False)
+        local, shard = shard_time_axis({k: torch.as_tensor(batch[k])
+                                        for k in dryrun.MODEL_INPUTS})
+        out["inputs"][tag] = {"shard": None if shard is None else (
+            shard.rank, shard.world, shard.frames, shard.first, shard.count), **local}
+    alone = [dist.new_group([r]) for r in range(dist.get_world_size())]  # every rank makes each
+    out["world1"] = dryrun.sp_forward(specs[bitwise], group=alone[rank])
+    out["world1_plain"] = dryrun.sp_forward(dict(specs[bitwise], plain=True))
+    _, shard = shard_time_axis({"video_mask": torch.zeros(1, 4, 1, 1)})
+    whole = torch.randn(2, 4, 3, 5, generator=torch.Generator().manual_seed(5))
+    out["gather"] = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.bool):
+        full = whole > 0 if dtype == torch.bool else whole.to(dtype)
+        local = full[:, shard.first:shard.first + shard.count]
+        out["gather"][str(dtype)] = (
+            full, all_gather_frames(local, shard, clip_axis=True),
+            all_gather_frames(local.reshape(-1, *full.shape[2:]), shard))
+    return out
