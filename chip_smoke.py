@@ -924,15 +924,36 @@ def random_state_dict(cfg, seed: int = 0):
     return model.state_dict()
 
 
-def synthetic_video(seed: int = 0):
-    """10 smooth random RGB frames in [0, 1] at 360x640."""
+def device_state_dict(cfg, seed: int = 0):
+    """``random_state_dict``'s recipe (the model's own init, then 0.02
+    noise on every parameter) drawn on the GPU from a CUDA generator: other
+    values, the same distributions, in a fraction of the CPU's time. For the
+    runs whose gates do not depend on the values (finite outputs, launch
+    counts)."""
+    import torch
+
+    from tce_rvos_tpu_torch.models.referformer import ReferFormer, init_weights
+
+    with torch.device("cuda"):
+        model = ReferFormer(cfg)
+    gen = torch.Generator("cuda").manual_seed(seed)
+    init_weights(model, gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=gen, device="cuda") * 0.02)
+    return model.state_dict()
+
+
+def synthetic_video(seed: int = 0, n: int = N_FRAMES):
+    """``n`` (10) smooth random RGB frames in [0, 1] at 360x640 (the first
+    10 the same for every ``n``)."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
     h, w = FRAME_HW
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     frames = []
-    for t in range(N_FRAMES):
+    for t in range(n):
         f = np.stack([0.5 + 0.5 * np.sin((xx * a + yy * b) / 40.0 + t * 0.3 + c)
                       for a, b, c in rng.rand(3, 3)], -1)
         frames.append((f + 0.05 * rng.rand(h, w, 3)).clip(0, 1).astype(np.float32))
@@ -1200,12 +1221,14 @@ def expression_isolation(engine, frames, label: str) -> dict:
 
 def phase_path(dtype_name: str, sd, videos, backbone: str = "resnet50", tag: str = "path",
                limits=BF16_BATCHED_VS_SERIAL_LIMITS, overrides: dict = None,
-               trunk_es=(1, 2, 4, 8)) -> dict:
+               trunk_es=(1, 2, 4, 8), timings: bool = True) -> dict:
     """run_video_batch (E = 4, two 5-frame windows) through the kernel;
     expression isolation and where batched and serial part; the batched
     masks against serial run_video for every caption of every video (bf16
-    within ``limits``); times, the trunk's at each E of ``trunk_es``. The
-    flagship on ``backbone``, with the model options ``overrides``."""
+    within ``limits``); with ``timings``, times: the serving rate, the
+    full forward, the backbone, the trunk's at each E of ``trunk_es`` and
+    its stage breakdown. The flagship on ``backbone``, with the model
+    options ``overrides``."""
     import torch
 
     from tce_rvos_tpu_torch import flagship_config
@@ -1237,6 +1260,12 @@ def phase_path(dtype_name: str, sd, videos, backbone: str = "resnet50", tag: str
 
     isolation = expression_isolation(engine, frames, label)
     bvs = batched_vs_serial(engine, videos, outs, dtype_name, label, limits)
+    result = dict(launches=launches, per_forward=per_forward, trunk_forwards=trunk_forwards,
+                  first_call_s=first_s, isolation=isolation, batched_vs_serial=bvs["worst"])
+    if not timings:
+        del engine
+        torch.cuda.empty_cache()
+        return result, bvs["masks"]
 
     # steady-state serving rate: expression-windows per second
     reps = 3
@@ -1273,11 +1302,8 @@ def phase_path(dtype_name: str, sd, videos, backbone: str = "resnet50", tag: str
         f"{1000.0 / full_ms:.2f} clips/s; backbone {backbone_ms:.3f} ms/window; "
         f"run_video_batch E={len(CAPTIONS)}: {serve_s * 1e3:.3f} ms for {n_windows} windows = "
         f"{serve_rate:.2f} expression-windows/s")
-    result = dict(launches=launches, per_forward=per_forward, trunk_forwards=trunk_forwards,
-                  first_call_s=first_s,
-                  isolation=isolation, batched_vs_serial=bvs["worst"], full_ms=full_ms,
-                  clips_per_s=1000.0 / full_ms, backbone_ms=backbone_ms, trunk=trunk,
-                  serve_ms=serve_s * 1e3, expression_windows_per_s=serve_rate,
+    result.update(full_ms=full_ms, clips_per_s=1000.0 / full_ms, backbone_ms=backbone_ms,
+                  trunk=trunk, serve_ms=serve_s * 1e3, expression_windows_per_s=serve_rate,
                   breakdown=breakdown)
     del engine
     torch.cuda.empty_cache()
@@ -1419,11 +1445,12 @@ def bf16_against_f32(masks) -> None:
         for k, v in out.items()))
 
 
-def stage_breakdown(engine, feats, mask, sizes, label: str, e: int = 4) -> dict:
+def stage_breakdown(engine, feats, mask, sizes, label: str, e: int = 4,
+                    profile: bool = True) -> dict:
     """Where one trunk forward (E captions) spends device time: CUDA events
     around each stage (forward hooks on the model's modules, no change to
-    the model), then torch.profiler's top kernels and the device's busy
-    share of the forward's wall time."""
+    the model), then (``profile``) torch.profiler's top kernels and the
+    device's busy share of the forward's wall time."""
     import torch
 
     from tce_rvos_tpu_torch.models.text_encoder import tokenize
@@ -1473,6 +1500,8 @@ def stage_breakdown(engine, feats, mask, sizes, label: str, e: int = 4) -> dict:
     log(f"{label} trunk E={e} stage breakdown, {total:.3f} ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in ms.items()))
 
+    if not profile:
+        return {"total_ms": total, "stages_ms": ms}
     prof = profile_device(lambda: engine.trunk(feats, mask, ids, attn, sizes),
                           f"{label} profiled trunk forward")
     return {"total_ms": total, "stages_ms": ms, **prof}
@@ -1586,8 +1615,9 @@ def phase_parity(sd, frames, msda_3d: bool = False, backbone: str = "resnet50",
 TRAIN_T, TRAIN_HW = 5, (384, 640)   # the flagship training clip, b = 1
 TRAIN_STEPS, TRAIN_STEPS_CKPT, TRAIN_WARMUP = 10, 6, 2
 # the train runs of phases 11 and 12 (the other backbones and options)
-OTHER_TRAIN_STEPS, OTHER_TRAIN_STEPS_CKPT = 6, 4
+OTHER_TRAIN_STEPS, OTHER_TRAIN_STEPS_CKPT = 4, 3
 PARITY_T, PARITY_HW = 2, (192, 320)  # small enough for the CPU's f32 step
+PARITY_FRAMES = 2  # phases 11 and 12: the GPU-against-CPU window cut to 2 frames
 # Gradients, per parameter, are held two ways against the model's largest
 # |grad| g_max: every element within ELEM_TOL x g_max, and, for a tensor
 # whose own largest |grad| reaches SIGNIFICANT x g_max, the difference
@@ -3757,7 +3787,7 @@ OTHER_BACKBONES = (("video_swin_t_p4w7", False), ("video_swin_s_p4w7", False),
                    ("swin_l_p4w7", False), ("resnet101", False), ("resnet50", True),
                    ("x3d_m", False))
 DC5_SHAPES = ((48, 80), (24, 40), (24, 40), (12, 20))  # 384x640 with DC5: S = 6000
-WHOLE_VIDEO = {"w34": (34, CAPTIONS)}  # whole-video: a 40-frame window, E = 4
+WHOLE_VIDEO = {"w18": (18, CAPTIONS)}  # whole-video: a 24-frame window, E = 4
 # Video-Swin-B bf16 batched against serial masks: twice the largest of the
 # 12 readings of the calibration run on an H100 (relative RMS 1.463e-2,
 # share of pixels whose mask differs 1.964e-3; PERF.md), as for ResNet-50
@@ -3803,8 +3833,8 @@ def counted_flops(module, x) -> float:
 
 def whole_video_backbone(root: str) -> dict:
     """Video-Swin-B whole-video ytvos through ``infer.main`` (bf16, the
-    model's own init) on a synthetic 720x1280 tree, one video of 34 frames:
-    one 40-frame window (8-frame windows, a temporal shift of 4), E = 4;
+    model's own init) on a synthetic 720x1280 tree, one video of 18 frames:
+    one 24-frame window (8-frame windows, a temporal shift of 4), E = 4;
     wall seconds, frames/s, the backbone's peak memory, 12 launches a trunk
     forward, the PNG tree."""
     import os
@@ -3858,8 +3888,7 @@ def backbone_train(sd) -> dict:
     """OTHER_TRAIN_STEPS bf16 Video-Swin-B flagship steps (b = 1, 5x384x640,
     dropout and DropPath on) without and OTHER_TRAIN_STEPS_CKPT with
     recomputation (the backbone's blocks and the transformer's layers):
-    ms/step, peak memory, MFU over a
-    useful-FLOP count, the device's busy share of one step; 12 + 12 MSDA
+    ms/step, peak memory, MFU over a useful-FLOP count; 12 + 12 MSDA
     launches a step (24 + 12 with recomputation); every backbone parameter
     gets a gradient."""
     import torch
@@ -3921,8 +3950,6 @@ def backbone_train(sd) -> dict:
         raise AssertionError(f"{label} backbone parameters without a gradient: {no_grad}")
     log(f"{label} every backbone parameter has a non-zero gradient in a bf16 step with "
         f"DropPath and dropout off")
-    res["profile"] = profile_device(lambda: step(state, batches[0]),
-                                    f"{label} profiled bf16 train step (no recomputation)")
     model.transformer.use_checkpoint = body.use_checkpoint = True
     res["ckpt"] = train_run(state, step, batches[:OTHER_TRAIN_STEPS_CKPT], label, "bf16 "
                             "train_one_epoch, with recomputation", useful_flops=useful,
@@ -3937,9 +3964,10 @@ def backbone_train(sd) -> dict:
 
 
 def family_forward(name: str, dilation: bool, frames) -> dict:
-    """One bf16 flagship forward on backbone ``name``: a 5-frame 384x640
-    window, E = 4: finite outputs, 12 MSDA forward launches, the backbone's
-    ms and the peak memory."""
+    """One bf16 flagship forward on backbone ``name`` (weights drawn on the
+    card, ``device_state_dict``): a 5-frame 384x640 window, E = 4: finite
+    outputs, 12 MSDA forward launches, the backbone's ms and the peak
+    memory."""
     import torch
 
     from tce_rvos_tpu_torch import flagship_config
@@ -3948,9 +3976,10 @@ def family_forward(name: str, dilation: bool, frames) -> dict:
 
     tag = name + (" dc5" if dilation else "")
     label = f"[backbones {tag}]"
-    sd = random_state_dict(flagship_config(backbone=name, dilation=dilation), seed=0)
-    engine = InferenceEngine(flagship_config(compute_dtype="bfloat16", backbone=name,
-                                             dilation=dilation), sd, device="cuda")
+    sd = device_state_dict(flagship_config(backbone=name, dilation=dilation), seed=0)
+    with torch.device("cuda"):  # the engine's model built on the card
+        engine = InferenceEngine(flagship_config(compute_dtype="bfloat16", backbone=name,
+                                                 dilation=dilation), sd, device="cuda")
     del sd
     video, mask, size = engine.preprocess(frames[:5])
     sizes = torch.tensor([size], device="cuda")
@@ -3982,9 +4011,10 @@ def phase_backbones(videos, root: str) -> dict:
     """Phase 11: the 2D kernels held at the DC5 levels and at Video-Swin-B's
     serving and training shapes; the Video-Swin-B flagship served in bf16
     and f32 (phase 3's gates: 24 launches per run_video_batch of two
-    windows, exact expression isolation, batched against serial), its f32
-    window GPU against CPU, the whole-video ytvos run, 6 bf16 train steps
-    without and with recomputation; one forward on each other family."""
+    windows, exact expression isolation, batched against serial; timed in
+    bf16), its f32 2-frame window GPU against CPU, the whole-video ytvos
+    run, bf16 train steps without and with recomputation; one forward on
+    each other family."""
     import torch
 
     from tce_rvos_tpu_torch import flagship_config
@@ -3994,12 +4024,13 @@ def phase_backbones(videos, root: str) -> dict:
                        "video_swin_b_e4": phase_kernels(e=4)},
            "backward": {"video_swin_b_train": phase_backward_kernels()}}
     sd = random_state_dict(flagship_config(backbone=VSWIN_B), seed=0)
-    # the f32 trunk at E = 4 only (the script's time limit)
+    # the script's time limit: the bf16 trunk timed at E = 4 only, the f32
+    # path's gates without its timings, GPU against CPU on a 2-frame window
     res["path"] = {dtype: phase_path(dtype, sd, videos[:2], backbone=VSWIN_B,
                                      tag="backbones video_swin_b", limits=VSWIN_B_BF16_LIMITS,
-                                     trunk_es=(1, 2, 4, 8) if dtype == "bfloat16" else (4,))[0]
+                                     trunk_es=(4,), timings=dtype == "bfloat16")[0]
                    for dtype in ("bfloat16", "float32")}
-    phase_parity(sd, videos[0], backbone=VSWIN_B)
+    phase_parity(sd, videos[0][:PARITY_FRAMES], backbone=VSWIN_B)
     res["whole_video"] = whole_video_backbone(root)
     res["train"] = backbone_train(sd)
     del sd
@@ -4174,9 +4205,11 @@ def tokens_train(sd) -> dict:
 
 def vl_off(frames) -> dict:
     """``--vlblock --no_rel_coord`` (no V-L blocks in the FPN, no relative
-    coordinates into the mask head; the flagship's switches otherwise):
-    the trunk at E = 1 and 4 (12 launches a forward, finite outputs) and
-    its stage breakdown at E = 4, against the flagship's in the same run;
+    coordinates into the mask head; the flagship's switches otherwise), on
+    weights drawn on the card (``device_state_dict``): the trunk at E = 1
+    and 4 (12 launches a forward, finite outputs) and its stage breakdown
+    (CUDA events, no profile) at E = 4, against the flagship's in the same
+    run;
     TRAIN_STEPS_NO_VL bf16 train steps, finite, 12 + 12 launches a step."""
     import torch
 
@@ -4195,9 +4228,10 @@ def vl_off(frames) -> dict:
     res = {}
     for name, over in (("flagship", {}), ("vl_off", NO_VL)):
         label = f"[options {name}]"
-        sd = random_state_dict(flagship_config(**over), seed=0)
+        sd = device_state_dict(flagship_config(**over), seed=0)
         cfg = flagship_config(compute_dtype="bfloat16", **over)
-        engine = InferenceEngine(cfg, sd, device="cuda")
+        with torch.device("cuda"):  # the engine's model built on the card
+            engine = InferenceEngine(cfg, sd, device="cuda")
         video, mask, size = engine.preprocess(frames[:engine.window])
         sizes = torch.tensor([size], device="cuda")
         feats = engine.backbone(video, mask)
@@ -4212,16 +4246,16 @@ def vl_off(frames) -> dict:
                 raise AssertionError(f"{label} E={e}: outputs not finite {bad}, MSDA launches "
                                      f"{launches} (expected 12)")
             trunk[e] = cuda_ms(lambda: engine.trunk(feats, mask, ids, attn, sizes), reps=10)
-        res[name] = dict(trunk_ms=trunk,
-                         breakdown=stage_breakdown(engine, feats, mask, sizes, label))
+        res[name] = dict(trunk_ms=trunk, breakdown=stage_breakdown(engine, feats, mask, sizes,
+                                                                   label, profile=False))
         log(f"{label} trunk E=1 {trunk[1]:.3f} ms, E=4 {trunk[4]:.3f} ms; pixel decoder at E=4 "
             f"{res[name]['breakdown']['stages_ms']['pixel_decoder']:.3f} ms")
         del engine, feats
         if name == "flagship":
             continue
-        model = ReferFormer(cfg)
+        with torch.device("cuda"):
+            model = ReferFormer(cfg)
         model.load_state_dict(sd, strict=True)
-        model.to("cuda")
         if any(n.startswith("pixel_decoder.cross_attn") for n, _ in model.named_parameters()):
             raise AssertionError(f"{label} the FPN holds V-L blocks")
         tcfg = TrainConfig()
@@ -4251,9 +4285,9 @@ def options_main(tree: str, small_tree: str, root: str) -> dict:
        ``.pth``) with the same flags on phase 8's small ytvos tree: every
        PNG, ``select_query`` over 65 classes;
     3. ``train.main --binary --pretrained_weights`` that ``.pth`` for one
-       epoch: only the ``class_embed.*`` tensors re-initialised;
-    4. ``train.main`` on phase 9's flags without ``--masks`` for one epoch:
-       no mask loss logged.
+       epoch without ``--masks``: only the ``class_embed.*`` tensors
+       re-initialised, no mask loss logged (two runs until the script's
+       time limit joined them).
     Then the 2D forward and backward held against plain at the runs'
     largest padded shape (N = 5)."""
     import os
@@ -4317,10 +4351,10 @@ def options_main(tree: str, small_tree: str, root: str) -> dict:
         checkpoint.convert_state_dict = recorded
         out = os.path.join(root, "out_binary")
         try:
-            state, res["binary_finetune"] = main_run(
-                rec, base + OPTIONS_TRAIN_FLAGS + ["--binary", "--pretrained_weights", pth,
-                                                   "--output_dir", out, "--epochs", "1"],
-                f"{label} 3. --binary --pretrained_weights", per_step)
+            state, res["binary_finetune_no_masks"] = main_run(
+                rec, [f for f in base if f != "--masks"] + OPTIONS_TRAIN_FLAGS
+                + ["--binary", "--pretrained_weights", pth, "--output_dir", out, "--epochs", "1"],
+                f"{label} 3. --binary --pretrained_weights, without --masks", per_step)
         finally:
             checkpoint.convert_state_dict = convert
         heads = sorted(k for k in state.model.state_dict() if k.startswith("class_embed."))
@@ -4328,29 +4362,21 @@ def options_main(tree: str, small_tree: str, root: str) -> dict:
                 or [h.out_features for h in state.model.class_embed] != [1] * 4):
             raise AssertionError(f"{label} 3. left at init {loaded['missing']}, unused "
                                  f"{loaded['unexpected']}; the class_embed tensors are {heads}")
-        res["binary_finetune"].update(loaded=loaded["reference"] - len(loaded["missing"]),
-                                      reinitialised=loaded["missing"])
+        res["binary_finetune_no_masks"].update(
+            loaded=loaded["reference"] - len(loaded["missing"]), reinitialised=loaded["missing"])
         log(f"{label} 3. --pretrained_weights: {loaded['reference'] - len(loaded['missing'])} "
             f"tensors loaded, {len(loaded['missing'])} re-initialised, all of them class "
             f"heads: {loaded['missing']}")
         del state
         os.remove(pth)
-        shutil.rmtree(out)
-        torch.cuda.empty_cache()
-
-        out = os.path.join(root, "out_no_masks")
-        flags = ["--dataset_file", "ytvos", "--ytvos_path", tree,
-                 *[f for f in MAIN_FLAGS if f != "--masks"]]
-        _, res["no_masks"] = main_run(rec, flags + ["--output_dir", out, "--epochs", "1"],
-                                      f"{label} 4. without --masks", per_step)
         logged = read_log(out)[0]
         masked = [k for k in logged if "loss_mask" in k or "loss_dice" in k]
         if masked or "train_loss_ce" not in logged:
-            raise AssertionError(f"{label} 4. without --masks the log holds {sorted(logged)}")
-        log(f"{label} 4. without --masks: no mask loss logged ({sorted(logged)})")
+            raise AssertionError(f"{label} 3. without --masks the log holds {sorted(logged)}")
+        log(f"{label} 3. without --masks: no mask loss logged ({sorted(logged)})")
         shutil.rmtree(out)
     torch.cuda.empty_cache()
-    hw = max((x for k in ("classes65", "binary_finetune", "no_masks") for x in res[k]["hw"]),
+    hw = max((x for k in ("classes65", "binary_finetune_no_masks") for x in res[k]["hw"]),
              key=lambda x: x[0] * x[1])
     lv = main_levels(hw)
     res["hold"] = {"hw": hw, "levels": lv, "fwd": phase_kernels(e=1, shapes=lv),
@@ -4363,11 +4389,12 @@ def options_main(tree: str, small_tree: str, root: str) -> dict:
 def phase_options(videos, tree: str, small_tree: str, root: str) -> dict:
     """Phase 12: the model options at full width. The LastLayerAsToken
     flagship (``--f_token -1``) served through phase 3's path and gates in
-    bf16 (8 launches a trunk forward) and held f32 GPU against CPU, its
-    whole-video windows at T = 40 and 160, its train steps; the 65-class
-    objective, ``--resume`` and the binary fine-tune through the command
-    lines, a run without ``--masks`` (``options_main``); ``--vlblock
-    --no_rel_coord`` against the flagship (``vl_off``)."""
+    bf16 (8 launches a trunk forward, timed at E = 4) and held f32 GPU
+    against CPU on a 2-frame window, its whole-video windows at T = 40 and
+    160, its train steps; the 65-class objective, ``--resume`` and the
+    binary fine-tune without ``--masks`` through the command lines
+    (``options_main``); ``--vlblock --no_rel_coord`` against the flagship
+    (``vl_off``)."""
     import torch
 
     from tce_rvos_tpu_torch import flagship_config
@@ -4375,8 +4402,8 @@ def phase_options(videos, tree: str, small_tree: str, root: str) -> dict:
     t0 = time.perf_counter()
     sd = random_state_dict(flagship_config(**TOKENS), seed=0)
     res = {"tokens_path": phase_path("bfloat16", sd, videos[:2], tag="options f_token -1",
-                                     overrides=TOKENS)[0]}
-    phase_parity(sd, videos[0], overrides=TOKENS, tag="options f_token -1")
+                                     overrides=TOKENS, trunk_es=(4,))[0]}
+    phase_parity(sd, videos[0][:PARITY_FRAMES], overrides=TOKENS, tag="options f_token -1")
     res["tokens_whole_video"] = tokens_whole_video(sd, videos[0])
     res["tokens_train"] = tokens_train(sd)
     del sd
@@ -4820,6 +4847,8 @@ def phase_dist(jhmdb_tree: str, root: str) -> dict:
 # ---------------------------------------------------------------------------
 
 SP_T, SP_HW = 10, (384, 640)  # one 10x384x640 clip (360x640 frames, padded), 5 frames a rank
+SP_VSWIN_T = 12  # Video-Swin-B: 6 frames a rank, 8-frame windows crossing the ranks' boundary
+SP_VALID = [7]   # valid_indices: the annotated frame is rank 1's (frames 5-9)
 # f32 (TF32 off), two ranks' gathered outputs against the one-process
 # forward on the card, (rtol, atol as a share of the largest |value|, as
 # ``compare`` takes it): the same function with the attention GEMMs at
@@ -4838,10 +4867,27 @@ SP_F32_TOL = {"pred_logits": (1e-4, 1e-4), "pred_boxes": (1e-4, 1e-4),
 # and 2.487e-3, shares 2.840e-3 and 1.432e-5, the same on both ranks and
 # in two calls
 SP_BF16_MARGIN, SP_BF16_FLIPPED = 4.7e-2, 5.7e-3
+# the other cases' (margin, share), set the same way: twice the reading
+# (the same on both ranks) of a calibration call with these gates off
+# (PERF.md §5, §6). valid_indices: 1.773e-2, 3.932e-3; X3D-M: 1.017e-3,
+# 2.604e-5. Video-Swin-B read 0, 0: its bf16 outputs equal the one-process
+# forward's bitwise (logits, boxes and masks), so no decision may differ
+SP_BF16_LIMITS = {"2d": (SP_BF16_MARGIN, SP_BF16_FLIPPED), "3d": (SP_BF16_MARGIN, SP_BF16_FLIPPED),
+                  "valid": (3.55e-2, 7.9e-3), "x3d_m": (2.04e-3, 5.3e-5), "vswin_b": (0.0, 0.0)}
+# name: (flagship_config's overrides, the weights' seed, frames, valid_indices).
+# The weights: phase 3's (2d, valid), phase 7's (3d), phase 11's (vswin_b)
+SP_CASES = {"2d": ({}, 0, SP_T, None), "3d": ({"msda_3d": True}, 1, SP_T, None),
+            "vswin_b": ({"backbone": VSWIN_B}, 0, SP_VSWIN_T, None),
+            "x3d_m": ({"backbone": "x3d_m"}, 0, SP_T, None),
+            "valid": ({}, 0, SP_T, SP_VALID)}
+SP_LAUNCHES = {name: {"msda_fwd": 4 if over.get("msda_3d") else 12, "msda_bwd": 0,
+                      "msda3d_fwd": 8 if over.get("msda_3d") else 0, "msda3d_bwd": 0}
+               for name, (over, _, _, _) in SP_CASES.items()}
+SP_NCCL = ("2d", "vswin_b", "x3d_m")  # the models held at world 1 over NCCL, f32
 
 
-def sp_clip_inputs(path: str) -> None:
-    """``synthetic_video(0)``'s 10 frames normalised and padded to 384x640
+def sp_clip_inputs(path: str, t: int = SP_T) -> None:
+    """``synthetic_video(0, t)``'s frames normalised and padded to 384x640
     as the engine does, with CAPTIONS[0], saved as model inputs (numpy)."""
     import numpy as np
 
@@ -4849,10 +4895,10 @@ def sp_clip_inputs(path: str) -> None:
     from tce_rvos_tpu_torch.models.text_encoder import tokenize
 
     h, w = FRAME_HW
-    frames = np.stack(synthetic_video(0)[:SP_T])
-    video = np.zeros((1, SP_T, *SP_HW, 3), np.float32)
+    frames = np.stack(synthetic_video(0, t))
+    video = np.zeros((1, t, *SP_HW, 3), np.float32)
     video[0, :, :h, :w] = (frames - IMAGENET_MEAN) / IMAGENET_STD
-    mask = np.ones((1, SP_T, *SP_HW), bool)
+    mask = np.ones((1, t, *SP_HW), bool)
     mask[0, :, :h, :w] = False
     ids, attn = tokenize([CAPTIONS[0]])
     import torch
@@ -4865,12 +4911,14 @@ def sp_clip_inputs(path: str) -> None:
 def sp_timed(model, inputs: dict, shard) -> dict:
     """A warm-up forward, then one timed (host clock around work that ends
     in a synchronize) with the launch counts and the peak memory of this
-    process; the outputs gathered into the whole clip's, on the CPU."""
+    process; the outputs on the CPU, gathered into the whole clip's (with
+    ``valid_indices`` every rank holds the annotated frames' whole)."""
     import torch
 
     from tce_rvos_tpu_torch.parallel.collectives import all_gather_frames
     from tce_rvos_tpu_torch.parallel.dryrun import SP_OUTPUTS
 
+    kept = None if "valid_indices" in inputs else shard
     with torch.inference_mode():
         model(**inputs, frame_shard=shard)
         torch.cuda.synchronize()
@@ -4882,13 +4930,13 @@ def sp_timed(model, inputs: dict, shard) -> dict:
         ms = (time.perf_counter() - t0) * 1e3
         launches = launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
-        outs = {k: all_gather_frames(out[k], shard, clip_axis=True).float().cpu()
+        outs = {k: all_gather_frames(out[k], kept, clip_axis=True).float().cpu()
                 for k in SP_OUTPUTS}
     return dict(outs, ms=ms, peak_gib=peak, launches=launches)
 
 
 def sp_runs(spec: dict, shard_fn) -> dict:
-    """Each model of ``spec["models"]`` (2D, 3D) in f32 then bf16 through
+    """Each model of ``spec["models"]`` in f32 then bf16 through
     ``sp_timed``, its inputs laid out by ``shard_fn`` (inputs -> (inputs,
     shard))."""
     import torch
@@ -4911,7 +4959,8 @@ def sp_runs(spec: dict, shard_fn) -> dict:
 
 def sp_rank(rank: int, spec: dict) -> dict:
     """What each of the two processes sharing the card runs (gloo): the
-    frame-sharded forward of each model and dtype on its 5 frames."""
+    frame-sharded forward of each model and dtype on its half of the
+    frames."""
     import torch
     import torch.distributed as dist
 
@@ -4935,6 +4984,54 @@ def sp_decisions(got, want) -> dict:
     worst = float(w.abs()[flipped].max()) / scale if bool(flipped.any()) else 0.0
     return {"flipped_share": float(flipped.double().mean()), "worst_margin": worst,
             "rel_rms": float(((g - w) ** 2).mean().sqrt() / (w ** 2).mean().sqrt())}
+
+
+def sp_halos(frames: int, world: int = 2) -> dict:
+    """Video-Swin's halo on each rank: the frames of the clip it gathers
+    from the other rank for an unshifted and for a shifted block
+    (``swin.temporal_window_plan``; the pad frames are zeros, not
+    gathered). The same at every stage: the windows are 8 frames at every
+    stage (T > 8), or the whole clip."""
+    from tce_rvos_tpu_torch.models.swin import get_window_size, temporal_window_plan
+
+    count = frames // world
+    out = {}
+    for rank in range(world):
+        first = rank * count
+        for kind, shift in (("unshifted", 0), ("shifted", 4)):
+            (wt, _, _), (st, _, _) = get_window_size((frames, 96, 160), (8, 7, 7), (shift, 3, 3))
+            plan = temporal_window_plan(frames, wt, st, first, count)
+            held = {f for lo, hi in plan.ranges for f in range(lo, min(hi, frames))}
+            out[f"rank{rank}_{kind}"] = len(held - set(range(first, first + count)))
+    return out
+
+
+def dryrun_on_card() -> dict:
+    """``python -m tce_rvos_tpu_torch.parallel.dryrun --world 2`` as a user
+    runs it, with no device flag: on the card, two ranks sharing it over
+    gloo. Its JSON line, with the command's wall seconds."""
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "tce_rvos_tpu_torch.parallel.dryrun",
+                          "--world", "2"], capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"[sp] the dry run exited {run.returncode}:\n{run.stderr[-4000:]}")
+    res = json.loads(run.stdout.strip().splitlines()[-1])
+    if (res["device"], res["backend"], res["world"]) != ("cuda", "gloo", 2):
+        raise AssertionError(f"[sp] the dry run ran on {res['device']} over {res['backend']} "
+                             f"at world {res['world']}")
+    res["wall_s"] = wall
+    log(f"[sp] dry run (python -m tce_rvos_tpu_torch.parallel.dryrun --world 2) on "
+        f"{res['device']} over {res['backend']}: the step's gaps " + "; ".join(
+            f"rank {i} loss {g['loss_rel']:.3e}, grad norm {g['grad_norm_rel']:.3e} relative, "
+            f"parameters {g['param_max_abs']:.3e}" for i, g in enumerate(res["gaps"]))
+        + "; the sp step's gaps " + "; ".join(
+            f"rank {i} " + ", ".join(f"{tag} " + "/".join(f"{v:.3e}" for v in gaps.values())
+                                     for tag, gaps in sp.items())
+            for i, sp in enumerate(res["sp"]))
+        + f" (logits/boxes/masks); {res['seconds']:.1f} s in dryrun(), {wall:.1f} s wall")
+    return res
 
 
 def phase_sp_kernels(shapes=FLAGSHIP_SHAPES) -> dict:
@@ -4985,24 +5082,30 @@ def phase_sp_kernels(shapes=FLAGSHIP_SHAPES) -> dict:
 
 def phase_sp(root: str) -> dict:
     """Phase 14, the frame-sharded forward of one video
-    (``parallel/mesh.py::shard_time_axis``): the flagship at full width and
-    depth (ResNet-50, RoBERTa-base, f_token 8, IQT, box refinement, binary,
-    4 + 4 layers) and its ``--msda_3d`` variant, from seeded random
-    weights, on one 10x384x640 clip with one caption:
-    (a) two processes sharing the card over gloo, 5 frames each, f32 with
-        TF32 off: each rank's gathered logits, boxes and masks against the
+    (``parallel/mesh.py::shard_time_axis``): first the dry run as a user
+    runs it (``dryrun_on_card``); then the flagship at full width and depth
+    (RoBERTa-base, f_token 8, IQT, box refinement, binary, 4 + 4 layers)
+    from seeded random weights, with one caption, on each of SP_CASES:
+    ResNet-50 and its ``--msda_3d`` variant on one 10x384x640 clip,
+    Video-Swin-B on 12 frames (6 a rank: its 8-frame windows cross the
+    ranks' boundary and its backbone gathers their frames), X3D-M on 10
+    (temporal-convolution halos, the squeeze-excitation means all-reduced)
+    and ResNet-50 with ``valid_indices`` on rank 1's frame:
+    (a) two processes sharing the card over gloo, f32 with TF32 off: each
+        rank's gathered logits, boxes and masks (with ``valid_indices``,
+        the annotated frame's, which every rank holds) against the
         one-process forward on the card at SP_F32_TOL;
     (b) the same in bf16: the gaps printed, the mask decisions held to
-        SP_BF16_MARGIN;
-    (c) both for ``--msda_3d`` (the 3D MSDA reads the gathered value);
-    (e) NCCL at world 1: a shard of the whole clip gives the unsharded f32
-        forward bitwise;
-    (f) each rank's launches: the 2D model's 12 2D forwards, the 3D
-        model's 8 3D and 4 2D forwards, as one process's.
+        SP_BF16_LIMITS;
+    (e) NCCL at world 1 (SP_NCCL's models, f32): a shard of the whole clip
+        gives the unsharded forward bitwise;
+    (f) each rank's launches: 12 2D forwards (the 3D model: 8 3D and 4
+        2D), as one process's.
     (d), the 3D kernel at the sharded call's shapes, runs with phase 2
     (``phase_sp_kernels``). Each rank's forward ms (the two share the card,
     and their collectives are staged through the host) and peak GiB beside
-    the one-process forward's: numbers, not a claim."""
+    the one-process forward's: numbers, not a claim. Video-Swin-B's halo:
+    ``sp_halos``."""
     import dataclasses
 
     import torch
@@ -5013,56 +5116,72 @@ def phase_sp(root: str) -> dict:
 
     label = "[sp]"
     t_phase = time.perf_counter()
-    inputs = os.path.join(root, "sp_inputs.pt")
-    sp_clip_inputs(inputs)
+    res = {"dryrun": dryrun_on_card()}
     spec = {"models": {}}
-    for name, msda_3d, seed in (("2d", False, 0), ("3d", True, 1)):
-        cfg = flagship_config(msda_3d=msda_3d)
-        weights = os.path.join(root, f"sp_weights_{name}.pt")
-        torch.save(random_state_dict(cfg, seed=seed), weights)
+    weights, clips = {}, {}
+    for name, (over, seed, frames, valid) in SP_CASES.items():
+        cfg = flagship_config(**over)
+        key = (tuple(sorted(over.items())), seed)
+        if key not in weights:
+            weights[key] = os.path.join(root, f"sp_weights_{name}.pt")
+            torch.save(random_state_dict(cfg, seed=seed), weights[key])
+        if frames not in clips:
+            clips[frames] = os.path.join(root, f"sp_inputs_t{frames}.pt")
+            sp_clip_inputs(clips[frames], frames)
         spec["models"][name] = {"model": dataclasses.asdict(cfg), "device": "cuda",
-                                "weights": weights, "inputs": inputs}
+                                "weights": weights[key], "inputs": clips[frames],
+                                "valid_indices": valid}
     want = sp_runs(spec, lambda x: (x, None))  # one process, the whole clip
     t0 = time.perf_counter()
     ranks = dryrun.run_processes(2, sp_rank, (spec,), device="cuda", backend="gloo",
-                                 timeout=600)
-    wall = time.perf_counter() - t0
-    # (e) NCCL at world 1, the 2D model in f32
+                                 timeout=900)
+    res["wall_s"] = time.perf_counter() - t0
+    # (e) NCCL at world 1, f32
+    nccl = {}
     with nccl_world_one():
         init_distributed("cuda")
-        case = spec["models"]["2d"]
-        model = dryrun.sp_model(case)
-        local, shard = shard_time_axis(dryrun.sp_model_inputs(case))
-        if shard is None or (shard.world, shard.count) != (1, SP_T):
-            raise AssertionError(f"{label} NCCL world 1: shard {shard}")
-        nccl = sp_timed(model, local, shard)
-        del model
-    torch.cuda.empty_cache()
-    for k in dryrun.SP_OUTPUTS:
-        if not torch.equal(nccl[k], want["2d/float32"][k]):
-            raise AssertionError(f"{label} NCCL world 1: {k} is not the unsharded forward's")
-    per = {"2d": {"msda_fwd": 12, "msda_bwd": 0, "msda3d_fwd": 0, "msda3d_bwd": 0},
-           "3d": {"msda_fwd": 4, "msda_bwd": 0, "msda3d_fwd": 8, "msda3d_bwd": 0}}
-    res = {"wall_s": wall, "nccl_world1": {"ms": nccl["ms"], "peak_gib": nccl["peak_gib"],
-                                           "launches": nccl["launches"]}}
+        for name in SP_NCCL:
+            case = spec["models"][name]
+            model = dryrun.sp_model(case)
+            local, shard = shard_time_axis(dryrun.sp_model_inputs(case))
+            if shard is None or (shard.world, shard.count) != (1, SP_CASES[name][2]):
+                raise AssertionError(f"{label} NCCL world 1 {name}: shard {shard}")
+            nccl[name] = sp_timed(model, local, shard)
+            del model
+            torch.cuda.empty_cache()
+    for name, got in nccl.items():
+        for k in dryrun.SP_OUTPUTS:
+            if not torch.equal(got[k], want[f"{name}/float32"][k]):
+                raise AssertionError(f"{label} NCCL world 1 {name}: {k} is not the unsharded "
+                                     "forward's")
+        if got["launches"] != SP_LAUNCHES[name]:
+            raise AssertionError(f"{label} NCCL world 1 {name}: launches {got['launches']}")
+    res["nccl_world1"] = {name: {"ms": g["ms"], "peak_gib": g["peak_gib"],
+                                 "launches": g["launches"]} for name, g in nccl.items()}
+    res["halos_video_swin_b"] = sp_halos(SP_VSWIN_T)
+    log(f"{label} Video-Swin-B at T = {SP_VSWIN_T}, 6 frames a rank: frames each rank gathers "
+        f"from the other for a block (the same at every stage): {res['halos_video_swin_b']}; at "
+        f"T = {SP_T}: {sp_halos(SP_T)}; at T <= 8 the whole clip")
     for tag, w in want.items():
         name, dtype = tag.split("/")
+        _, _, frames, valid = SP_CASES[name]
+        t_out = 1 if valid else frames
         entry = {"one_process": {"ms": w["ms"], "peak_gib": w["peak_gib"],
                                  "launches": w["launches"]}, "ranks": []}
-        if w["launches"] != per[name]:
+        if w["launches"] != SP_LAUNCHES[name]:
             raise AssertionError(f"{label} {tag} one process launched {w['launches']}")
-        for k, shape in (("pred_logits", (1, SP_T, 5, 1)), ("pred_boxes", (1, SP_T, 5, 4)),
-                         ("pred_masks", (1, SP_T, 5, SP_HW[0] // 4, SP_HW[1] // 4))):
+        for k, shape in (("pred_logits", (1, t_out, 5, 1)), ("pred_boxes", (1, t_out, 5, 4)),
+                         ("pred_masks", (1, t_out, 5, SP_HW[0] // 4, SP_HW[1] // 4))):
             if tuple(w[k].shape) != shape or not bool(torch.isfinite(w[k]).all()):
                 raise AssertionError(f"{label} {tag} one process: {k} {tuple(w[k].shape)}, "
                                      "or not finite")
         for i, r in enumerate(ranks):
             got = r[tag]
-            if got["shard"] != (i, 2, i * SP_T // 2, SP_T // 2):
+            if got["shard"] != (i, 2, i * frames // 2, frames // 2):
                 raise AssertionError(f"{label} rank {i} {tag}: shard {got['shard']}")
-            if got["launches"] != per[name]:
+            if got["launches"] != SP_LAUNCHES[name]:
                 raise AssertionError(f"{label} rank {i} {tag}: launches {got['launches']}, "
-                                     f"expected {per[name]}")
+                                     f"expected {SP_LAUNCHES[name]}")
             gaps = {k: float((got[k].double() - w[k].double()).abs().max())
                     for k in dryrun.SP_OUTPUTS}
             gaps.update({f"{k}_of_scale": gaps[k] / max(float(w[k].abs().max()), 1.0)
@@ -5072,7 +5191,9 @@ def phase_sp(root: str) -> dict:
             entry["ranks"].append(dict(ms=got["ms"], peak_gib=got["peak_gib"],
                                        launches=got["launches"], gaps=gaps))
         res[tag] = entry
-        log(f"{label} {tag}: two ranks of 5 frames against one process of {SP_T}: " + "; ".join(
+        what = (f"the annotated frame {valid[0]} of {frames}, on rank {valid[0] // (frames // 2)}"
+                if valid else f"{frames // 2} frames against one process of {frames}")
+        log(f"{label} {tag}: two ranks, {what}: " + "; ".join(
             f"rank {i} " + ", ".join(f"{k} {v:.3e}" for k, v in r["gaps"].items()
                                      if not isinstance(v, dict))
             + ("; mask decisions differ on {flipped_share:.3e} of pixels (worst margin "
@@ -5083,24 +5204,35 @@ def phase_sp(root: str) -> dict:
             + ", ".join(f"{r['ms']:.1f}" for r in entry["ranks"]) + " the ranks; peak GiB "
             + f"{w['peak_gib']:.2f} one process, "
             + ", ".join(f"{r['peak_gib']:.2f}" for r in entry["ranks"])
-            + f" the ranks; launches {per[name]}")
-        for i, r in enumerate(ranks):  # the gates, after the numbers are logged
+            + f" the ranks; launches {SP_LAUNCHES[name]}")
+    res["bf16_against_f32"] = {name: sp_decisions(want[f"{name}/bfloat16"]["pred_masks"],
+                                                   want[f"{name}/float32"]["pred_masks"])
+                                for name in SP_CASES}
+    log(f"{label} one process, bf16 mask logits against f32 (decisions differing, worst "
+        "margin, rel RMS): " + "; ".join(
+            f"{n} {d['flipped_share']:.3e}, {d['worst_margin']:.3e}, {d['rel_rms']:.3e}"
+            for n, d in res["bf16_against_f32"].items()))
+    for tag, w in want.items():  # the gates, after every case's numbers are logged
+        name, dtype = tag.split("/")
+        for i, r in enumerate(ranks):
             if dtype == "float32":
                 for k, (rtol, atol) in SP_F32_TOL.items():
                     compare(r[tag][k].numpy(), w[k].numpy(), rtol, atol,
                             f"{label} rank {i} {tag} {k}")
             else:
-                d = entry["ranks"][i]["gaps"]["decisions"]
-                if d["worst_margin"] > SP_BF16_MARGIN or d["flipped_share"] > SP_BF16_FLIPPED:
+                d = res[tag]["ranks"][i]["gaps"]["decisions"]
+                margin, share = SP_BF16_LIMITS[name]
+                if d["worst_margin"] > margin or d["flipped_share"] > share:
                     raise AssertionError(
                         f"{label} rank {i} {tag}: mask decisions differ on "
-                        f"{d['flipped_share']:.3e} of pixels (limit {SP_BF16_FLIPPED}), up to "
+                        f"{d['flipped_share']:.3e} of pixels (limit {share}), up to "
                         f"{d['worst_margin']:.3e} of the largest |logit| from 0 (limit "
-                        f"{SP_BF16_MARGIN})")
+                        f"{margin})")
     res["seconds"] = time.perf_counter() - t_phase
     log(f"{label} NCCL world 1: a shard of the whole clip gives the unsharded f32 forward "
-        f"bitwise ({nccl['ms']:.1f} ms); two gloo ranks {wall:.1f} s; phase 14 wall "
-        f"{res['seconds']:.1f} s; nvidia-smi: {nvidia_smi_line()}")
+        f"bitwise (" + ", ".join(f"{n} {g['ms']:.1f} ms" for n, g in nccl.items())
+        + f"); two gloo ranks {res['wall_s']:.1f} s; phase 14 wall {res['seconds']:.1f} s; "
+        f"nvidia-smi: {nvidia_smi_line()}")
     return res
 
 
@@ -5137,10 +5269,11 @@ def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, tr
     ``--vlblock --no_rel_coord`` steps) likewise, with the 2D calls held at
     the ``train.main`` runs' largest padded shape (``options_HxW``);
     phase 13's paths (``train.main`` over NCCL at world 1, each gloo rank's
-    step and evaluation) likewise; phase 14's (each gloo rank's
-    frame-sharded forward of the 2D flagship, ``sp_rank{i}``, and of the
-    ``--msda_3d`` one, ``sp_3d_rank{i}``, the one-process forwards and the
-    NCCL world-1 shard, all in f32) likewise, with the 3D forward held at
+    step and evaluation) likewise; phase 14's (for each model of SP_CASES,
+    ``sp_{name}_rank{i}`` each gloo rank's frame-sharded forward,
+    ``sp_{name}_one_process`` the one-process forward and
+    ``sp_{name}_nccl_world1`` the NCCL world-1 shard, all in f32) likewise,
+    with the 3D forward held at
     the sharded calls (``sp/sp_e{1,4}_*``: Nq = 5 of N = 10 and 20 of 40).
     The flat AdamW update (``flat_adamw``)
     replaces no Pallas kernel but the update XLA fuses
@@ -5204,7 +5337,7 @@ def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, tr
            "train_f_token_-1": {"msda_fwd": op["tokens_train"]["launches"],
                                 "msda_bwd": op["tokens_train"]["backward_launches"]},
            **{f"train_main_{k}": om[k]["launches"]
-              for k in ("classes65", "binary_finetune", "no_masks")},
+              for k in ("classes65", "binary_finetune_no_masks")},
            "infer_main_classes65": om["infer"]["launches"],
            "train_vl_off": {"msda_fwd": op["vl_off"]["vl_off"]["train"]["launches"],
                             "msda_bwd": op["vl_off"]["vl_off"]["train"]["backward_launches"]}}
@@ -5217,11 +5350,11 @@ def kernels_line(kern: dict, bwd: dict, kern3: dict, bwd3: dict, serve: dict, tr
            **{f"gloo_rank{i}_eval_jhmdb": c
               for i, c in enumerate(dist["gloo"]["eval_launches"])}}
 
-    p14 = {**{f"sp{'_3d' if name == '3d' else ''}_rank{i}": r["launches"]
-              for name in ("2d", "3d") for i, r in enumerate(sp[f"{name}/float32"]["ranks"])},
-           "sp_one_process": sp["2d/float32"]["one_process"]["launches"],
-           "sp_3d_one_process": sp["3d/float32"]["one_process"]["launches"],
-           "sp_nccl_world1": sp["nccl_world1"]["launches"]}
+    p14 = {**{f"sp_{name}_{who}": c for name in SP_CASES for who, c in (
+              ("one_process", sp[f"{name}/float32"]["one_process"]["launches"]),
+              *((f"rank{i}", r["launches"])
+                for i, r in enumerate(sp[f"{name}/float32"]["ranks"])))},
+           **{f"sp_{name}_nccl_world1": g["launches"] for name, g in sp["nccl_world1"].items()}}
 
     def by_path(d, kname):
         return {**d, "train_main": m2[kname], "train_main_3d": m3[kname],

@@ -115,7 +115,9 @@ class Backbone(nn.Module):
         super().__init__()
         self.body = body
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, frame_shard=None) -> List[torch.Tensor]:
         """frames [N, 3, H, W] (a temporal body: clips [b, 3, t, H, W]) ->
-        four maps, each [N, C, h, w] (N = b t)."""
-        return self.body(x)
+        four maps, each [N, C, h, w] (N = b t). ``frame_shard`` (a temporal
+        body under the frame-sharded forward): the clips hold the rank's
+        frames."""
+        return self.body(x) if frame_shard is None else self.body(x, frame_shard)

@@ -30,12 +30,16 @@ The frame-sharded forward: ``frame_shard`` (from
 ``video_mask`` to the rank's frames) runs the rank's frames of the clip,
 gathering over the ranks what mixes frames (``models/transformer.py``,
 ``models/segmentation.py``); every output is then the rank's frames of the
-one-process forward's. It is inference only, as the JAX package's
-(``deterministic=True``): it raises with grad enabled or in training
-mode, and it refuses, naming the option, a temporal backbone (whose 3D
-windows and temporal convolutions would need their own exchange),
-``valid_indices`` and the serving split (``precomputed_feats``,
-``backbone_only``).
+one-process forward's. A temporal backbone gathers its own halos
+(Video-Swin's 3D windows, X3D's temporal convolutions and its
+squeeze-excitation means). With ``valid_indices`` each clip's annotated
+frame comes from the rank that holds it (``collectives.pick_from_owners``,
+bitwise), and from there the forward runs unsharded on every rank, so
+each rank's outputs are the one-process forward's. It is inference only,
+as the JAX package's (``deterministic=True``): it raises with grad
+enabled or in training mode, and it refuses the serving split
+(``precomputed_feats``, ``backbone_only``), naming the option: the JAX
+engine never shards time.
 """
 
 from __future__ import annotations
@@ -70,6 +74,7 @@ from tce_rvos_tpu_torch.models.transformer import (
     MSDeformAttn,
     xavier_,
 )
+from tce_rvos_tpu_torch.parallel import collectives
 from tce_rvos_tpu_torch.utils.boxes import inverse_sigmoid
 from tce_rvos_tpu_torch.utils.interpolate import resize_mask_nearest
 
@@ -167,12 +172,11 @@ class ReferFormer(nn.Module):
         bv, t = video_mask.shape[0], video_mask.shape[1]
         b = bv if text_ids is None else text_ids.shape[0]
         if frame_shard is not None:
-            self._check_frame_shard(frame_shard, t, valid_indices, precomputed_feats,
-                                    backbone_only)
+            self._check_frame_shard(frame_shard, t, precomputed_feats, backbone_only)
 
         if precomputed_feats is None:
             if self.temporal_backbone:  # clips [bv, 3, t, H, W]
-                feats = self.backbone[0](video.permute(0, 4, 1, 2, 3))
+                feats = self.backbone[0](video.permute(0, 4, 1, 2, 3), frame_shard)
             else:
                 frames = video.reshape((bv * t,) + tuple(video.shape[2:])).permute(0, 3, 1, 2)
                 feats = self.backbone[0](frames)
@@ -191,14 +195,18 @@ class ReferFormer(nn.Module):
         feat_masks = [resize_mask_nearest(frame_mask, tuple(f.shape[-2:])) for f in feats]
         poses = [sine_pos_2d(m, num_pos_feats=c // 2) for m in feat_masks]
         if valid_indices is not None:
-            # keep only the annotated frame of each clip, an index into (b t)
-            sel = torch.arange(b, device=frame_mask.device) * t + valid_indices.to(
-                frame_mask.device, torch.long)
-            feats = [f[sel] for f in feats]
-            feat_masks = [m[sel] for m in feat_masks]
-            poses = [p[sel] for p in poses]
-            frame_mask = frame_mask[sel]
-            t = 1
+            # keep only the annotated frame of each clip, an index into (b t);
+            # under a frame shard, from the rank that holds it (rank i holds
+            # the clip's frames [i t, (i + 1) t)), and the rest runs unsharded
+            valid_indices = valid_indices.to(frame_mask.device, torch.long)
+            sel = torch.arange(b, device=frame_mask.device) * t + valid_indices % t
+            picked = collectives.pick_from_owners(
+                [x[sel] for x in (*feats, *feat_masks, *poses, frame_mask)],
+                valid_indices // t, frame_shard)
+            n = len(feats)
+            feats, feat_masks, poses = picked[:n], picked[n:2 * n], picked[2 * n:3 * n]
+            frame_mask = picked[-1]
+            t, frame_shard = 1, None
 
         # ---- text ----
         text_hidden, text_pooled = self.text_encoder(text_ids, text_attn_mask)
@@ -283,19 +291,11 @@ class ReferFormer(nn.Module):
             out["aux_outputs"] = [layer_outputs(lvl) for lvl in range(cfg.dec_layers - 1)]
         return out
 
-    def _check_frame_shard(self, shard, t: int, valid_indices, precomputed_feats,
-                           backbone_only: bool) -> None:
+    def _check_frame_shard(self, shard, t: int, precomputed_feats, backbone_only: bool) -> None:
         """Raises for what the frame-sharded forward does not take."""
         if self.training or torch.is_grad_enabled():
             raise ValueError("frame_shard: the frame-sharded forward is inference only "
                              "(call it in eval mode under torch.no_grad or inference_mode)")
-        if self.temporal_backbone:
-            raise ValueError(f"--backbone {self.cfg.backbone}: a temporal backbone's windows "
-                             "and convolutions span frames; the frame-sharded forward takes "
-                             "a 2D backbone")
-        if valid_indices is not None:
-            raise ValueError("valid_indices: the frame-sharded forward keeps every frame "
-                             "(A2D/JHMDB's annotated-frame selection is not sharded)")
         if precomputed_feats is not None or backbone_only:
             raise ValueError("precomputed_feats / backbone_only: the serving split is not "
                              "frame-sharded; run the plain forward")

@@ -39,7 +39,7 @@ from __future__ import annotations
 import functools
 import itertools
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tce_rvos_tpu_torch.models.layers import ATTN_LOGITS_CHUNK, layer_norm, run_layer
+from tce_rvos_tpu_torch.parallel.collectives import gather_frame_range, spread
 
 SWIN_CONFIGS = {
     # the JAX package's swin.py:204-209 (reference swin_transformer.py:687-745)
@@ -185,6 +186,54 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
+class WindowPlan(NamedTuple):
+    """``temporal_window_plan``'s answer for one rank."""
+
+    padded_frames: int          # Tp, the clip padded to a multiple of the window
+    windows: Tuple[int, ...]    # the temporal windows the rank's frames fall in, in order
+    ranges: Tuple[Tuple[int, int], ...]  # the clip frames to gather ([lo, hi), zeros past T)
+    take: Tuple[int, ...]       # the gathered frames (ranges concatenated) in window order
+    keep: Tuple[int, ...]       # the rank's own frames' places in that order
+
+
+@functools.lru_cache(maxsize=256)
+def temporal_window_plan(frames: int, window: int, shift: int, first: int,
+                         count: int) -> WindowPlan:
+    """Which frames a rank holding frames ``[first, first + count)`` of a
+    ``frames``-frame clip needs for one shifted-window block with temporal
+    window ``window`` and shift ``shift`` (both from ``get_window_size``
+    over the whole clip). The clip is padded to Tp frames and rolled by
+    -shift, so window k holds the clip's frames (p + shift) mod Tp for
+    positions p in [k window, (k + 1) window): frames past T are the zero
+    pad, and with a shift the last window takes the clip's first
+    ``shift`` frames. The needed frames are a cyclic interval of [0, Tp):
+    one range, or with a shift two (every rank then gathers two, the
+    second possibly empty, since the gathers are collective)."""
+    tp = -(-frames // window) * window
+    own = range(first, first + count)
+    windows = sorted({(f - shift) % tp // window for f in own})
+    order = [(p + shift) % tp for k in windows for p in range(k * window, (k + 1) * window)]
+    needed = sorted(set(order))
+    runs: List[List[int]] = []
+    for f in needed:
+        if runs and runs[-1][1] == f:
+            runs[-1][1] = f + 1
+        else:
+            runs.append([f, f + 1])
+    if len(runs) == 2 and runs[0][0] == 0:  # the wrapped interval: its tail first
+        runs.reverse()
+    ranges = [tuple(r) for r in runs] + [(0, 0)] * ((2 if shift else 1) - len(runs))
+    at, offset = 0, {}
+    for lo, hi in ranges:
+        for f in range(lo, hi):
+            offset[f] = at + f - lo
+        at += hi - lo
+    place = {k: i for i, k in enumerate(windows)}
+    keep = [place[(f - shift) % tp // window] * window + (f - shift) % tp % window for f in own]
+    return WindowPlan(tp, tuple(windows), tuple(ranges), tuple(offset[f] for f in order),
+                      tuple(keep))
+
+
 def get_window_size(x_size, window_size, shift_size):
     """Video-Swin's rule (reference video_swin_transformer.py:71-84): on an
     axis no longer than the window, the window is the axis and the shift 0."""
@@ -220,13 +269,28 @@ class SwinBlock(nn.Module):
         return torch.cat([self.attn(xw[i:i + step], None if labels is None else labels[i:i + step])
                           for i in range(0, xw.shape[0], step)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frame_shard=None) -> torch.Tensor:
+        """x [B, *dims, C]. ``frame_shard`` (Video-Swin under the
+        frame-sharded forward): x holds the rank's frames of the clip, and
+        the window and shift follow the whole clip's frame count."""
         b, *dims, _ = x.shape
+        sharded = spread(frame_shard)
         window, shift = self.window, self.shift
         if self.shrink:
-            window, shift = get_window_size(dims, window, shift)
+            window, shift = get_window_size((frame_shard.frames, *dims[1:]) if sharded else dims,
+                                            window, shift)
         shortcut = x
         x = self.norm1(x)
+        if sharded:
+            x = self._sharded_windows(x, window, shift, frame_shard)
+        else:
+            x = self._windows(x, window, shift)
+        x = shortcut + self.drop_path(x)
+        return x + self.drop_path(self.mlp(self.norm2(x)))
+
+    def _windows(self, x: torch.Tensor, window, shift) -> torch.Tensor:
+        """The attention branch on the normed tokens of the whole clip."""
+        b, *dims, _ = x.shape
         pads = [(-d) % w for d, w in zip(dims, window)]
         if any(pads):  # F.pad's pairs run from the last axis: C, then the dims reversed
             x = F.pad(x, [0, 0] + [a for p in reversed(pads) for a in (0, p)])
@@ -242,8 +306,37 @@ class SwinBlock(nn.Module):
             x = torch.roll(x, list(shift), axes)
         if any(pads):
             x = x[(slice(None),) + tuple(slice(0, d) for d in dims)]
-        x = shortcut + self.drop_path(x)
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+        return x
+
+    def _sharded_windows(self, x: torch.Tensor, window, shift, shard) -> torch.Tensor:
+        """``_windows`` for the rank's frames of the clip (x [b, t, h, w,
+        C] normed): the rank gathers every frame of the temporal windows
+        its own frames fall in (``temporal_window_plan``: its neighbours'
+        frames, the zero pad frames, and after the cyclic shift the clip's
+        first frames that wrap into the last window), lays those windows
+        out in the shifted order, runs their attention with the region
+        labels of the whole padded clip, and keeps its own frames' rows."""
+        b, _, h, w, _ = x.shape
+        plan = temporal_window_plan(shard.frames, window[0], shift[0], shard.first, shard.count)
+        parts = [gather_frame_range(x, shard, lo, hi) for lo, hi in plan.ranges]
+        take = torch.as_tensor(plan.take, device=x.device)
+        x = (torch.cat(parts, 1) if len(parts) > 1 else parts[0]).index_select(1, take)
+        pads = [(-h) % window[1], (-w) % window[2]]
+        if any(pads):
+            x = F.pad(x, [0, 0, 0, pads[1], 0, pads[0]])
+        padded = (len(plan.take), h + pads[0], w + pads[1])
+        labels = None
+        if any(shift):
+            x = torch.roll(x, [-shift[1], -shift[2]], (2, 3))
+            n = math.prod(window)
+            grid = shift_region_labels((plan.padded_frames, *padded[1:]), window, shift)
+            grid = grid.reshape(plan.padded_frames // window[0], -1, n)[list(plan.windows)]
+            labels = torch.from_numpy(grid.reshape(-1, n)).to(x.device).repeat(b, 1)
+        x = window_reverse(self._attention(window_partition(x, window), labels), window, b, padded)
+        if any(shift):
+            x = torch.roll(x, [shift[1], shift[2]], (2, 3))
+        keep = torch.as_tensor(plan.keep, device=x.device)
+        return x[:, :, :h, :w].index_select(1, keep)
 
 
 class PatchMerging(nn.Module):

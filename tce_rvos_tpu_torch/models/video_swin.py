@@ -9,6 +9,11 @@
     the 3D shift mask (``swin.SwinBlock`` over three axes, ``shrink=True``);
   * the relative-position bias of a shrunk window reads the full window's
     index sliced [:n, :n] (``swin.WindowAttention``);
+  * under the frame-sharded forward each block takes its windows and
+    shift from the whole clip's frame count and gathers the frames of the
+    windows the rank's frames fall in (``swin.temporal_window_plan``): up
+    to 7 frames beyond each end, the pad, the wrapped first frames; at
+    T <= 8 the one temporal window is the whole clip;
   * each stage's output is taken before its spatial downsample, and the
     downsamples are hoisted out of the stages as ``downsamples.{i}``, the
     layout of the reference wrapper (video_swin_transformer.py:666-670),
@@ -57,13 +62,16 @@ class VideoSwinBackbone(nn.Module):
         self.layers = nn.ModuleList(SwinStage(blocks) for blocks in swin_stages(spec, shrink=True))
         self.downsamples = nn.ModuleList(PatchMerging(d) for d in dims[:-1])
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, frame_shard=None) -> List[torch.Tensor]:
+        """``frame_shard``: x holds the rank's frames of the clip (the
+        frame-sharded forward); each block gathers the frames of its
+        temporal windows (``swin.SwinBlock``), the rest is per frame."""
         b, t = x.shape[0], x.shape[2]
         x = self.patch_embed(x)  # [b, t, h, w, C]
         outs = []
         for i, stage in enumerate(self.layers):
             for blk in stage.blocks:
-                x = run_layer(blk, self.use_checkpoint, x)
+                x = run_layer(blk, self.use_checkpoint, x, frame_shard)
             outs.append(x.reshape(b * t, *x.shape[2:]).permute(0, 3, 1, 2).contiguous())
             if i < len(self.downsamples):
                 x = self.downsamples[i](x)

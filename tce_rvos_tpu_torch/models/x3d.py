@@ -9,6 +9,13 @@ JAX package's ``round_width``/``round_repeats`` arithmetic. Time stays
 inside the convs; the output is the per-frame map of stages 1-4 (strides
 4, 8, 16, 32), the stem's dropped.
 
+Under the frame-sharded forward (``frame_shard``) the rank holds its
+frames of the clip: the stem's 5x1x1 conv takes 2 frames a side from its
+neighbours and each block's 3x3x3 conv 1 (``temporal_halo``; zeros past
+the clip's ends, as one process pads), and the squeeze-excitation mean
+over (T, H, W) is a sum all-reduced over the ranks. Everything else is
+per frame.
+
 BatchNorm (``BatchNorm3d``: eps 1e-5) normalises with its running
 statistics. X3D serves and evaluates in the port but does not train: the
 JAX package cannot train it (its train-mode flax BatchNorm is applied
@@ -30,6 +37,8 @@ from typing import List
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tce_rvos_tpu_torch.parallel.collectives import all_reduce_sum, gather_frame_range, spread
 
 X3D_CONFIGS = {
     # the JAX package's x3d.py:116-123 (reference x3d.py:1447-1474)
@@ -60,6 +69,15 @@ def round_repeats(repeats, multiplier):
     if not multiplier:
         return repeats
     return int(math.ceil(multiplier * repeats))
+
+
+def temporal_halo(x: torch.Tensor, shard, k: int) -> torch.Tensor:
+    """[b, C, t, H, W] holding the rank's frames -> [b, C, t + 2k, H, W]
+    with k frames a side from the ranks that hold them (zeros past the
+    clip's ends): what a temporal kernel of 2k + 1 with padding k reads."""
+    first = shard.first
+    return gather_frame_range(x.transpose(1, 2), shard, first - k,
+                              first + shard.count + k).transpose(1, 2)
 
 
 def _stage_bases() -> List[int]:
@@ -104,8 +122,14 @@ class SqueezeExcitation(nn.Module):
         self.block = nn.Sequential(nn.Conv3d(channels, reduced, 1), nn.ReLU(),
                                    nn.Conv3d(reduced, channels, 1), nn.Sigmoid())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.block(x.mean(dim=(2, 3, 4), keepdim=True))
+    def forward(self, x: torch.Tensor, frame_shard=None) -> torch.Tensor:
+        if not spread(frame_shard):
+            return x * self.block(x.mean(dim=(2, 3, 4), keepdim=True))
+        # the whole clip's mean: the ranks' sums, reduced in float32 or wider
+        wide = torch.promote_types(x.dtype, torch.float32)
+        total = all_reduce_sum(x.sum(dim=(2, 3, 4), keepdim=True, dtype=wide), frame_shard)
+        n = frame_shard.frames * x.shape[3] * x.shape[4]
+        return x * self.block((total / n).to(x.dtype))
 
 
 class Branch2(nn.Module):
@@ -122,9 +146,17 @@ class Branch2(nn.Module):
         self.conv_c = nn.Conv3d(dim_inner, dim_out, 1, bias=False)
         self.norm_c = BatchNorm3d(dim_out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frame_shard=None) -> torch.Tensor:
         y = F.relu(self.norm_a(self.conv_a(x)))
-        y = self.norm_b(self.conv_b(y))
+        if spread(frame_shard):  # temporal stride 1, padding 1: a frame a side
+            conv = self.conv_b
+            y = F.conv3d(temporal_halo(y, frame_shard, 1), conv.weight, None, conv.stride,
+                         (0, *conv.padding[1:]), 1, conv.groups)
+        else:
+            y = self.conv_b(y)
+        y = self.norm_b[0](y)
+        if len(self.norm_b) > 1:
+            y = self.norm_b[1](y, frame_shard)
         y = y * torch.sigmoid(y)  # Swish
         return self.norm_c(self.conv_c(y))
 
@@ -142,13 +174,13 @@ class X3DBottleneckBlock(nn.Module):
                 self.branch1_norm = BatchNorm3d(dim_out)
         self.branch2 = Branch2(dim_in, dim_inner, dim_out, stride, use_se)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frame_shard=None) -> torch.Tensor:
         shortcut = x
         if self.branch1_conv is not None:
             shortcut = self.branch1_conv(x)
             if self.branch1_norm is not None:
                 shortcut = self.branch1_norm(shortcut)
-        return F.relu(shortcut + self.branch2(x))
+        return F.relu(shortcut + self.branch2(x, frame_shard))
 
 
 class StemConv(nn.Module):
@@ -159,8 +191,12 @@ class StemConv(nn.Module):
         self.conv_t = nn.Conv3d(3, dim, (1, 3, 3), stride=(1, 2, 2), padding=(0, 1, 1), bias=False)
         self.conv_xy = nn.Conv3d(dim, dim, (5, 1, 1), padding=(2, 0, 0), groups=dim, bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv_xy(self.conv_t(x))
+    def forward(self, x: torch.Tensor, frame_shard=None) -> torch.Tensor:
+        y = self.conv_t(x)
+        if not spread(frame_shard):
+            return self.conv_xy(y)
+        conv = self.conv_xy  # 5x1x1, padding 2: two frames a side
+        return F.conv3d(temporal_halo(y, frame_shard, 2), conv.weight, None, 1, 0, 1, conv.groups)
 
 
 class Stem(nn.Module):
@@ -169,8 +205,8 @@ class Stem(nn.Module):
         self.conv = StemConv(dim)
         self.norm = BatchNorm3d(dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.norm(self.conv(x)))
+    def forward(self, x: torch.Tensor, frame_shard=None) -> torch.Tensor:
+        return F.relu(self.norm(self.conv(x, frame_shard)))
 
 
 class Stage(nn.Module):
@@ -178,8 +214,10 @@ class Stage(nn.Module):
         super().__init__()
         self.res_blocks = nn.Sequential(*blocks)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.res_blocks(x)
+    def forward(self, x: torch.Tensor, frame_shard=None) -> torch.Tensor:
+        for block in self.res_blocks:
+            x = block(x, frame_shard)
+        return x
 
 
 class X3DBackbone(nn.Module):
@@ -202,11 +240,13 @@ class X3DBackbone(nn.Module):
             dim_in = dim_out
         self.blocks = nn.ModuleList(blocks)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        y = self.blocks[0](x)
+    def forward(self, x: torch.Tensor, frame_shard=None) -> List[torch.Tensor]:
+        """``frame_shard``: x holds the rank's frames of the clip (the
+        frame-sharded forward)."""
+        y = self.blocks[0](x, frame_shard)
         outs = []
         for stage in self.blocks[1:]:
-            y = stage(y)
+            y = stage(y, frame_shard)
             b, c, t, h, w = y.shape
             outs.append(y.transpose(1, 2).reshape(b * t, c, h, w))
         return outs

@@ -14,7 +14,12 @@
   * ``merge_in_sample_order``: the evaluators' merge of per-sample records;
   * ``reduce_dict_mean`` (logging) and ``barrier``;
   * ``all_gather_frames``: the frame-sharded forward's gather of the
-    ranks' frames into the whole clip (``mesh.py::shard_time_axis``).
+    ranks' frames into the whole clip (``mesh.py::shard_time_axis``);
+  * ``gather_frame_range``: one global frame range of the clip from the
+    ranks that hold it (the temporal backbones' window and convolution
+    halos); ``all_reduce_sum``: a sum over the ranks in float32 or wider
+    (X3D's squeeze-excitation means); ``pick_from_owners``: each clip's
+    row from the rank that holds it (``valid_indices``).
 
 Outside a process group every function is the one-process identity.
 """
@@ -177,3 +182,122 @@ def all_gather_frames(x: torch.Tensor, shard, clip_axis: bool = False) -> torch.
     dist.all_gather(parts, local, group=shard.group)
     out = torch.cat(parts, 1).to(x.device).view(x.dtype)
     return out if clip_axis else out.reshape(-1, *out.shape[2:])
+
+
+def spread(shard) -> bool:
+    """Whether ``shard`` (a ``mesh.FrameShard`` or None) spreads the clip
+    over more than one process: what the frame-sharded forward's modules
+    exchange frames for. At world 1 they take the one-process path."""
+    return shard is not None and shard.world > 1 and initialized()
+
+
+def _wire_device(t: torch.Tensor, group) -> torch.device:
+    """Where a collective of ``group`` takes ``t``: the host under gloo."""
+    return t.device if dist.get_backend(group) != "gloo" else torch.device("cpu")
+
+
+def _global_rank(shard, r: int) -> int:
+    return r if shard.group is None else dist.get_global_rank(shard.group, r)
+
+
+def gather_frame_range(x: torch.Tensor, shard, lo: int, hi: int, fill: float = 0.0) -> torch.Tensor:
+    """Frames ``[lo, hi)`` of the clip, of each of b clips: ``x`` [b, t,
+    ...] holds this rank's t = ``shard.count`` frames ``[shard.first,
+    shard.first + t)`` (without a shard: the whole clip); returns [b, hi -
+    lo, ...], b-major. Frames outside ``[0, T)`` (the range may run past
+    either end) are ``fill``. Every rank of the group calls it together,
+    each with its own range: the ranks first all-gather the ranges, then
+    each sends every other rank the frames it holds of that rank's range
+    (point to point), so a range wider than one rank's frames takes them
+    from every rank that holds them, and a rank receives only the frames
+    it does not hold. Carried as bytes (gloo takes neither bfloat16 nor
+    bool; under gloo a CUDA tensor is staged through the host). Without a
+    shard, at world 1 or outside a process group it is a slice of ``x``,
+    a view when the range lies inside it. No autograd."""
+    b, t = x.shape[0], x.shape[1]
+    first, frames = (0, t) if shard is None else (shard.first, shard.frames)
+    if shard is not None and t != shard.count:
+        raise ValueError(f"gather_frame_range: {tuple(x.shape)} does not hold {shard.count} "
+                         "frames a clip")
+    hi = max(hi, lo)
+    inner_lo, inner_hi = max(lo, 0), min(hi, frames)          # the frames that exist
+    own_lo, own_hi = max(inner_lo, first), min(inner_hi, first + t)
+    received = _receive_frames(x, shard, lo, hi) if spread(shard) else []
+    if not received and own_lo == lo and own_hi == hi:
+        return x[:, lo - first:hi - first]
+    out = x.new_full((b, hi - lo, *x.shape[2:]), fill)
+    if own_hi > own_lo:
+        out[:, own_lo - lo:own_hi - lo] = x[:, own_lo - first:own_hi - first]
+    for a, piece in received:
+        out[:, a - lo:a - lo + piece.shape[1]] = piece
+    return out
+
+
+def _receive_frames(x: torch.Tensor, shard, lo: int, hi: int) -> list:
+    """``gather_frame_range``'s exchange: [(first frame, [b, n, ...])] of
+    the frames of ``[lo, hi)`` that other ranks hold."""
+    group, count, frames = shard.group, shard.count, shard.frames
+    wire = _wire_device(x, group)
+    mine = torch.tensor([lo, hi], dtype=torch.int64, device=wire)
+    ranges = [torch.empty_like(mine) for _ in range(shard.world)]
+    dist.all_gather(ranges, mine, group=group)
+    ranges = [tuple(int(v) for v in r.tolist()) for r in ranges]
+    ops, sends, recvs = [], [], []
+    for r in range(shard.world):
+        if r == shard.rank:
+            continue
+        peer = _global_rank(shard, r)
+        # what rank r asked for of this rank's frames
+        a, e = max(ranges[r][0], 0, shard.first), min(ranges[r][1], frames, shard.first + count)
+        if e > a:
+            piece = x[:, a - shard.first:e - shard.first].detach().contiguous().to(wire)
+            sends.append(piece)
+            ops.append(dist.P2POp(dist.isend, piece.reshape(-1).view(torch.uint8), peer, group))
+        # what this rank asked for of rank r's frames
+        a, e = max(lo, 0, r * count), min(hi, frames, (r + 1) * count)
+        if e > a:
+            buf = torch.empty((x.shape[0], e - a, *x.shape[2:]), dtype=x.dtype, device=wire)
+            recvs.append((a, buf))
+            ops.append(dist.P2POp(dist.irecv, buf.reshape(-1).view(torch.uint8), peer, group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [(a, buf.to(x.device)) for a, buf in recvs]
+
+
+def all_reduce_sum(x: torch.Tensor, shard) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``shard``'s group, reduced in
+    float32 (or wider: float64 stays float64) whatever ``x``'s dtype, and
+    returned in ``x``'s dtype. Without a shard, at world 1 or outside a
+    process group: ``x``."""
+    if not spread(shard):
+        return x
+    wide = x.detach().to(device=_wire_device(x, shard.group),
+                         dtype=torch.promote_types(x.dtype, torch.float32), copy=True)
+    dist.all_reduce(wide, group=shard.group)
+    return wide.to(device=x.device, dtype=x.dtype)
+
+
+def pick_from_owners(tensors: List[torch.Tensor], owners: torch.Tensor,
+                     shard) -> List[torch.Tensor]:
+    """Row i of each of ``tensors`` (each [b, ...]) as rank ``owners[i]``
+    of ``shard``'s group holds it, on every rank: the rows travel as bytes
+    in one all-gather and are picked, not computed (bitwise). Without a
+    shard, at world 1 or outside a process group: ``tensors``."""
+    if not spread(shard):
+        return list(tensors)
+    b = tensors[0].shape[0]
+    wire = _wire_device(tensors[0], shard.group)
+    rows = [t.detach().contiguous().reshape(b, -1) for t in tensors]
+    packed = torch.cat([r.to(wire).view(torch.uint8) for r in rows], 1)
+    parts = [torch.empty_like(packed) for _ in range(shard.world)]
+    dist.all_gather(parts, packed, group=shard.group)
+    owners = owners.to(device=wire, dtype=torch.long)
+    picked = torch.stack(parts)[owners, torch.arange(b, device=wire)]
+    out, at = [], 0
+    for t, r in zip(tensors, rows):
+        n = r.shape[1] * r.element_size()
+        own = torch.empty((b, n), dtype=torch.uint8, device=wire).copy_(picked[:, at:at + n])
+        out.append(own.view(t.dtype).reshape(t.shape).to(t.device))
+        at += n
+    return out

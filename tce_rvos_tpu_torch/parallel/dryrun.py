@@ -1,11 +1,13 @@
 """Multi-process dry run (counterpart of the JAX package's
 ``__graft_entry__.py::dryrun_multichip``) and the launcher it runs on.
 
-    python -m tce_rvos_tpu_torch.parallel.dryrun --world 2 --device cpu
+    python -m tce_rvos_tpu_torch.parallel.dryrun --world 2 [--device cpu]
 
-``dryrun`` starts ``world`` processes (``run_processes``: gloo on the CPU,
-NCCL on GPUs, or gloo on one shared GPU with ``backend="gloo"``) and checks,
-on a tiny flagship-shaped model:
+``dryrun`` runs on the GPU unless asked for the CPU (``--device cpu``;
+without a GPU it raises, naming it). It starts ``world`` processes
+(``run_processes``: gloo on the CPU, NCCL on GPUs, gloo on a GPU shared
+by more ranks than there are GPUs, or with ``backend="gloo"``), with TF32
+off on the GPU, and checks, on a tiny flagship-shaped model:
   * one train step (f32, dropout off) of each rank on its clip of the batch
     equals the one-process step on the whole batch: the loss at rtol 1e-5,
     the grad norm at rtol 1e-4, every parameter at atol 1e-4 / rtol 1e-3
@@ -44,6 +46,12 @@ DP_TOL = {"loss_rtol": 1e-5, "grad_norm_rtol": 1e-4, "param_atol": 1e-4, "param_
 SP_TOL = {"atol": 1e-4, "rtol": 1e-4}
 SP_OUTPUTS = ("pred_logits", "pred_boxes", "pred_masks")
 MODEL_INPUTS = ("video", "video_mask", "text_ids", "text_attn_mask", "sizes")
+
+
+def exact_float32() -> None:
+    """float32 means float32 on the GPU: no TF32 in cuDNN or cuBLAS."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def _rank_main(rank: int, world: int, workdir: str, device: str, backend: Optional[str],
@@ -177,21 +185,28 @@ def check_dp_step(got: Dict, want: Dict, label: str) -> Dict:
 def sp_model(spec: Dict):
     """The model ``spec["model"]`` (a ``ModelConfig``'s fields) with the
     weights at ``spec["weights"]``, on ``spec["device"]`` in
-    ``spec["dtype"]`` (float32 by default), in eval mode."""
+    ``spec["dtype"]`` (float32 by default), in eval mode. Built on that
+    device: its own initialisation, which the weights overwrite, is the
+    device's work."""
     from tce_rvos_tpu_torch.config import ModelConfig
     from tce_rvos_tpu_torch.models.referformer import ReferFormer
 
-    model = ReferFormer(ModelConfig(**spec["model"]))
+    with torch.device(spec["device"]):
+        model = ReferFormer(ModelConfig(**spec["model"]))
     model.load_state_dict(torch.load(spec["weights"], map_location="cpu", weights_only=True))
     return model.to(device=spec["device"], dtype=getattr(torch, spec.get("dtype", "float32"))).eval()
 
 
 def sp_model_inputs(spec: Dict) -> Dict[str, torch.Tensor]:
     """The model inputs at ``spec["inputs"]`` on ``spec["device"]``, the
-    video in ``spec["dtype"]`` (as the engine casts it)."""
+    video in ``spec["dtype"]`` (as the engine casts it), with
+    ``spec["valid_indices"]`` (each clip's annotated frame) if given."""
     batch = torch.load(spec["inputs"], weights_only=False)
     inputs = {k: torch.as_tensor(batch[k]).to(spec["device"]) for k in MODEL_INPUTS}
     inputs["video"] = inputs["video"].to(getattr(torch, spec.get("dtype", "float32")))
+    if spec.get("valid_indices") is not None:
+        inputs["valid_indices"] = torch.as_tensor(spec["valid_indices"], dtype=torch.long,
+                                                  device=spec["device"])
     return inputs
 
 
@@ -200,8 +215,10 @@ def sp_forward(spec: Dict, group=None) -> Dict:
     ``sp_model_inputs(spec)``: frame-sharded over the ranks of ``group``
     (the default group; ``mesh.shard_time_axis``) with ``SP_OUTPUTS``
     gathered into the whole clip's, or with ``spec["plain"]`` the
-    one-process forward. Returns the outputs on the CPU and ``sharded``,
-    whether a shard was made."""
+    one-process forward. With ``spec["valid_indices"]`` the outputs hold
+    one frame a clip, the same on every rank, and are not gathered.
+    Returns the outputs on the CPU and ``sharded``, whether a shard was
+    made."""
     from tce_rvos_tpu_torch.parallel.collectives import all_gather_frames
     from tce_rvos_tpu_torch.parallel.mesh import shard_time_axis
 
@@ -209,9 +226,10 @@ def sp_forward(spec: Dict, group=None) -> Dict:
     shard = None
     if not spec.get("plain"):
         inputs, shard = shard_time_axis(inputs, group)
+    kept = None if "valid_indices" in inputs else shard  # the frames the outputs hold
     with torch.inference_mode():
         out = model(**inputs, frame_shard=shard)
-        res = {k: all_gather_frames(out[k], shard, clip_axis=True).cpu() for k in SP_OUTPUTS}
+        res = {k: all_gather_frames(out[k], kept, clip_axis=True).cpu() for k in SP_OUTPUTS}
     res["sharded"] = shard is not None
     return res
 
@@ -294,20 +312,30 @@ def _merge_and_checkpoint(rank: int, workdir: str, step: Dict) -> Dict:
 
 
 def _dryrun_rank(rank: int, spec: Dict) -> Dict:
+    exact_float32()
     step = train_step_on_shard(rank, spec)
     step.update(_merge_and_checkpoint(rank, spec["workdir"], step))
     step["sp"] = {tag: sp_forward(s) for tag, s in spec["sp"].items()}
     return step
 
 
-def dryrun(world: int = 2, device: str = "cpu", backend: Optional[str] = None,
+def dryrun(world: int = 2, device: str = "cuda", backend: Optional[str] = None,
            model: Optional[Dict] = None, hw=(32, 32), seed: int = 0) -> Dict:
     """The dry run in ``world`` processes (see the module docstring) on
     ``model`` (``ModelConfig`` fields; ``TINY`` by default) with weights
     and a batch of ``world`` clips from ``seed``; returns the gaps of the
-    step and what the merge and the checkpoint held."""
+    step and what the merge and the checkpoint held, and its seconds."""
     from tce_rvos_tpu_torch.config import ModelConfig
     from tce_rvos_tpu_torch.models.build import build_model
+    from tce_rvos_tpu_torch.utils.device import resolve_device
+
+    t0 = time.perf_counter()
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        exact_float32()
+        if backend is None and world > torch.cuda.device_count():
+            backend = "gloo"  # ranks sharing a GPU: NCCL takes one rank a GPU
+    device = str(dev)
 
     model = TINY if model is None else model
     sp_model = dict(model, dec_layers=1)  # the JAX dryrun's sp step: 1 + 1 layers
@@ -339,7 +367,9 @@ def dryrun(world: int = 2, device: str = "cpu", backend: Optional[str] = None,
         raise AssertionError("a rank ran the sp forward without a frame shard")
     return {"world": world, "loss": want["metrics"]["loss"], "gaps": gaps,
             "merged": ranks[0]["merged"], "checkpoint_tensors": ranks[0]["checkpoint_tensors"],
-            "sp": sp}
+            "sp": sp, "device": device, "backend": backend or ("nccl" if dev.type == "cuda"
+                                                             else "gloo"),
+            "seconds": time.perf_counter() - t0}
 
 
 def main(argv=None) -> Dict:
@@ -348,7 +378,7 @@ def main(argv=None) -> Dict:
 
     p = argparse.ArgumentParser("tce_rvos_tpu_torch multi-process dry run")
     p.add_argument("--world", type=int, default=2)
-    p.add_argument("--device", default="cpu")
+    p.add_argument("--device", default="cuda", help="cpu runs the ranks on the CPU over gloo")
     p.add_argument("--backend", default=None, help="gloo shares one GPU between the ranks")
     a = p.parse_args(argv)
     res = dryrun(a.world, a.device, a.backend)

@@ -13,6 +13,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run the port on the CPU"
+            "CUDA is not available; pass device='cpu' (--device cpu on the command line) "
+            "to run the port on the CPU"
         )
     return dev

@@ -7,7 +7,8 @@ what they run is ``tests/torch_dist_cases.py::frame_shard_cases``) whose
 gathered outputs are held against the one-process port forward at
 ``dryrun.SP_TOL`` and against the JAX model's own sharded forward at
 ``SLICE_TOL``; world 1 against no shard, bitwise; and what the
-frame-sharded forward refuses.
+frame-sharded forward refuses (the temporal backbones and
+``valid_indices``: ``tests/test_torch_frame_shard_backbones.py``).
 
 The models are the tiny flagship, LastLayerAsToken (``OPTIONS_A``) and the
 ``--msda_3d`` flagship at 1 + 2 layers and a one-layer text encoder, with
@@ -229,26 +230,25 @@ def test_gathered_frames_are_the_whole_clips_bitwise(runs):
 
 
 @pytest.fixture(scope="module")
-def port_models():
-    return {name: ReferFormer(ModelConfig(**cfg)).eval() for name, cfg in (
-        ("flagship", MODELS["flagship"]),
-        ("x3d", dict(MODELS["flagship"], backbone="x3d_xs")))}
+def port_model():
+    return ReferFormer(ModelConfig(**MODELS["flagship"])).eval()
 
 
-@pytest.mark.parametrize("case", ["temporal_backbone", "valid_indices", "grad", "training",
-                                  "precomputed_feats", "backbone_only"])
-def test_refusals(port_models, case):
+@pytest.mark.parametrize("case", ["grad", "training", "precomputed_feats", "backbone_only"])
+def test_refusals(port_model, case):
+    """What the frame-sharded forward refuses, naming it: training (grad
+    enabled or training mode) and the serving split, which the JAX package
+    never shards (its trainer shards the batch, its engine no time). The
+    temporal backbones and ``valid_indices`` it takes
+    (``tests/test_torch_frame_shard_backbones.py``)."""
     inputs = {k: torch.as_tensor(v) for k, v in clip_inputs(2).items()}
     shard = FrameShard(None, 0, 1, 2, 0, 2)
-    model = port_models["x3d" if case == "temporal_backbone" else "flagship"]
-    kw = {"valid_indices": dict(valid_indices=torch.zeros(1, dtype=torch.long)),
-          "precomputed_feats": dict(precomputed_feats=[torch.zeros(2, 8, 4, 4)]),
+    kw = {"precomputed_feats": dict(precomputed_feats=[torch.zeros(2, 8, 4, 4)]),
           "backbone_only": dict(backbone_only=True)}.get(case, {})
-    match = {"temporal_backbone": "--backbone x3d_xs", "grad": "frame_shard",
-             "training": "frame_shard"}.get(case, case)
+    match = {"grad": "frame_shard", "training": "frame_shard"}.get(case, case)
     try:
-        model.train(case == "training")
+        port_model.train(case == "training")
         with torch.set_grad_enabled(case == "grad"), pytest.raises(ValueError, match=match):
-            model(**inputs, frame_shard=shard, **kw)
+            port_model(**inputs, frame_shard=shard, **kw)
     finally:
-        model.eval()
+        port_model.eval()

@@ -156,7 +156,7 @@ def test_sample_order_merge_drops_the_padding():
 
 
 def test_dryrun_at_world_2():
-    res = dryrun.dryrun(world=2)
+    res = dryrun.dryrun(world=2, device="cpu")
     assert res["world"] == 2 and np.isfinite(res["loss"])
     assert res["merged"] == 3 and res["checkpoint_tensors"] > 300
     for gap in res["gaps"]:

@@ -1,6 +1,6 @@
 """What the ranks of the port's multi-process tests run
 (tests/test_torch_dp_step.py, tests/test_torch_parallel.py,
-tests/test_torch_frame_shard.py).
+tests/test_torch_frame_shard.py, tests/test_torch_frame_shard_backbones.py).
 
 ``parallel/dryrun.py::run_processes`` spawns the ranks, which import the
 functions of this module by name, so it imports neither JAX nor the test
@@ -224,4 +224,47 @@ def frame_shard_cases(rank: int, specs: Dict[str, Dict], bitwise: str) -> Dict:
         out["gather"][str(dtype)] = (
             full, all_gather_frames(local, shard, clip_axis=True),
             all_gather_frames(local.reshape(-1, *full.shape[2:]), shard))
+    return out
+
+
+# (lo, hi) each of two ranks asks for of a 6-frame clip held 3 frames a
+# rank: past either end, wider than a rank's frames, empty, its own frames
+FRAME_RANGES = (((-3, 5), (1, 9)), ((2, 8), (-4, 2)), ((0, 0), (3, 6)), ((0, 3), (0, 6)))
+
+
+def frame_shard_backbone_cases(rank: int, specs: Dict[str, Dict],
+                               bitwise: List[str]) -> Dict:
+    """The frame-sharded forward (``parallel/dryrun.py::sp_forward``) of
+    each spec over the world; in a group of this rank alone (world 1) the
+    sharded forward of each spec of ``bitwise`` beside its plain forward;
+    and the collectives the temporal backbones and ``valid_indices`` use,
+    on seeded data: ``gather_frame_range`` of each pair of
+    ``FRAME_RANGES`` (this rank's) in f32, bf16 and bool, with fill 0 and
+    7; ``all_reduce_sum`` of a bf16 tensor; ``pick_from_owners`` of rows
+    each rank fills with its rank."""
+    import torch.distributed as dist
+
+    from tce_rvos_tpu_torch.parallel import collectives, dryrun
+    from tce_rvos_tpu_torch.parallel.mesh import shard_time_axis
+
+    out: Dict = {"sp": {tag: dryrun.sp_forward(spec) for tag, spec in specs.items()}}
+    alone = [dist.new_group([r]) for r in range(dist.get_world_size())]  # every rank makes each
+    out["world1"] = {tag: (dryrun.sp_forward(specs[tag], group=alone[rank]),
+                           dryrun.sp_forward(dict(specs[tag], plain=True))) for tag in bitwise}
+    _, shard = shard_time_axis({"video_mask": torch.zeros(2, 6, 1, 1)})
+    whole = torch.randn(2, 6, 3, 4, generator=torch.Generator().manual_seed(7))
+    out["ranges"] = []
+    for pair in FRAME_RANGES:
+        lo, hi = pair[rank]
+        for dtype in (torch.float32, torch.bfloat16, torch.bool):
+            full = whole > 0 if dtype == torch.bool else whole.to(dtype)
+            local = full[:, shard.first:shard.first + shard.count]
+            for fill in (0, 7):
+                got = collectives.gather_frame_range(local, shard, lo, hi, fill=fill)
+                out["ranges"].append(((lo, hi), str(dtype), fill, full, got))
+    part = torch.randn(3, 5, generator=torch.Generator().manual_seed(11 + rank)).to(torch.bfloat16)
+    out["sum"] = (part, collectives.all_reduce_sum(part, shard))
+    rows = [torch.full((3, 2, 2), float(rank)), torch.full((3, 4), rank == 1),
+            torch.full((3,), rank + 10, dtype=torch.bfloat16)]
+    out["picked"] = collectives.pick_from_owners(rows, torch.tensor([1, 0, 1]), shard)
     return out
