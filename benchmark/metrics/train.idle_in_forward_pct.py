@@ -1,0 +1,11 @@
+"""The share of the profiled steps' window of a traced training run in
+which the device was idle while the host was in the step's forward (the
+program's span ``tce.train.forward``: the bf16 cast, the model's stages,
+the criterion with the matcher), from the trace's host ranges and device
+operations."""
+
+from harness import program
+
+
+def read(ctx):
+    return program.idle_pct(ctx, "train", "tce.train.forward")

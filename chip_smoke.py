@@ -1234,7 +1234,6 @@ def phase_path(dtype_name: str, sd, videos, backbone: str = "resnet50", tag: str
     from tce_rvos_tpu_torch import flagship_config
     from tce_rvos_tpu_torch.infer import InferenceEngine
     from tce_rvos_tpu_torch.models.text_encoder import tokenize
-    from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn
 
     cfg = flagship_config(compute_dtype=dtype_name, backbone=backbone, **(overrides or {}))
     engine = InferenceEngine(cfg, sd, device="cuda")
@@ -1243,12 +1242,12 @@ def phase_path(dtype_name: str, sd, videos, backbone: str = "resnet50", tag: str
     n_windows = -(-N_FRAMES // engine.window)
     per_forward = msda_per_forward(cfg)
 
-    ms_deform_attn.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     outs = engine.run_video_batch(frames, list(CAPTIONS), exp_batch=len(CAPTIONS))
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = ms_deform_attn.launches
+    launches = launch_counts()["msda_fwd"]
     trunk_forwards = n_windows  # one expression chunk per window
     if launches != per_forward * trunk_forwards:
         raise AssertionError(f"{label} MSDA kernel launched {launches} times, "
@@ -1594,7 +1593,8 @@ def phase_parity(sd, frames, msda_3d: bool = False, backbone: str = "resnet50",
         out = engine.run_window(video, mask, ids, attn, size)
         outs[dev] = {k: v.float().cpu().numpy() for k, v in out.items()}
         secs = time.perf_counter() - t0
-        launched = {k: launch_counts()[k] for k in want}
+        counts = launch_counts()
+        launched = {k: counts[k] for k in want}
         log(f"{label} {dev}: one window, E={len(ids)}, in {secs:.3f} s, launches {launched}")
         expected = want if dev == "cuda" else {k: 0 for k in want}
         if launched != expected:
@@ -1733,31 +1733,44 @@ def every_parameter_learns(model, start: dict, label: str, note: str = "") -> in
     return n_params
 
 
-def launch_counts() -> dict:
-    """The launch counters of the four MSDA kernels."""
-    from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn, ms_deform_attn_3d
-
-    return {"msda_fwd": ms_deform_attn.launches, "msda_bwd": ms_deform_attn.backward_launches,
-            "msda3d_fwd": ms_deform_attn_3d.launches,
-            "msda3d_bwd": ms_deform_attn_3d.backward_launches}
+_COUNTING = []  # the program's tracing block that reset_launch_counts opened
 
 
 def reset_launch_counts() -> None:
-    """Every kernel's launch counter to 0: the MSDA kernels' and the flat
-    AdamW update's."""
-    from tce_rvos_tpu_torch.ops.flat_adamw_cuda import flat_adamw_cuda
-    from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn, ms_deform_attn_3d
+    """Every kernel's launch counter to 0 (the MSDA kernels' and the flat
+    AdamW update's, in ``utils/profiling.py``) and counting on, in a fresh
+    ``profiling.tracing()`` block, until the next read of the counts."""
+    from tce_rvos_tpu_torch.utils import profiling
 
-    for op in (ms_deform_attn, ms_deform_attn_3d):
-        op.launches = op.backward_launches = 0
-    flat_adamw_cuda.launches = 0
+    _stop_counting()
+    block = profiling.tracing()
+    block.__enter__()
+    _COUNTING.append(block)
+
+
+def _stop_counting() -> None:
+    while _COUNTING:
+        _COUNTING.pop().__exit__(None, None, None)
+
+
+def _counters() -> dict:
+    """The program's counters since ``reset_launch_counts`` (counting stops)."""
+    from tce_rvos_tpu_torch.utils import profiling
+
+    _stop_counting()
+    return profiling.counters()
+
+
+def launch_counts() -> dict:
+    """The launches of the four MSDA kernels since ``reset_launch_counts``."""
+    c = _counters()
+    return {"msda_fwd": c.get("msda.fwd", 0), "msda_bwd": c.get("msda.bwd", 0),
+            "msda3d_fwd": c.get("msda3d.fwd", 0), "msda3d_bwd": c.get("msda3d.bwd", 0)}
 
 
 def adamw_launches() -> int:
-    """The launch counter of the flat AdamW update kernel."""
-    from tce_rvos_tpu_torch.ops.flat_adamw_cuda import flat_adamw_cuda
-
-    return flat_adamw_cuda.launches
+    """The flat AdamW update kernel's launches since ``reset_launch_counts``."""
+    return _counters().get("flat_adamw.launches", 0)
 
 
 def adamw_per_step(state) -> int:
@@ -1829,7 +1842,6 @@ def phase_train(sd) -> dict:
     from tce_rvos_tpu_torch.config import TrainConfig
     from tce_rvos_tpu_torch.models.criterion import criterion_from_configs
     from tce_rvos_tpu_torch.models.referformer import ReferFormer
-    from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn
     from tce_rvos_tpu_torch.parallel.train_step import (
         batch_to_device,
         create_train_state,
@@ -1881,11 +1893,12 @@ def phase_train(sd) -> dict:
     def grads_of(ckpt: bool):
         model.transformer.use_checkpoint = ckpt
         model.zero_grad(set_to_none=True)
-        ms_deform_attn.launches = ms_deform_attn.backward_launches = 0
+        reset_launch_counts()
         total, _ = forward_losses(model, batches[0], crit, "float32")
         total.backward()
         torch.cuda.synchronize()
-        counts = (ms_deform_attn.launches, ms_deform_attn.backward_launches)
+        launched = launch_counts()
+        counts = (launched["msda_fwd"], launched["msda_bwd"])
         return (float(total.detach()),
                 {n: p.grad.float().clone() for n, p in model.named_parameters()}, counts)
 
@@ -2626,16 +2639,17 @@ def check_binary_tree(out_dir: str, videos: dict, label: str) -> int:
 
 def count_trunks(engine) -> list:
     """Wrap ``engine.trunk`` to record (E, T, 2D MSDA forward launches) of
-    every trunk forward."""
-    from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn
+    every trunk forward, counted while ``reset_launch_counts`` counts."""
+    from tce_rvos_tpu_torch.utils import profiling
 
     calls = []
     trunk = engine.trunk
 
     def counted(feats, mask, ids, attn, sizes):
-        before = ms_deform_attn.launches
+        before = profiling.counters().get("msda.fwd", 0)
         out = trunk(feats, mask, ids, attn, sizes)
-        calls.append((len(ids), int(mask.shape[1]), ms_deform_attn.launches - before))
+        calls.append((len(ids), int(mask.shape[1]),
+                      profiling.counters().get("msda.fwd", 0) - before))
         return out
 
     engine.trunk = counted
@@ -4688,8 +4702,8 @@ def phase_dist(jhmdb_tree: str, root: str) -> dict:
         mask's RLE, decoding and boundary map bitwise equal; samples/s of
         each;
     (d) ``utils/profiling.trace`` around the one-process step writes a
-        Chrome trace holding its annotation and device kernels;
-        ``device_memory_stats`` reads the card."""
+        Chrome trace holding its span, the step's spans and device kernels,
+        and ``spans.json`` with the span's CUDA-event time."""
     import shutil
 
     import torch
@@ -4759,20 +4773,23 @@ def phase_dist(jhmdb_tree: str, root: str) -> dict:
     trace_dir = os.path.join(root, "trace")
     reset_launch_counts()
     with profiling.trace(trace_dir):
-        with profiling.annotate("tce_dist_reference_step"):
+        with profiling.span("tce_dist_reference_step", 1):
             want = dryrun.train_step_on_shard(0, spec)
     want["launches"] = launch_counts()
-    mem = profiling.device_memory_stats()
     with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as fh:
         events = json.load(fh)["traceEvents"]
+    with open(os.path.join(trace_dir, profiling.SPANS_FILE)) as fh:
+        spans = {s["name"]: s for s in json.load(fh)["spans"]}
     kernels = sum(1 for e in events if e.get("cat") == "kernel")
-    if not any(e.get("name") == "tce_dist_reference_step" for e in events) or not kernels:
-        raise AssertionError(f"{label} the trace holds no annotated span or no kernel")
-    if not mem.get("cuda:0"):
-        raise AssertionError(f"{label} device_memory_stats {mem}")
+    names = {e.get("name") for e in events}
+    if not {"tce_dist_reference_step", "tce.train.step"} <= names or not kernels:
+        raise AssertionError(f"{label} the trace holds no span or no kernel")
+    step_ms = spans["tce_dist_reference_step"]["device_ms"]
+    if not step_ms or "tce.train.backward" not in spans:
+        raise AssertionError(f"{label} spans.json: {sorted(spans)}, step {step_ms} ms")
     res["profiling"] = dict(trace_bytes=os.path.getsize(os.path.join(trace_dir,
                                                                      profiling.TRACE_FILE)),
-                            events=len(events), kernels=kernels, memory=mem)
+                            events=len(events), kernels=kernels, step_device_ms=step_ms)
     shutil.rmtree(trace_dir)
     t0 = time.perf_counter()
     ranks = dryrun.run_processes(2, dist_rank, (spec,), device="cuda", backend="gloo",

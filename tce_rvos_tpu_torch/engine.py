@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from tce_rvos_tpu_torch.parallel.collectives import merge_in_sample_order, process_count
+from tce_rvos_tpu_torch.utils import profiling
 from tce_rvos_tpu_torch.utils.logging import MetricLogger, SmoothedValue
 
 
@@ -63,7 +64,8 @@ def train_one_epoch(
             break
         batch = {k: v for k, v in batch.items() if k != "image_ids"}
         state, metrics = step_fn(state, batch)
-        host: Dict[str, float] = {k: float(v) for k, v in metrics.items()}
+        with profiling.span("tce.train.read_metrics", 1):  # waits for the step's device work
+            host: Dict[str, float] = {k: float(v) for k, v in metrics.items()}
         loss = host.pop("loss")
         if not math.isfinite(loss):
             print(f"Loss is {loss}, stopping training")

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from tce_rvos_tpu_torch.config import ModelConfig
 from tce_rvos_tpu_torch.models.referformer import ReferFormer
 from tce_rvos_tpu_torch.models.text_encoder import tokenize
+from tce_rvos_tpu_torch.utils import profiling
 from tce_rvos_tpu_torch.utils.device import resolve_device
 from tce_rvos_tpu_torch.utils.precision import resolve_dtype
 
@@ -221,19 +222,24 @@ class InferenceEngine:
         align_corners=False), normalise, pad to the ``pad_mult`` bucket.
         Returns (video [1, t, Hp, Wp, 3] f32, mask [1, t, Hp, Wp] True on
         padding, (oh, ow)) on the engine's device."""
-        h, w = frames[0].shape[:2]
-        oh, ow = self.model_size((h, w))
-        x = self._tensor(np.stack([np.asarray(f, np.float32) for f in frames]))
-        x = x.permute(0, 3, 1, 2)  # [t, 3, h, w]
-        if (oh, ow) != (h, w):
-            x = F.interpolate(x, size=(oh, ow), mode="bilinear", align_corners=False)
-        x = (x - self._mean) / self._std
-        hp, wp = _pad_to(oh, self.pad_mult), _pad_to(ow, self.pad_mult)
         t = len(frames)
-        video = torch.zeros((1, t, hp, wp, 3), dtype=torch.float32, device=self.device)
-        video[0, :, :oh, :ow] = x.permute(0, 2, 3, 1)
-        mask = torch.ones((1, t, hp, wp), dtype=torch.bool, device=self.device)
-        mask[0, :, :oh, :ow] = False
+        with profiling.span("tce.engine.preprocess", t):
+            h, w = frames[0].shape[:2]
+            oh, ow = self.model_size((h, w))
+            with profiling.span("tce.engine.preprocess.stack", t):
+                x = np.stack([np.asarray(f, np.float32) for f in frames])
+            with profiling.span("tce.engine.preprocess.h2d", t):
+                x = self._tensor(x)
+            with profiling.span("tce.engine.preprocess.resize", t):
+                x = x.permute(0, 3, 1, 2)  # [t, 3, h, w]
+                if (oh, ow) != (h, w):
+                    x = F.interpolate(x, size=(oh, ow), mode="bilinear", align_corners=False)
+                x = (x - self._mean) / self._std
+                hp, wp = _pad_to(oh, self.pad_mult), _pad_to(ow, self.pad_mult)
+                video = torch.zeros((1, t, hp, wp, 3), dtype=torch.float32, device=self.device)
+                video[0, :, :oh, :ow] = x.permute(0, 2, 3, 1)
+                mask = torch.ones((1, t, hp, wp), dtype=torch.bool, device=self.device)
+                mask[0, :, :oh, :ow] = False
         return video, mask, (oh, ow)
 
     @torch.inference_mode()
@@ -247,15 +253,18 @@ class InferenceEngine:
     @torch.inference_mode()
     def backbone(self, video, mask) -> List[torch.Tensor]:
         """Text-independent half: the feature pyramid of one clip window."""
-        return self.model(video.to(self.dtype), mask, backbone_only=True)
+        with profiling.span("tce.engine.backbone", video.shape[1]):
+            return self.model(video.to(self.dtype), mask, backbone_only=True)
 
     @torch.inference_mode()
     def trunk(self, feats, mask, text_ids, text_attn, sizes) -> Dict[str, torch.Tensor]:
         """Text-conditioned half over precomputed features; the text batch
-        E tiles the video axis inside the model."""
-        ids, attn = self._text(text_ids, text_attn)
-        out = self.model(None, mask, ids, attn, sizes, precomputed_feats=feats)
-        return {k: out[k] for k in OUTPUT_KEYS}
+        E tiles the video axis inside the model. Its span's units are the
+        expression-frames it computes, padding included."""
+        with profiling.span("tce.engine.trunk", len(text_ids) * mask.shape[1]):
+            ids, attn = self._text(text_ids, text_attn)
+            out = self.model(None, mask, ids, attn, sizes, precomputed_feats=feats)
+            return {k: out[k] for k in OUTPUT_KEYS}
 
     def window_length(self, t_total: int, whole_video: bool = False) -> int:
         """Core frames of a window: ``window``, or the whole video rounded
@@ -307,7 +316,15 @@ class InferenceEngine:
         """Serving path for a video with E expressions; one
         ``run_video``-format dict per caption. ``exp_batch`` is capped by
         ``trunk_frame_envelope`` at the padded size, floored to a power of
-        two (the padded chunk width), in both window modes."""
+        two (the padded chunk width), in both window modes. Traced, the
+        request's span counts its real expression-frames, and the counters
+        ``engine.trunk_dispatches``, ``engine.trunk_expframes`` (computed,
+        padded frames and expressions included) and
+        ``engine.trunk_expframes_real`` (returned) its trunk work."""
+        with profiling.span("tce.engine.request", len(frames) * len(captions)):
+            return self._run_video_batch(frames, captions, f_extra, whole_video, exp_batch)
+
+    def _run_video_batch(self, frames, captions, f_extra, whole_video, exp_batch):
         n_exp = len(captions)
         t_clip = self.window_length(len(frames), whole_video) + 2 * f_extra
         oh, ow = self.model_size(frames[0].shape[:2])
@@ -334,7 +351,11 @@ class InferenceEngine:
                     ids = np.concatenate([ids, np.repeat(ids[:1], n_pad - n_real, 0)])
                     attn = np.concatenate([attn, np.repeat(attn[:1], n_pad - n_real, 0)])
                 out = self.trunk(feats, mask, ids, attn, sizes)
-                host = {k: _numpy(out[k]) for k in OUTPUT_KEYS}
+                profiling.count("engine.trunk_dispatches")
+                profiling.count("engine.trunk_expframes", n_pad * t_clip)
+                profiling.count("engine.trunk_expframes_real", n_real * n_core)
+                with profiling.span("tce.engine.outputs", n_real * n_core):
+                    host = {k: _numpy(out[k]) for k in OUTPUT_KEYS}
                 samples = host["inter_samples"][-1]
                 samples = samples.reshape((n_pad, t_clip) + samples.shape[1:])
                 for e in range(n_real):
@@ -668,13 +689,10 @@ def run_mevis(
 
 def main(argv=None):
     """The inference command line (the JAX package's flags and defaults,
-    plus ``--device``)."""
+    plus ``--device`` and ``--trace_dir``)."""
     import argparse
 
-    from tce_rvos_tpu_torch.cli import add_model_args, model_config_from_args
-    from tce_rvos_tpu_torch.models.build import build_model
-    from tce_rvos_tpu_torch.models.text_encoder import require_real_tokenizer
-    from tce_rvos_tpu_torch.utils.checkpoint import convert_state_dict, load_torch_file
+    from tce_rvos_tpu_torch.cli import add_model_args
 
     p = argparse.ArgumentParser("tce_rvos_tpu_torch inference")
     add_model_args(p)
@@ -697,7 +715,20 @@ def main(argv=None):
                         "once per window either way); 1 disables batching")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; raises without a GPU) or cpu")
+    p.add_argument("--trace_dir", default="",
+                   help="run the job under the profiler with the program's spans and "
+                        "counters on, and write trace.json and spans.json there (the "
+                        "records stay in memory until the job ends: for short jobs)")
     args = p.parse_args(argv)
+    with profiling.trace(args.trace_dir) if args.trace_dir else contextlib.nullcontext():
+        _infer(args)
+
+
+def _infer(args) -> None:
+    from tce_rvos_tpu_torch.cli import model_config_from_args
+    from tce_rvos_tpu_torch.models.build import build_model
+    from tce_rvos_tpu_torch.models.text_encoder import require_real_tokenizer
+    from tce_rvos_tpu_torch.utils.checkpoint import convert_state_dict, load_torch_file
 
     cfg = model_config_from_args(args)
     device = resolve_device(args.device)

@@ -75,6 +75,7 @@ from tce_rvos_tpu_torch.models.transformer import (
     xavier_,
 )
 from tce_rvos_tpu_torch.parallel import collectives
+from tce_rvos_tpu_torch.utils import profiling
 from tce_rvos_tpu_torch.utils.boxes import inverse_sigmoid
 from tce_rvos_tpu_torch.utils.interpolate import resize_mask_nearest
 
@@ -175,11 +176,12 @@ class ReferFormer(nn.Module):
             self._check_frame_shard(frame_shard, t, precomputed_feats, backbone_only)
 
         if precomputed_feats is None:
-            if self.temporal_backbone:  # clips [bv, 3, t, H, W]
-                feats = self.backbone[0](video.permute(0, 4, 1, 2, 3), frame_shard)
-            else:
-                frames = video.reshape((bv * t,) + tuple(video.shape[2:])).permute(0, 3, 1, 2)
-                feats = self.backbone[0](frames)
+            with profiling.span("tce.model.backbone", bv * t):
+                if self.temporal_backbone:  # clips [bv, 3, t, H, W]
+                    feats = self.backbone[0](video.permute(0, 4, 1, 2, 3), frame_shard)
+                else:
+                    frames = video.reshape((bv * t,) + tuple(video.shape[2:])).permute(0, 3, 1, 2)
+                    feats = self.backbone[0](frames)
             if backbone_only:
                 return feats
         else:
@@ -209,13 +211,14 @@ class ReferFormer(nn.Module):
             t, frame_shard = 1, None
 
         # ---- text ----
-        text_hidden, text_pooled = self.text_encoder(text_ids, text_attn_mask)
-        if cfg.freeze_text_encoder:
-            text_hidden, text_pooled = text_hidden.detach(), text_pooled.detach()
-        text_features = self.resizer(text_hidden)   # [b, S, c]
-        text_sentence = self.resizer(text_pooled)   # [b, c]
-        text_pad_mask = text_attn_mask == 0
-        text_pos = sine_pos_1d(text_pad_mask, num_pos_feats=c)
+        with profiling.span("tce.model.text", b * t):
+            text_hidden, text_pooled = self.text_encoder(text_ids, text_attn_mask)
+            if cfg.freeze_text_encoder:
+                text_hidden, text_pooled = text_hidden.detach(), text_pooled.detach()
+            text_features = self.resizer(text_hidden)   # [b, S, c]
+            text_sentence = self.resizer(text_pooled)   # [b, c]
+            text_pad_mask = text_attn_mask == 0
+            text_pos = sine_pos_1d(text_pad_mask, num_pos_feats=c)
 
         def fuse(x):  # [(b t), c, h, w]
             n, _, h, w = x.shape
@@ -224,17 +227,18 @@ class ReferFormer(nn.Module):
             return seq.reshape(n, h * w, c).transpose(1, 2).reshape(n, c, h, w)
 
         # ---- per-level projection + early fusion ----
-        srcs, masks_l = [], []
-        for lvl, feat in enumerate(feats[-3:]):
-            srcs.append(fuse(self.input_proj[lvl](feat)))
-            masks_l.append(feat_masks[len(feats) - 3 + lvl])
-        for lvl in range(3, cfg.num_feature_levels):
-            src_in = feats[-1] if lvl == 3 else srcs[-1]
-            proj = self.input_proj[lvl](src_in)
-            m = resize_mask_nearest(frame_mask, tuple(proj.shape[-2:]))
-            srcs.append(fuse(proj))
-            masks_l.append(m)
-            poses.append(sine_pos_2d(m, num_pos_feats=c // 2))
+        with profiling.span("tce.model.fusion", b * t):
+            srcs, masks_l = [], []
+            for lvl, feat in enumerate(feats[-3:]):
+                srcs.append(fuse(self.input_proj[lvl](feat)))
+                masks_l.append(feat_masks[len(feats) - 3 + lvl])
+            for lvl in range(3, cfg.num_feature_levels):
+                src_in = feats[-1] if lvl == 3 else srcs[-1]
+                proj = self.input_proj[lvl](src_in)
+                m = resize_mask_nearest(frame_mask, tuple(proj.shape[-2:]))
+                srcs.append(fuse(proj))
+                masks_l.append(m)
+                poses.append(sine_pos_2d(m, num_pos_feats=c // 2))
 
         # ---- transformer ----
         q = cfg.num_queries
@@ -245,9 +249,10 @@ class ReferFormer(nn.Module):
             bbox_embed=self.bbox_embed if cfg.with_box_refine else None,
             frame_shard=frame_shard)
         # ---- segmentation ----
-        mask_features = self.pixel_decoder(
-            list(zip(feats, feat_masks)), text_features, text_pad_mask, text_pos,
-            poses[:4], tr["memory_features"], t, frame_shard)
+        with profiling.span("tce.model.pixel_decoder", b * t):
+            mask_features = self.pixel_decoder(
+                list(zip(feats, feat_masks)), text_features, text_pad_mask, text_pos,
+                poses[:4], tr["memory_features"], t, frame_shard)
         mask_features = mask_features.reshape((b, t) + tuple(mask_features.shape[1:]))
 
         def layer_outputs(lvl):
@@ -274,21 +279,22 @@ class ReferFormer(nn.Module):
                 out["pred_visible"] = self.visible_embed[head](hs).reshape(b, t, q, 1)
             return out
 
-        ref_vis = (tr["inter_references"][-2][..., :2] if cfg.dec_layers > 1
-                   else tr["init_reference"])
-        out = layer_outputs(cfg.dec_layers - 1)
-        out.update({
-            "reference_points": ref_vis.reshape(b, t, q, 2),
-            "inter_samples": tr["inter_samples"],          # [l, b*t, q, 30, 2]
-            "memory": tr["memory"],
-        })
-        if cfg.contrastive:
-            mem = tr["memory"].reshape(b, t, -1, c).mean(2)
-            out["contrastive"] = (mem * text_sentence[:, None]).sum(-1) / (
-                torch.linalg.vector_norm(mem, dim=-1)
-                * torch.linalg.vector_norm(text_sentence, dim=-1)[:, None] + 1e-6)
-        if aux_outputs:
-            out["aux_outputs"] = [layer_outputs(lvl) for lvl in range(cfg.dec_layers - 1)]
+        with profiling.span("tce.model.heads", b * t):
+            ref_vis = (tr["inter_references"][-2][..., :2] if cfg.dec_layers > 1
+                       else tr["init_reference"])
+            out = layer_outputs(cfg.dec_layers - 1)
+            out.update({
+                "reference_points": ref_vis.reshape(b, t, q, 2),
+                "inter_samples": tr["inter_samples"],          # [l, b*t, q, 30, 2]
+                "memory": tr["memory"],
+            })
+            if cfg.contrastive:
+                mem = tr["memory"].reshape(b, t, -1, c).mean(2)
+                out["contrastive"] = (mem * text_sentence[:, None]).sum(-1) / (
+                    torch.linalg.vector_norm(mem, dim=-1)
+                    * torch.linalg.vector_norm(text_sentence, dim=-1)[:, None] + 1e-6)
+            if aux_outputs:
+                out["aux_outputs"] = [layer_outputs(lvl) for lvl in range(cfg.dec_layers - 1)]
         return out
 
     def _check_frame_shard(self, shard, t: int, precomputed_feats, backbone_only: bool) -> None:

@@ -62,6 +62,7 @@ from tce_rvos_tpu_torch.models.layers import (
 )
 from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn, ms_deform_attn_3d
 from tce_rvos_tpu_torch.parallel.collectives import all_gather_frames
+from tce_rvos_tpu_torch.utils import profiling
 from tce_rvos_tpu_torch.utils.boxes import inverse_sigmoid
 
 SpatialShapes = Tuple[Tuple[int, int], ...]
@@ -315,9 +316,10 @@ class EncoderLayer(nn.Module):
             last_start = sum(h * w for h, w in spatial_shapes[:-1])
             src = self.inter_frame_atten(src, pos, last_start, clip_frames, frame_shard)
         if self.ftoken_layers is not None:
-            src, memory_bus = self.ftoken_layers(
-                src, pos, memory_bus, memory_pos, spatial_shapes, padding_mask,
-                valid_ratios, clip_frames, frame_shard)
+            with profiling.span("tce.model.ftf", src.shape[0]):
+                src, memory_bus = self.ftoken_layers(
+                    src, pos, memory_bus, memory_pos, spatial_shapes, padding_mask,
+                    valid_ratios, clip_frames, frame_shard)
         src2, _, _ = self.self_attn(
             with_pos(src, pos), reference_points, src, spatial_shapes, padding_mask, frame_shard)
         src = self.norm1(src + self.dropout(src2))
@@ -445,45 +447,47 @@ class DeformableTransformer(nn.Module):
             memory_pos = self.encoder.memory_pos[None].expand(n, -1, -1)
         output = src_flat
         ckpt = self.use_checkpoint
-        for layer in self.encoder.layers:
-            output, memory_bus = run_layer(layer, ckpt, output, pos_flat, enc_ref, spatial_shapes,
-                                           valid_ratios, mask_flat, memory_bus, memory_pos, t,
-                                           frame_shard)
+        with profiling.span("tce.model.encoder", n):
+            for layer in self.encoder.layers:
+                output, memory_bus = run_layer(layer, ckpt, output, pos_flat, enc_ref,
+                                               spatial_shapes, valid_ratios, mask_flat,
+                                               memory_bus, memory_pos, t, frame_shard)
         memory = output
 
         # ---- decoder ----
-        tgt_dec = tgt.reshape(b * t, q_per_frame, c)
-        query_pos = query_embed[None].expand(b * t, -1, -1)
-        # coordinate math pinned to float32 (a bf16 box centre drifts pixels)
-        init_reference = torch.sigmoid(self.reference_points(query_pos)).float()
-        reference_points = init_reference
-        out = tgt_dec
-        hs, inter_refs, coords, samples = [], [], [], []
-        for i, layer in enumerate(self.decoder.layers):
-            if reference_points.shape[-1] == 4:
-                ref_input = reference_points[:, :, None] * torch.cat(
-                    [valid_ratios] * 2, -1)[:, None]
-            else:
-                ref_input = reference_points[:, :, None] * valid_ratios[:, None]
-            out, loc, attn_w = run_layer(layer, ckpt, out, query_pos, ref_input, memory,
-                                         spatial_shapes, mask_flat, t, frame_shard)
-            # top-30 sampling locations for visualisation
-            nq = loc.shape[1]
-            loc_n = loc / valid_ratios[:, None, None, :, None, :]
-            top_i = torch.topk(attn_w.reshape(n, nq, -1), 30, dim=-1).indices
-            samples.append(torch.gather(
-                loc_n.reshape(n, nq, -1, 2), 2, top_i[..., None].expand(-1, -1, -1, 2)))
-            if self.with_box_refine:
-                tmp = bbox_embed[i](out)
+        with profiling.span("tce.model.decoder", n):
+            tgt_dec = tgt.reshape(b * t, q_per_frame, c)
+            query_pos = query_embed[None].expand(b * t, -1, -1)
+            # coordinate math pinned to float32 (a bf16 box centre drifts pixels)
+            init_reference = torch.sigmoid(self.reference_points(query_pos)).float()
+            reference_points = init_reference
+            out = tgt_dec
+            hs, inter_refs, coords, samples = [], [], [], []
+            for i, layer in enumerate(self.decoder.layers):
                 if reference_points.shape[-1] == 4:
-                    new_ref = torch.sigmoid(tmp + inverse_sigmoid(reference_points))
+                    ref_input = reference_points[:, :, None] * torch.cat(
+                        [valid_ratios] * 2, -1)[:, None]
                 else:
-                    new_ref = torch.sigmoid(torch.cat(
-                        [tmp[..., :2] + inverse_sigmoid(reference_points), tmp[..., 2:]], -1))
-                coords.append(new_ref)
-                reference_points = new_ref.detach()
-            hs.append(out)
-            inter_refs.append(reference_points)
+                    ref_input = reference_points[:, :, None] * valid_ratios[:, None]
+                out, loc, attn_w = run_layer(layer, ckpt, out, query_pos, ref_input, memory,
+                                             spatial_shapes, mask_flat, t, frame_shard)
+                # top-30 sampling locations for visualisation
+                nq = loc.shape[1]
+                loc_n = loc / valid_ratios[:, None, None, :, None, :]
+                top_i = torch.topk(attn_w.reshape(n, nq, -1), 30, dim=-1).indices
+                samples.append(torch.gather(
+                    loc_n.reshape(n, nq, -1, 2), 2, top_i[..., None].expand(-1, -1, -1, 2)))
+                if self.with_box_refine:
+                    tmp = bbox_embed[i](out)
+                    if reference_points.shape[-1] == 4:
+                        new_ref = torch.sigmoid(tmp + inverse_sigmoid(reference_points))
+                    else:
+                        new_ref = torch.sigmoid(torch.cat(
+                            [tmp[..., :2] + inverse_sigmoid(reference_points), tmp[..., 2:]], -1))
+                    coords.append(new_ref)
+                    reference_points = new_ref.detach()
+                hs.append(out)
+                inter_refs.append(reference_points)
 
         memory_features = []
         start = 0

@@ -6,8 +6,9 @@ It takes the place of the update that XLA fuses for the JAX package's
 kernel there). ``parallel/flat_adamw.py::flat_adamw_update`` calls
 ``flat_adamw_cuda`` for CUDA tensors and the plain torch version
 ``flat_adamw_update_plain`` for CPU tensors; on CUDA a kernel that does not
-build or launch raises, nothing falls back. ``flat_adamw_cuda.launches``
-counts the kernel's launches.
+build or launch raises, nothing falls back. While tracing is on
+(``utils/profiling.py``) the counter ``flat_adamw.launches`` counts the
+kernel's launches.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from tce_rvos_tpu_torch.ops._build import load_library
+from tce_rvos_tpu_torch.utils import profiling
 
 SOURCE = "flat_adamw.cu"
 MAX_TIERS = 4
@@ -86,7 +88,4 @@ def flat_adamw_cuda(p, g, mu, nu, gnorm, s: UpdateScalars) -> None:
                        s.b2, s.omb2, s.bc1, s.bc2, s.eps, stream)
     if rc != 0:
         raise RuntimeError(f"flat_adamw kernel launch failed with CUDA error {rc}")
-    flat_adamw_cuda.launches += 1
-
-
-flat_adamw_cuda.launches = 0
+    profiling.count("flat_adamw.launches")

@@ -18,9 +18,11 @@
 CUDA tensors go through the autograd function with or without grad: its
 forward launches the forward kernel, its backward the backward kernel, or
 they raise; nothing falls back. Only CPU tensors go to the plain versions
-(``ops/msda.py``), which autograd differentiates. ``<op>.launches`` counts
-forward kernel launches and ``<op>.backward_launches`` backward ones, for
-each of the two ops.
+(``ops/msda.py``), which autograd differentiates. While tracing is on
+(``utils/profiling.py``) the autograd functions count their kernel
+launches: ``msda.fwd`` and ``msda.bwd`` (2D), ``msda3d.fwd`` and
+``msda3d.bwd`` (3D), each also under the span open at the forward's call
+(a backward's too, though it runs after that span has closed).
 
 The 3D forward takes a query batch Nq that differs from the value's N
 frames (the frame-sharded forward's call, ``parallel/mesh.py``); its
@@ -42,6 +44,7 @@ from tce_rvos_tpu_torch.ops.msda import (
     ms_deform_attn_3d_plain,
     ms_deform_attn_plain,
 )
+from tce_rvos_tpu_torch.utils import profiling
 
 SOURCES = ("msda_fwd.cu", "msda_bwd.cu", "msda3d_fwd.cu", "msda3d_bwd.cu")
 MAX_LEVELS = 8
@@ -252,9 +255,7 @@ def _backward(is_3d: bool, value, spatial_shapes, loc, attn, grad_out):
 def msda_forward(value, spatial_shapes, loc, attn) -> torch.Tensor:
     """One launch of the 2D forward kernel -> [N, Q, M*32] in the value's
     dtype. Inputs as ``_check`` takes them."""
-    out = _forward(False, value, spatial_shapes, loc, attn)
-    ms_deform_attn.launches += 1
-    return out
+    return _forward(False, value, spatial_shapes, loc, attn)
 
 
 def msda_backward(value, spatial_shapes, loc, attn, grad_out):
@@ -263,25 +264,19 @@ def msda_backward(value, spatial_shapes, loc, attn, grad_out):
     contiguous and must have the value's dtype. ``d_value`` is accumulated
     in an f32 buffer zeroed here, then cast, as the JAX package's backward
     does."""
-    grads = _backward(False, value, spatial_shapes, loc, attn, grad_out)
-    ms_deform_attn.backward_launches += 1
-    return grads
+    return _backward(False, value, spatial_shapes, loc, attn, grad_out)
 
 
 def msda3d_forward(value, spatial_shapes, loc, attn) -> torch.Tensor:
     """One launch of the 3D forward kernel (value [N, S, M, 32], loc
     [Nq, Q, M, L, P, 3]) -> [Nq, Q, M*32] in the value's dtype."""
-    out = _forward(True, value, spatial_shapes, loc, attn)
-    ms_deform_attn_3d.launches += 1
-    return out
+    return _forward(True, value, spatial_shapes, loc, attn)
 
 
 def msda3d_backward(value, spatial_shapes, loc, attn, grad_out):
     """One launch of the 3D backward kernel -> (d_value in the value's
     dtype, d_loc [N, Q, M, L, P, 3] f32, d_attn f32), as ``msda_backward``."""
-    grads = _backward(True, value, spatial_shapes, loc, attn, grad_out)
-    ms_deform_attn_3d.backward_launches += 1
-    return grads
+    return _backward(True, value, spatial_shapes, loc, attn, grad_out)
 
 
 def _needed(ctx, d_value, d_loc, d_attn):
@@ -300,12 +295,17 @@ class MSDeformAttnFunction(torch.autograd.Function):
     def forward(ctx, value, spatial_shapes, loc, attn):
         ctx.spatial_shapes = tuple(spatial_shapes)
         ctx.save_for_backward(value, loc, attn)
-        return msda_forward(value, spatial_shapes, loc, attn)
+        ctx.site = profiling.site()
+        out = msda_forward(value, spatial_shapes, loc, attn)
+        profiling.count("msda.fwd")
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
         value, loc, attn = ctx.saved_tensors
-        return _needed(ctx, *msda_backward(value, ctx.spatial_shapes, loc, attn, grad_out))
+        grads = msda_backward(value, ctx.spatial_shapes, loc, attn, grad_out)
+        profiling.count("msda.bwd", site=ctx.site)
+        return _needed(ctx, *grads)
 
 
 class MSDeformAttn3DFunction(torch.autograd.Function):
@@ -318,12 +318,17 @@ class MSDeformAttn3DFunction(torch.autograd.Function):
     def forward(ctx, value, spatial_shapes, loc, attn):
         ctx.spatial_shapes = tuple(spatial_shapes)
         ctx.save_for_backward(value, loc, attn)
-        return msda3d_forward(value, spatial_shapes, loc, attn)
+        ctx.site = profiling.site()
+        out = msda3d_forward(value, spatial_shapes, loc, attn)
+        profiling.count("msda3d.fwd")
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
         value, loc, attn = ctx.saved_tensors
-        return _needed(ctx, *msda3d_backward(value, ctx.spatial_shapes, loc, attn, grad_out))
+        grads = msda3d_backward(value, ctx.spatial_shapes, loc, attn, grad_out)
+        profiling.count("msda3d.bwd", site=ctx.site)
+        return _needed(ctx, *grads)
 
 
 def ms_deform_attn(
@@ -361,7 +366,3 @@ def ms_deform_attn_3d(
     _check(value, spatial_shapes, sampling_locations, attention_weights, coords=3)
     return MSDeformAttn3DFunction.apply(value, tuple(spatial_shapes), sampling_locations,
                                         attention_weights)
-
-
-ms_deform_attn.launches = ms_deform_attn.backward_launches = 0
-ms_deform_attn_3d.launches = ms_deform_attn_3d.backward_launches = 0

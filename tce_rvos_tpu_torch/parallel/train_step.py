@@ -69,6 +69,7 @@ from tce_rvos_tpu_torch.models.x3d import X3D_CONFIGS
 from tce_rvos_tpu_torch.parallel import collectives
 from tce_rvos_tpu_torch.parallel.collectives import initialized, process_index
 from tce_rvos_tpu_torch.parallel.flat_adamw import STATE_KEY, FlatAdamW, make_layout
+from tce_rvos_tpu_torch.utils import profiling
 from tce_rvos_tpu_torch.utils.precision import resolve_dtype
 
 Schedule = Callable[[int], float]
@@ -331,11 +332,13 @@ def forward_losses(model: nn.Module, batch: Mapping, crit_cfg: CriterionConfig,
     if cast is None:
         outputs = model(batch["video"], **kwargs)
     else:
-        tensors = {k: v.to(cast) if v.is_floating_point() else v
-                   for k, v in (*model.named_parameters(), *model.named_buffers())}
+        with profiling.span("tce.train.cast", 1):
+            tensors = {k: v.to(cast) if v.is_floating_point() else v
+                       for k, v in (*model.named_parameters(), *model.named_buffers())}
         outputs = _upcast(functional_call(model, tensors, (batch["video"].to(cast),), kwargs),
                           cast)
-    losses = criterion(crit_cfg, outputs, batch["targets"])
+    with profiling.span("tce.train.criterion", 1):
+        losses = criterion(crit_cfg, outputs, batch["targets"])
     return sum(losses.values()), losses
 
 
@@ -350,21 +353,28 @@ def make_train_step(crit_cfg: CriterionConfig, compute_dtype: Optional[str] = No
     the flat buffer (the update applies the clip's factor). The caller
     chooses the module's mode: ``train()`` draws dropout, ``eval()`` does
     not. In a process group the gradients and the metrics' losses are the
-    sums over the ranks (the global batch's)."""
+    sums over the ranks (the global batch's). Traced, each phase is a
+    span under ``tce.train.step``: ``to_device``, ``forward`` (with
+    ``cast`` and ``criterion``), ``backward`` and ``update``."""
 
     def step(state: TrainState, batch: Mapping):
-        model = state.model
-        batch = batch_to_device(batch, next(model.parameters()).device)
-        # FlatAdamW zeroes its gradient buffer in place (each .grad its view,
-        # so that backward adds into it); LeafAdamW sets them to None
-        state.optimizer.zero_grad()
-        total, losses = forward_losses(model, batch, crit_cfg, compute_dtype)
-        total.backward()
-        all_reduce_gradients(state)
-        metrics = sum_over_ranks({**losses, "loss": total})
-        metrics["lr"] = state.optimizer.lr()
-        metrics["grad_norm"] = apply_gradients(state)
-        return state, metrics
+        with profiling.span("tce.train.step", 1):
+            model = state.model
+            with profiling.span("tce.train.to_device", 1):
+                batch = batch_to_device(batch, next(model.parameters()).device)
+            # FlatAdamW zeroes its gradient buffer in place (each .grad its view,
+            # so that backward adds into it); LeafAdamW sets them to None
+            state.optimizer.zero_grad()
+            with profiling.span("tce.train.forward", 1):
+                total, losses = forward_losses(model, batch, crit_cfg, compute_dtype)
+            with profiling.span("tce.train.backward", 1):
+                total.backward()
+            with profiling.span("tce.train.update", 1):
+                all_reduce_gradients(state)
+                metrics = sum_over_ranks({**losses, "loss": total})
+                metrics["lr"] = state.optimizer.lr()
+                metrics["grad_norm"] = apply_gradients(state)
+            return state, metrics
 
     return step
 

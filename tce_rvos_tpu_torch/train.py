@@ -143,7 +143,8 @@ def restore_train_state(state, resume_path, ckpt_manager, steps_per_epoch):
 
 def main(argv=None):
     """The training command line; returns the final ``TrainState``, or with
-    ``--eval`` the metric dict."""
+    ``--eval`` the metric dict. ``--trace_dir`` runs it under
+    ``utils/profiling.trace``."""
     import argparse
 
     from tce_rvos_tpu_torch import cli
@@ -151,7 +152,25 @@ def main(argv=None):
     # reference pattern: the opts parser is help-less and used via parents
     # (main.py:303); the child parser provides -h/--help
     parser = argparse.ArgumentParser("tce_rvos_tpu_torch training", parents=[cli.get_args_parser()])
+    parser.add_argument("--trace_dir", default="",
+                        help="run the job under the profiler with the program's spans and "
+                             "counters on, and write trace.json and spans.json there "
+                             "(rank<k>/ below it in a world of several processes; the "
+                             "records stay in memory until the job ends: for short jobs)")
     args = parser.parse_args(argv)
+    if not args.trace_dir:
+        return _main(args)
+    from tce_rvos_tpu_torch.utils import profiling
+
+    trace_dir = args.trace_dir
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        trace_dir = os.path.join(trace_dir, f"rank{os.environ.get('RANK', '0')}")
+    with profiling.trace(trace_dir):
+        return _main(args)
+
+
+def _main(args):
+    from tce_rvos_tpu_torch import cli
 
     model_cfg = cli.model_config_from_args(args)
     train_cfg = cli.train_config_from_args(args)

@@ -26,6 +26,7 @@ from tce_rvos_tpu_torch.ops.msda import ms_deform_attn_3d_plain, ms_deform_attn_
 from tce_rvos_tpu_torch.ops.flat_adamw_cuda import UpdateScalars, flat_adamw_cuda
 from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn, ms_deform_attn_3d
 from tce_rvos_tpu_torch.parallel.flat_adamw import flat_adamw_update_plain
+from tce_rvos_tpu_torch.utils import profiling
 
 SHAPES_SEP_2D = ((40, 64), (4, 8))  # 2560-pixel level: the Pallas sep kernel
 SHAPES_SEP_3D = ((40, 32), (4, 8))  # 1280-pixel level: the Pallas 3D sep kernel
@@ -127,10 +128,10 @@ def test_cuda_backward_matches_plain_gradients():
                 ins[0] = ins[0].to(dtype)
                 for t in ins:
                     t.requires_grad_(True)
-                before = ms_deform_attn.backward_launches
-                fn(ins[0], shapes, ins[1], ins[2]).backward(g.to(dtype))
-                torch.cuda.synchronize()
-                assert ms_deform_attn.backward_launches - before == (which == "kernel")
+                with profiling.tracing():
+                    fn(ins[0], shapes, ins[1], ins[2]).backward(g.to(dtype))
+                    torch.cuda.synchronize()
+                assert profiling.collect()["counters"].get("msda.bwd", 0) == (which == "kernel")
                 grads[which] = [t.grad.float() for t in ins]
             for i, (a, b) in enumerate(zip(grads["kernel"], grads["plain"])):
                 rtol, atol = (1e-2, 1e-3) if (i == 0 and dtype == torch.bfloat16) else (1e-4, 1e-5)
@@ -201,10 +202,10 @@ def test_cuda_3d_kernel_matches_plain():
         value, loc, attn = (torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays)
         for dtype, rtol, atol in ((torch.float32, 1e-5, 1e-5), (torch.bfloat16, 8e-3, 1e-2)):
             v = value.to(dtype)
-            before = ms_deform_attn_3d.launches
-            got = ms_deform_attn_3d(v, shapes, loc, attn)
-            torch.cuda.synchronize()
-            assert ms_deform_attn_3d.launches == before + 1
+            with profiling.tracing():
+                got = ms_deform_attn_3d(v, shapes, loc, attn)
+                torch.cuda.synchronize()
+            assert profiling.collect()["counters"] == {"msda3d.fwd": 1}
             want = ms_deform_attn_3d_plain(v, shapes, loc, attn)
             torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol,
                                        msg=lambda m: f"{name} {dtype}: {m}")
@@ -225,10 +226,12 @@ def test_cuda_3d_kernel_takes_fewer_query_frames():
         whole = ms_deform_attn_3d(v, FLAGSHIP, loc, attn)
         for first, count in ((3, 3), (7, 1)):
             rows = slice(first, first + count)
-            before = ms_deform_attn_3d.launches
-            got = ms_deform_attn_3d(v, FLAGSHIP, loc[rows].contiguous(), attn[rows].contiguous())
-            torch.cuda.synchronize()
-            assert ms_deform_attn_3d.launches == before + 1 and got.shape[0] == count
+            with profiling.tracing():
+                got = ms_deform_attn_3d(v, FLAGSHIP, loc[rows].contiguous(),
+                                        attn[rows].contiguous())
+                torch.cuda.synchronize()
+            assert profiling.collect()["counters"] == {"msda3d.fwd": 1}
+            assert got.shape[0] == count
             want = ms_deform_attn_3d_plain(v, FLAGSHIP, loc[rows], attn[rows])
             torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol,
                                        msg=lambda m: f"Nq={count} {dtype}: {m}")
@@ -258,10 +261,10 @@ def test_cuda_3d_backward_matches_plain_gradients():
                 ins[0] = ins[0].to(dtype)
                 for t in ins:
                     t.requires_grad_(True)
-                before = ms_deform_attn_3d.backward_launches
-                fn(ins[0], shapes, ins[1], ins[2]).backward(g.to(dtype))
-                torch.cuda.synchronize()
-                assert ms_deform_attn_3d.backward_launches - before == (which == "kernel")
+                with profiling.tracing():
+                    fn(ins[0], shapes, ins[1], ins[2]).backward(g.to(dtype))
+                    torch.cuda.synchronize()
+                assert profiling.collect()["counters"].get("msda3d.bwd", 0) == (which == "kernel")
                 grads[which] = [t.grad.float() for t in ins]
             for i, (a, b) in enumerate(zip(grads["kernel"], grads["plain"])):
                 rtol, atol = (1e-2, 1e-3) if (i == 0 and dtype == torch.bfloat16) else (1e-4, 1e-5)
@@ -328,9 +331,9 @@ def test_cuda_flat_adamw_matches_plain(wd):
             for count in (1, 1000):
                 arrays = adamw_inputs(n + offset, seed=count)
                 s = adamw_scalars(n, count, wd=wd)
-                before = flat_adamw_cuda.launches
-                got = adamw_run(flat_adamw_cuda, arrays, offset, n, gnorm, s)
-                assert flat_adamw_cuda.launches == before + 1
+                with profiling.tracing():
+                    got = adamw_run(flat_adamw_cuda, arrays, offset, n, gnorm, s)
+                assert profiling.collect()["counters"] == {"flat_adamw.launches": 1}
                 want = adamw_run(flat_adamw_update_plain, arrays, offset, n, gnorm, s)
                 for name, a, b in zip(("p", "mu", "nu"), got, want):
                     assert torch.equal(a, b), (

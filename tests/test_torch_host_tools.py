@@ -2,8 +2,8 @@
 ``data/coco.py::CocoDetection`` (samples and ``coco_gt_by_image``), the
 dataset converters ``tools/convert_davis_to_ytvos.py`` and
 ``tools/convert_refexp_to_coco.py`` (their output trees, also through
-their command lines), and the profiling helpers of ``utils/profiling.py``
-on the CPU."""
+their command lines), and the exporter of ``utils/profiling.py`` on the
+CPU (``tests/test_torch_tracing.py`` holds its spans and counters)."""
 
 import json
 import os
@@ -196,23 +196,14 @@ def test_converters_command_lines(tmp_path):
 
 def test_trace_writes_a_chrome_trace_with_the_annotated_span(tmp_path):
     with profiling.trace(str(tmp_path / "trace")) as prof:
-        with profiling.annotate("tce_step"):
+        assert profiling.enabled()
+        with profiling.span("tce_step", 1):
             torch.ones(64, 64) @ torch.ones(64, 64)
-    assert prof is not None
+    assert prof is not None and not profiling.enabled()
     with open(tmp_path / "trace" / profiling.TRACE_FILE) as fh:
         events = json.load(fh)["traceEvents"]
     assert any(e.get("name") == "tce_step" for e in events)
     assert any(e.get("name") == "aten::mm" for e in events)
-
-
-def test_device_memory_stats_and_step_timer(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert profiling.device_memory_stats() == {}
-    timer = profiling.StepTimer()
-    timer.data_loaded()
-    assert timer.data_time == 0.0  # no step before
-    timer.step_done()
-    timer.data_loaded()
-    timer.step_done()
-    assert timer.data_time >= 0.0 and timer.step_time >= 0.0
-    assert timer.t_start is not None
+    with open(tmp_path / "trace" / profiling.SPANS_FILE) as fh:
+        spans = json.load(fh)["spans"]
+    assert [(s["name"], s["units"]) for s in spans] == [("tce_step", 1)]

@@ -39,6 +39,7 @@ from tce_rvos_tpu_torch.config import ModelConfig
 from tce_rvos_tpu_torch.infer import InferenceEngine, main, make_engines, run_ytvos
 from tce_rvos_tpu_torch.models import text_encoder
 from tce_rvos_tpu_torch.models.build import build_model
+from tce_rvos_tpu_torch.utils import profiling
 from tce_rvos_tpu_torch.utils.checkpoint import convert_state_dict, load_torch_file
 
 REPO = Path(__file__).resolve().parent.parent
@@ -213,6 +214,32 @@ def test_main_writes_the_three_protocol_trees(trees, tmp_path):
     assert set(got) == {("birds", str(e), f"{i:05d}") for e in range(4) for i in range(5)}
     for mode, m in got.values():
         assert mode == "L" and m.shape == CLI_HW and set(np.unique(m)) <= {0, 255}
+
+
+def test_trace_dir_writes_the_trace_and_the_spans(trees, tmp_path):
+    """``--trace_dir``: the PNGs of the run without it, ``trace.json`` with
+    the engine's and the model's spans, ``spans.json`` with the one
+    request's real expression-frames (5 frames x 4 expressions) and its
+    trunk dispatches; tracing is off again after."""
+    argv = ["--dataset_file", "mevis", "--mevis_path", str(trees["mevis"]), *SMALL]
+    main(argv + ["--output_dir", str(tmp_path / "plain")])
+    trace_dir = tmp_path / "trace"
+    main(argv + ["--output_dir", str(tmp_path / "traced"), "--trace_dir", str(trace_dir)])
+    assert not profiling.enabled()
+    got, want = ytvos_pngs(tmp_path / "traced"), ytvos_pngs(tmp_path / "plain")
+    assert sorted(got) == sorted(want) and len(want) == 20
+    for k in want:
+        assert np.array_equal(got[k][1], want[k][1]), k
+    with open(trace_dir / profiling.SPANS_FILE) as fh:
+        records = json.load(fh)
+    spans = records["spans"]
+    names = [s["name"] for s in spans]
+    (request,) = [s for s in spans if s["name"] == "tce.engine.request"]
+    assert request["units"] == records["counters"]["engine.trunk_expframes_real"] == 20
+    assert names.count("tce.engine.trunk") == records["counters"]["engine.trunk_dispatches"] == 2
+    with open(trace_dir / profiling.TRACE_FILE) as fh:
+        events = {e.get("name") for e in json.load(fh)["traceEvents"]}
+    assert {"tce.engine.preprocess.h2d", "tce.model.pixel_decoder", "aten::conv2d"} <= events
 
 
 def _checkpoint(tmp_path, sd, name="ckpt.pth", epoch=3):

@@ -19,6 +19,7 @@ from tce_rvos_tpu import cli as jax_cli
 from tce_rvos_tpu_torch import cli
 from tce_rvos_tpu_torch.parallel.flat_adamw import FlatAdamW
 from tce_rvos_tpu_torch.train import main
+from tce_rvos_tpu_torch.utils import profiling
 from tce_rvos_tpu_torch.utils.native_ckpt import load_checkpoint
 from torch_parity_helpers import torch_threads  # noqa: F401 (autouse fixture)
 from torch_parity_helpers import write_ytvos_tree
@@ -120,6 +121,25 @@ def check_one_epoch_then_resume(ytvos_root, tmp_path, flat_opt: bool):
     with open(out / "checkpoint0001" / "meta.json") as fh:
         assert json.load(fh) == {"epoch": 1, "step": 2 * steps_per_epoch}
     _assert_state_is(state, out / "checkpoint0001")
+
+
+def test_main_trace_dir_writes_the_trace_and_the_spans(ytvos_root, tmp_path, tiny_text):
+    """``--trace_dir``: one epoch under the profiler with the program's
+    spans on; ``trace.json`` holds the train step's phases and the model's
+    stages, ``spans.json`` one ``tce.train.step`` and one
+    ``tce.train.read_metrics`` a step; tracing is off again after."""
+    trace_dir = tmp_path / "trace"
+    state = main(_argv(ytvos_root, tmp_path / "out") + ["--epochs", "1",
+                                                        "--trace_dir", str(trace_dir)])
+    assert not profiling.enabled()
+    with open(trace_dir / profiling.SPANS_FILE) as fh:
+        names = [s["name"] for s in json.load(fh)["spans"]]
+    assert names.count("tce.train.step") == names.count("tce.train.read_metrics") == state.step
+    assert state.step == 4
+    with open(trace_dir / profiling.TRACE_FILE) as fh:
+        events = {e.get("name") for e in json.load(fh)["traceEvents"]}
+    assert {"tce.train.forward", "tce.train.backward", "tce.train.update",
+            "tce.model.encoder"} <= events
 
 
 def test_main_with_the_retained_manager(ytvos_root, tmp_path, tiny_text):
