@@ -38,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import threading
 import time
 import zlib
 from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
@@ -104,6 +105,72 @@ def _pad_to(x: int, mult: int) -> int:
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy()
+
+
+# the most bytes the staging buffer holds: a longer window goes up in chunks
+STAGE_CAP_BYTES = 1 << 30
+
+
+class FrameStage:
+    """A window's frames to the device through one reused host buffer: f32,
+    pinned for a CUDA device, grow-only (a power of two of elements, at
+    most ``STAGE_CAP_BYTES`` unless one frame is larger). Each frame is
+    copied once into its row (torch's copy, multi-threaded, converting to
+    f32 as ``np.asarray(f, np.float32)`` does), then the rows go up in one
+    copy, asynchronous from pinned memory; a CUDA event recorded after it
+    guards the buffer against the next call's writes. A window over the
+    cap goes in chunks of the cap, each under its own ``.stack`` and
+    ``.h2d`` spans. Counters: ``engine.pinned_frames`` (frames staged),
+    ``engine.pinned_waits`` (the last upload still in flight when the
+    buffer was needed again), ``engine.pinned_allocs`` (allocations and
+    growths of the buffer). One per engine; calls from several threads
+    take turns."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pin = device.type == "cuda"
+        self.buf: Optional[torch.Tensor] = None
+        self.event: Optional[torch.cuda.Event] = None
+        self.lock = threading.Lock()
+
+    def _rows(self, n: int, shape: Tuple[int, ...]) -> torch.Tensor:
+        size = n * int(np.prod(shape))
+        if self.buf is None or self.buf.numel() < size:
+            cap = max(size, STAGE_CAP_BYTES // 4)
+            self.buf = torch.empty(min(_pow2_ceil(size), cap), dtype=torch.float32,
+                                   pin_memory=self.pin)
+            profiling.count("engine.pinned_allocs")
+        return self.buf[:size].view(n, *shape)
+
+    def upload(self, frames: Sequence[np.ndarray]) -> torch.Tensor:
+        """[t, h, w, c] f32 on the device, the frames' values bitwise."""
+        src = [np.asarray(f) for f in frames]
+        shape = src[0].shape
+        if any(a.shape != shape for a in src):
+            raise ValueError(f"frames of one window differ in shape: {[a.shape for a in src]}")
+        frame_bytes = 4 * int(np.prod(shape))
+        chunk = max(1, STAGE_CAP_BYTES // frame_bytes)
+        out = torch.empty((len(src),) + shape, dtype=torch.float32, device=self.device)
+        with self.lock:
+            for s in range(0, len(src), chunk):
+                part = src[s:s + chunk]
+                with profiling.span("tce.engine.preprocess.stack", len(part)):
+                    if self.event is not None and not self.event.query():
+                        profiling.count("engine.pinned_waits")
+                        self.event.synchronize()
+                    rows = self._rows(len(part), shape)
+                    for row, a in zip(rows, part):
+                        if min(a.strides, default=0) < 0:  # torch takes no negative stride
+                            a = np.ascontiguousarray(a)
+                        row.copy_(torch.from_numpy(a))
+                    profiling.count("engine.pinned_frames", len(part))
+                with profiling.span("tce.engine.preprocess.h2d", len(part)):
+                    out[s:s + len(part)].copy_(rows, non_blocking=self.pin)
+                    if self.pin:
+                        if self.event is None:
+                            self.event = torch.cuda.Event()
+                        self.event.record(torch.cuda.current_stream(self.device))
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +266,8 @@ class InferenceEngine:
         self.t_bucket = t_bucket
         self._mean = torch.tensor(IMAGENET_MEAN, device=self.device)[:, None, None]
         self._std = torch.tensor(IMAGENET_STD, device=self.device)[:, None, None]
+        # a CUDA engine stages its frames through a pinned buffer of its own
+        self._stage = FrameStage(self.device) if self.device.type == "cuda" else None
 
     # ------------------------------------------------------------------
     def _tensor(self, x: np.ndarray) -> torch.Tensor:
@@ -221,15 +290,19 @@ class InferenceEngine:
         """Resize (short side ``size``, long side <= ``max_size``; bilinear,
         align_corners=False), normalise, pad to the ``pad_mult`` bucket.
         Returns (video [1, t, Hp, Wp, 3] f32, mask [1, t, Hp, Wp] True on
-        padding, (oh, ow)) on the engine's device."""
+        padding, (oh, ow)) on the engine's device. A CUDA engine uploads
+        the frames through its ``FrameStage``, the CPU stacks them."""
         t = len(frames)
         with profiling.span("tce.engine.preprocess", t):
             h, w = frames[0].shape[:2]
             oh, ow = self.model_size((h, w))
-            with profiling.span("tce.engine.preprocess.stack", t):
-                x = np.stack([np.asarray(f, np.float32) for f in frames])
-            with profiling.span("tce.engine.preprocess.h2d", t):
-                x = self._tensor(x)
+            if self._stage is not None:
+                x = self._stage.upload(frames)
+            else:
+                with profiling.span("tce.engine.preprocess.stack", t):
+                    x = np.stack([np.asarray(f, np.float32) for f in frames])
+                with profiling.span("tce.engine.preprocess.h2d", t):
+                    x = self._tensor(x)
             with profiling.span("tce.engine.preprocess.resize", t):
                 x = x.permute(0, 3, 1, 2)  # [t, 3, h, w]
                 if (oh, ow) != (h, w):

@@ -5,7 +5,9 @@ path, two levels with the runtime loops and the flagship's L = P = 4), the
 forward's query frames fewer than the value's, as the frame-sharded
 forward calls it) and the
 fused flat AdamW update (``csrc/flat_adamw.cu``: its float4 and its
-one-float path, four tiers, the clip on and off, early and late steps).
+one-float path, four tiers, the clip on and off, early and late steps),
+and the engine's input stage on the card (the pinned ``FrameStage``
+against the stack and pageable copy, bitwise).
 
 The file imports torch, numpy, pytest and the port only, so that it runs
 on a machine with a GPU and no JAX:
@@ -22,6 +24,9 @@ import numpy as np
 import pytest
 import torch
 
+from tce_rvos_tpu_torch.config import ModelConfig
+from tce_rvos_tpu_torch.infer import InferenceEngine
+from tce_rvos_tpu_torch.models.build import build_model
 from tce_rvos_tpu_torch.ops.msda import ms_deform_attn_3d_plain, ms_deform_attn_plain
 from tce_rvos_tpu_torch.ops.flat_adamw_cuda import UpdateScalars, flat_adamw_cuda
 from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn, ms_deform_attn_3d
@@ -356,3 +361,44 @@ def test_cuda_flat_adamw_gate_refuses_adam_without_decay_or_eps():
                         ("no eps", s._replace(eps=0.0))):
         got = adamw_run(flat_adamw_cuda, arrays, 0, n, 7.0, wrong)
         assert not torch.equal(got[0], want[0]), name
+
+
+@pytest.mark.cuda
+def test_cuda_preprocess_pinned_stage_is_bitwise_the_pageable_path():
+    """``preprocess`` on a CUDA engine (frames staged in its pinned buffer,
+    one asynchronous upload) against the same engine's stack and pageable
+    copy, on 720x1280 windows of f32 and uint8 frames: ``video`` and
+    ``mask`` bitwise. Two windows go in a row with no synchronise and the
+    first upload queued behind a sleeping kernel: the second window's
+    staging waits for it (``engine.pinned_waits``), and both come out
+    right. Equal shapes allocate the buffer once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU engine takes the stack path")
+    cfg = ModelConfig(enc_layers=1, dec_layers=1, dim_feedforward=64, text_encoder_layers=1,
+                      text_encoder_hidden=64, text_encoder_heads=4,
+                      text_encoder_intermediate=128)
+    engine = InferenceEngine(cfg, build_model(cfg, device="cpu").state_dict(), device="cuda")
+    rng = np.random.RandomState(0)
+    windows = [[rng.rand(720, 1280, 3).astype(np.float32) for _ in range(5)] for _ in range(3)]
+    windows.append([rng.randint(0, 256, (720, 1280, 3)).astype(np.uint8) for _ in range(5)])
+
+    def pageable(frames):
+        stage, engine._stage = engine._stage, None
+        try:
+            return engine.preprocess(frames)
+        finally:
+            engine._stage = stage
+
+    with profiling.tracing():
+        torch.cuda._sleep(200_000_000)  # about 0.1 s: the first upload waits behind it
+        got = [engine.preprocess(w) for w in windows]
+        waits = profiling.counters().get("engine.pinned_waits", 0)
+        torch.cuda.synchronize()
+    counters = profiling.collect()["counters"]
+    assert engine._stage.buf.is_pinned()
+    assert counters["engine.pinned_frames"] == 20 and counters["engine.pinned_allocs"] == 1
+    assert waits >= 1
+    for w, (video, mask, size) in zip(windows, got):
+        want = pageable(w)
+        assert size == want[2] == (360, 640)
+        assert torch.equal(video, want[0]) and torch.equal(mask, want[1])

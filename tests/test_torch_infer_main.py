@@ -422,3 +422,113 @@ def test_trunk_frame_envelope_formula_and_chunks(monkeypatch):
     widths.clear()
     engine.run_video_batch(frames, caps, f_extra=1, exp_batch=1)
     assert widths == [1] * 5
+
+
+# ---- the engine's input stage: FrameStage, with pinning off (CPU) ------------------
+
+def _stage_frames(dtype, t, hw=(6, 10), seed=0):
+    rng = np.random.RandomState(seed)
+    if dtype == np.uint8:
+        return [rng.randint(0, 256, hw + (3,)).astype(np.uint8) for _ in range(t)]
+    # f64 values that round to f32 (not exact), as decoders and /255 give
+    return [(rng.rand(*hw, 3) * 1.7 - 0.3).astype(dtype) for _ in range(t)]
+
+
+def _stacked(frames):
+    """The engine's earlier input stage, held as the oracle."""
+    return np.stack([np.asarray(f, np.float32) for f in frames])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.uint8])
+def test_frame_stage_is_bitwise_the_stack(dtype):
+    stage = infer.FrameStage(torch.device("cpu"))
+    assert not stage.pin
+    frames = _stage_frames(dtype, 5)
+    frames[2] = np.ascontiguousarray(frames[2][:, ::-1])[:, ::-1]  # negative strides
+    got = stage.upload(frames)
+    assert got.dtype == torch.float32 and got.shape == (5, 6, 10, 3)
+    assert np.array_equal(got.numpy().view(np.uint32), _stacked(frames).view(np.uint32))
+    with pytest.raises(ValueError, match="differ in shape"):
+        stage.upload(frames[:2] + [frames[2][:, :-1]])
+
+
+def test_frame_stage_reuses_its_buffer_and_grows_once():
+    stage = infer.FrameStage(torch.device("cpu"))
+    with profiling.tracing():
+        stage.upload(_stage_frames(np.float32, 5))
+    assert profiling.collect()["counters"] == {"engine.pinned_allocs": 1,
+                                               "engine.pinned_frames": 5}
+    ptr, size = stage.buf.data_ptr(), stage.buf.numel()
+    assert size == infer._pow2_ceil(5 * 6 * 10 * 3)
+    for t, seed in ((5, 1), (3, 2), (5, 3)):  # the same size or smaller
+        frames = _stage_frames(np.float64, t, seed=seed)
+        with profiling.tracing():
+            got = stage.upload(frames)
+        assert profiling.collect()["counters"] == {"engine.pinned_frames": t}
+        assert stage.buf.data_ptr() == ptr and np.array_equal(got.numpy(), _stacked(frames))
+    frames = _stage_frames(np.uint8, 9, seed=4)
+    with profiling.tracing():
+        got = stage.upload(frames)
+    assert profiling.collect()["counters"] == {"engine.pinned_allocs": 1,
+                                               "engine.pinned_frames": 9}
+    assert stage.buf.numel() == infer._pow2_ceil(9 * 6 * 10 * 3)
+    assert np.array_equal(got.numpy(), _stacked(frames))
+
+
+def test_frame_stage_goes_in_chunks_over_its_cap(monkeypatch):
+    frame_bytes = 4 * 6 * 10 * 3
+    monkeypatch.setattr(infer, "STAGE_CAP_BYTES", 3 * frame_bytes + 16)
+    stage = infer.FrameStage(torch.device("cpu"))
+    frames = _stage_frames(np.float64, 7, seed=5)
+    with profiling.tracing():
+        got = stage.upload(frames)
+    rec = profiling.collect()
+    assert np.array_equal(got.numpy().view(np.uint32), _stacked(frames).view(np.uint32))
+    units = {name: [s["units"] for s in rec["spans"] if s["name"] == name]
+             for name in ("tce.engine.preprocess.stack", "tce.engine.preprocess.h2d")}
+    assert units == {"tce.engine.preprocess.stack": [3, 3, 1],
+                     "tce.engine.preprocess.h2d": [3, 3, 1]}
+    assert rec["counters"] == {"engine.pinned_allocs": 1, "engine.pinned_frames": 7}
+    assert stage.buf.numel() * 4 <= infer.STAGE_CAP_BYTES
+    # a frame larger than the cap goes alone, in a buffer of its size
+    monkeypatch.setattr(infer, "STAGE_CAP_BYTES", frame_bytes // 2)
+    got = stage.upload(frames[:2])
+    assert stage.buf.numel() * 4 >= frame_bytes
+    assert np.array_equal(got.numpy(), _stacked(frames[:2]))
+
+
+def test_frame_stage_calls_from_threads_take_turns():
+    """Threads sharing one stage each get their own frames back: without
+    the stage's lock one thread's rows would be overwritten by another's
+    before its copy."""
+    import threading
+
+    stage = infer.FrameStage(torch.device("cpu"))
+    wrong, done = [], []
+
+    def worker(k):
+        for i in range(40):
+            frames = [np.full((6, 10, 3), k * 1000 + i * 10 + j, np.float32) for j in range(4)]
+            if not np.array_equal(stage.upload(frames).numpy(), _stacked(frames)):
+                wrong.append((k, i))
+        done.append(k)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = 2 * (os.cpu_count() or 1)  # more than the cores
+        threads = [threading.Thread(target=worker, args=(k,)) for k in range(workers)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads) and len(done) == len(threads)
+    assert wrong == []
+
+
+def test_cpu_engine_keeps_the_stack_path():
+    engine = InferenceEngine(TINY, build_model(TINY, device="cpu").state_dict(), device="cpu",
+                             **ENGINE_KW)
+    assert engine._stage is None
