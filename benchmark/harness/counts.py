@@ -8,13 +8,16 @@ convolutions (what ``torch.utils.flop_counter`` counts), at the real
 frames, the real expressions and each caption's own tokens: padded frames,
 padded expressions, padded tokens and Swin's window padding are not useful
 work and are not counted. MSDA's sampling, norms, softmax and other
-elementwise work are not counted either.
+elementwise work are not counted either. The backbone's count is its
+family's (``reference/backbones.py``), by these rules; the rest is here.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Dict, List, Sequence, Tuple
+
+from reference import family
+from reference.layers import conv_out
 
 # NVIDIA's H100 SXM data sheet, dense rates, at the full 700 W
 PEAK_BF16_FLOPS = 989e12
@@ -22,77 +25,15 @@ PEAK_F32_FLOPS = 67e12   # outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
 
-def conv_out(size: int, k: int, s: int, p: int, d: int = 1) -> int:
-    return (size + 2 * p - d * (k - 1) - 1) // s + 1
-
-
-def _resnet(cfg: dict, t: int, hw: Tuple[int, int]) -> Tuple[float, float, List[Tuple[int, int]]]:
-    """(FLOPs of t frames, FLOPs of the first convolution, res2..res5 sizes)."""
-    layers = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}[cfg["backbone"]]
-    h, w = conv_out(hw[0], 7, 2, 3), conv_out(hw[1], 7, 2, 3)
-    first = 2.0 * h * w * 64 * 3 * 49
-    flops = first
-    h, w = conv_out(h, 3, 2, 1), conv_out(w, 3, 2, 1)
-    inplanes, sizes = 64, []
-    for stage, (planes, blocks) in enumerate(zip((64, 128, 256, 512), layers)):
-        stride, dil = (1 if stage == 0 else 2), 1
-        if stage == 3 and cfg.get("dilation"):
-            stride, dil = 1, 2
-        for b in range(blocks):
-            s = stride if b == 0 else 1
-            oh, ow = conv_out(h, 3, s, dil, dil), conv_out(w, 3, s, dil, dil)
-            flops += 2.0 * h * w * inplanes * planes                  # 1x1
-            flops += 2.0 * oh * ow * planes * planes * 9               # 3x3
-            flops += 2.0 * oh * ow * planes * planes * 4               # 1x1 to 4x
-            if b == 0:
-                flops += 2.0 * oh * ow * inplanes * planes * 4         # downsample
-            h, w, inplanes = oh, ow, planes * 4
-        sizes.append((h, w))
-    return t * flops, t * first, sizes
-
-
-VIDEO_SWIN = {  # embed_dim, depths, heads; windows (8, 7, 7)
-    "video_swin_t_p4w7": (96, (2, 2, 6, 2)),
-    "video_swin_s_p4w7": (96, (2, 2, 18, 2)),
-    "video_swin_b_p4w7": (128, (2, 2, 18, 2)),
-}
-
-
-def _video_swin(cfg: dict, t: int, hw: Tuple[int, int]) -> Tuple[float, float, List[Tuple[int, int]]]:
-    """Video-Swin on one clip of t frames: the (1, 4, 4) patch embedding;
-    per block the qkv, proj and MLP products of every (unpadded) token and
-    q k^T and attention times v over its window's n tokens (Video-Swin's
-    shrink rule: an axis no longer than the window is the window); the
-    patch mergings, 4C to 2C."""
-    c, depths = VIDEO_SWIN[cfg["backbone"]]
-    h, w = -(-hw[0] // 4), -(-hw[1] // 4)
-    first = 2.0 * t * h * w * c * 3 * 16
-    flops, sizes = first, []
-    for i, depth in enumerate(depths):
-        n_tok = t * h * w
-        window = math.prod(min(size, win) for size, win in zip((t, h, w), (8, 7, 7)))
-        flops += depth * (2.0 * n_tok * c * (3 * c + c + 8 * c) + 4.0 * n_tok * window * c)
-        sizes.append((h, w))
-        if i < len(depths) - 1:
-            h, w = -(-h // 2), -(-w // 2)
-            flops += 2.0 * t * h * w * 4 * c * 2 * c
-            c *= 2
-    return flops, first, sizes
-
-
 def backbone_flops(cfg: dict, t: int, hw: Tuple[int, int]):
     """(FLOPs of the backbone on a t-frame clip at padded size ``hw``, those
-    of its first convolution, the four output sizes)."""
-    if cfg["backbone"] in VIDEO_SWIN:
-        return _video_swin(cfg, t, hw)
-    return _resnet(cfg, t, hw)
+    of its first convolution, the four output sizes), by the backbone's
+    family (``reference/backbone_<family>.py``); an unknown name raises."""
+    return family(cfg["backbone"]).flops(cfg["backbone"], cfg, t, hw)
 
 
 def backbone_channels(cfg: dict) -> List[int]:
-    if cfg["backbone"] in VIDEO_SWIN:
-        c = VIDEO_SWIN[cfg["backbone"]][0]
-        return [c, 2 * c, 4 * c, 8 * c]
-    return [256, 512, 1024, 2048]
+    return family(cfg["backbone"]).channels(cfg["backbone"])
 
 
 def mha(sq: int, sk: int, c: int) -> float:

@@ -2,7 +2,9 @@
 port's model code in plain PyTorch (MSDA as a plain gather, no kernel, no
 sharding), its criterion and matcher, and AdamW with the trainer's tiers
 and clip. It imports nothing of the program. ``model_config`` builds its
-``ModelConfig`` from a configuration file's keys; ``build`` the model."""
+``ModelConfig`` from a configuration file's keys; ``build`` the model;
+``families`` maps each backbone name to its family, the module
+``backbone_<family>.py`` that builds and counts it (``backbones.py``)."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Mapping
 
 import torch
 
+from .backbones import families, family
 from .config import ModelConfig, TrainConfig
 from .referformer import ReferFormer, init_weights
 
@@ -34,4 +37,5 @@ def build(cfg: Mapping, device) -> ReferFormer:
     return model.eval()
 
 
-__all__ = ["ReferFormer", "init_weights", "model_config", "train_config", "build"]
+__all__ = ["ReferFormer", "init_weights", "model_config", "train_config", "build", "families",
+           "family"]

@@ -1,5 +1,5 @@
-"""ResNet-50/101 with frozen BatchNorm, NCHW (counterpart of
-``tce_rvos_tpu/models/backbone_resnet.py``).
+"""The ResNet family: ResNet-50/101 with frozen BatchNorm, NCHW
+(counterpart of ``tce_rvos_tpu/models/backbone_resnet.py``), on frames.
 
 Module names are torchvision's, under the reference's ``backbone.0.body``
 prefix, so reference checkpoints and ``utils/convert.py`` load directly.
@@ -13,25 +13,60 @@ JAX package (ROADMAP.md, section C).
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-RESNET_SPECS = {
+from .layers import conv_out
+
+CONFIGS = {
     "resnet50": dict(layers=(3, 4, 6, 3)),
     "resnet101": dict(layers=(3, 4, 23, 3)),
 }
-RESNET_CHANNELS = (256, 512, 1024, 2048)
+TEMPORAL = False
+DILATION = True
+CHANNELS = (256, 512, 1024, 2048)
 
 
-def resnet_strides_channels(name: str, dilation: bool):
-    """(strides, channels) of res2..res5; DC5 halves the last stride."""
+def build(name: str, cfg):
+    """(the ResNet, the strides and channels of res2..res5); DC5 halves the
+    last stride."""
     strides = [4, 8, 16, 32]
-    if dilation:
+    if cfg.dilation:
         strides[-1] //= 2
-    return strides, list(RESNET_CHANNELS)
+    return ResNet(CONFIGS[name]["layers"], cfg.dilation), strides, list(CHANNELS)
+
+
+def channels(name: str) -> List[int]:
+    return list(CHANNELS)
+
+
+def flops(name: str, cfg: dict, t: int, hw: Tuple[int, int]
+          ) -> Tuple[float, float, List[Tuple[int, int]]]:
+    """(FLOPs of t frames, FLOPs of the first convolution, res2..res5 sizes)."""
+    layers = CONFIGS[name]["layers"]
+    h, w = conv_out(hw[0], 7, 2, 3), conv_out(hw[1], 7, 2, 3)
+    first = 2.0 * h * w * 64 * 3 * 49
+    total = first
+    h, w = conv_out(h, 3, 2, 1), conv_out(w, 3, 2, 1)
+    inplanes, sizes = 64, []
+    for stage, (planes, blocks) in enumerate(zip((64, 128, 256, 512), layers)):
+        stride, dil = (1 if stage == 0 else 2), 1
+        if stage == 3 and cfg.get("dilation"):
+            stride, dil = 1, 2
+        for b in range(blocks):
+            s = stride if b == 0 else 1
+            oh, ow = conv_out(h, 3, s, dil, dil), conv_out(w, 3, s, dil, dil)
+            total += 2.0 * h * w * inplanes * planes                  # 1x1
+            total += 2.0 * oh * ow * planes * planes * 9               # 3x3
+            total += 2.0 * oh * ow * planes * planes * 4               # 1x1 to 4x
+            if b == 0:
+                total += 2.0 * oh * ow * inplanes * planes * 4         # downsample
+            h, w, inplanes = oh, ow, planes * 4
+        sizes.append((h, w))
+    return t * total, t * first, sizes
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -81,7 +116,7 @@ class ResNet(nn.Module):
     """``layers``: blocks per stage, (3, 4, 6, 3) for ResNet-50 and
     (3, 4, 23, 3) for ResNet-101; ``dilation``: DC5."""
 
-    def __init__(self, layers=RESNET_SPECS["resnet50"]["layers"], dilation: bool = False):
+    def __init__(self, layers=CONFIGS["resnet50"]["layers"], dilation: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm2d(64)
@@ -105,17 +140,3 @@ class ResNet(nn.Module):
             x = stage(x)
             outs.append(x)
         return outs
-
-
-class Backbone(nn.Module):
-    """The reference's ``backbone.0``: the backbone network under ``body``
-    (a ResNet here, or any family of ``models/referformer.py``)."""
-
-    def __init__(self, body: nn.Module):
-        super().__init__()
-        self.body = body
-
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """frames [N, 3, H, W] (a temporal body: clips [b, 3, t, H, W]) ->
-        four maps, each [N, C, h, w] (N = b t)."""
-        return self.body(x)

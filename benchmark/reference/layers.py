@@ -27,6 +27,11 @@ ATTN_LOGITS_CHUNK = 2**28
 FFN_HIDDEN_CHUNK = 2**30
 
 
+def conv_out(size: int, k: int, s: int, p: int, d: int = 1) -> int:
+    """The output length of a convolution (or pooling) along one axis."""
+    return (size + 2 * p - d * (k - 1) - 1) // s + 1
+
+
 def run_layer(layer: nn.Module, recompute: bool, *args):
     """``layer(*args)``, recomputed in the backward pass when ``recompute``
     and gradients are being recorded (``torch.utils.checkpoint``,

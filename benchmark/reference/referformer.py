@@ -1,6 +1,7 @@
 """Frozen reference copy of the port's ReferFormer / TCE-RVOS model, in
-plain PyTorch: backbone (ResNet-50/101 on the b*t frames, or Video-Swin on
-the b clips) -> per-level input_proj + early V-L fusion -> deformable
+plain PyTorch: backbone (a family of ``backbones.py``, found by the
+configuration's name: ResNet-50/101 on the b*t frames, Video-Swin on the b
+clips) -> per-level input_proj + early V-L fusion -> deformable
 transformer (FTF encoder, IQT decoder) -> class and box heads -> cross-modal
 FPN -> dynamic mask head.
 
@@ -15,14 +16,13 @@ from the port: a plain gather (``msda.py``), with no kernel.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
 
+from .backbones import family
 from .config import ModelConfig
-from . import backbone_resnet, swin, video_swin
-from .backbone_resnet import Backbone
 from .dynamic_head import (
     dynamic_head_param_counts,
     dynamic_mask_with_coords,
@@ -48,17 +48,12 @@ from .boxes import inverse_sigmoid
 from .interpolate import resize_mask_nearest
 
 
-BACKBONES = (*backbone_resnet.RESNET_SPECS, *video_swin.VIDEO_SWIN_CONFIGS)
-
-
 def check_backbone(cfg: ModelConfig) -> None:
-    """Raises ``ValueError`` naming the flag for a backbone name that is not
-    in ``BACKBONES``, and for DC5 (``--dilation``) on a backbone that is
-    not a ResNet."""
-    if cfg.backbone not in BACKBONES:
-        raise ValueError(f"--backbone: unknown backbone {cfg.backbone!r}; the known ones are "
-                         + ", ".join(BACKBONES))
-    if cfg.dilation and cfg.backbone not in backbone_resnet.RESNET_SPECS:
+    """Raises ``ValueError`` naming the flag for a backbone name that no
+    family builds, and for DC5 (``--dilation``) on a backbone whose family
+    does not take it (only ResNet's does)."""
+    fam = family(cfg.backbone)
+    if cfg.dilation and not getattr(fam, "DILATION", False):
         raise ValueError(f"--dilation: DC5 is a ResNet option, not one of {cfg.backbone!r}")
 
 
@@ -66,14 +61,22 @@ def build_backbone_module(cfg: ModelConfig):
     """(the backbone network, its strides, its channels, whether it is
     temporal: takes clips [b, 3, t, H, W] rather than frames)."""
     check_backbone(cfg)
-    name = cfg.backbone
-    if name in video_swin.VIDEO_SWIN_CONFIGS:
-        spec = video_swin.video_swin_spec(name)
-        body = video_swin.VideoSwinBackbone(spec, use_checkpoint=cfg.use_checkpoint)
-        return body, spec["strides"], spec["channels"], True
-    strides, channels = backbone_resnet.resnet_strides_channels(name, cfg.dilation)
-    body = backbone_resnet.ResNet(backbone_resnet.RESNET_SPECS[name]["layers"], cfg.dilation)
-    return body, strides, channels, False
+    fam = family(cfg.backbone)
+    body, strides, channels = fam.build(cfg.backbone, cfg)
+    return body, strides, channels, fam.TEMPORAL
+
+
+class Backbone(nn.Module):
+    """The reference's ``backbone.0``: the backbone network under ``body``."""
+
+    def __init__(self, body: nn.Module):
+        super().__init__()
+        self.body = body
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """frames [N, 3, H, W] (a temporal body: clips [b, 3, t, H, W]) ->
+        four maps, each [N, C, h, w] (N = b t)."""
+        return self.body(x)
 
 
 class ReferFormer(nn.Module):
@@ -246,13 +249,15 @@ class ReferFormer(nn.Module):
 def init_weights(model: ReferFormer, generator: torch.Generator) -> None:
     """Seeded random initialisation with the JAX package's initialisers:
     lecun-normal linears and convs, zero biases, identity BatchNorm, the
-    Swin relative-position bias tables truncated N(0, 0.02), the MSDA
+    backbone family's own module types by its ``init_module`` (Swin's
+    relative-position bias tables truncated N(0, 0.02)), the MSDA
     layout (zero offset/weight kernels, directional offset bias), N(0, 1)
     level and query embeddings, the focal-loss prior on the class and
     visibility biases and zero last bbox layers (bias -2 on w, h for the
     first)."""
     g = generator
     cfg = model.cfg
+    init_module = getattr(family(cfg.backbone), "init_module", None)
 
     def lecun_(w):
         w.normal_(0.0, 1.0 / math.sqrt(w[0].numel()), generator=g)
@@ -263,14 +268,13 @@ def init_weights(model: ReferFormer, generator: torch.Generator) -> None:
                 lecun_(mod.weight)
                 if mod.bias is not None:
                     mod.bias.zero_()
-            elif isinstance(mod, swin.WindowAttention):
-                nn.init.trunc_normal_(mod.relative_position_bias_table, std=0.02, a=-0.04,
-                                      b=0.04, generator=g)
             elif isinstance(mod, nn.Embedding):
                 mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.weight.shape[1]), generator=g)
             elif isinstance(mod, MultiheadAttention):
                 lecun_(mod.in_proj_weight)
                 mod.in_proj_bias.zero_()
+            elif init_module is not None:
+                init_module(mod, g)
         for mod in model.modules():
             if isinstance(mod, MSDeformAttn):
                 mod.reset_parameters(g)

@@ -128,6 +128,15 @@ class WindowAttention(nn.Module):
         return self.proj(out.transpose(1, 2).reshape(b_, n, c))
 
 
+def init_module(mod: nn.Module, generator: torch.Generator) -> None:
+    """The Swin families' init hook: a window attention's relative-position
+    bias table truncated N(0, 0.02) at two standard deviations; any other
+    module is left as it is."""
+    if isinstance(mod, WindowAttention):
+        nn.init.trunc_normal_(mod.relative_position_bias_table, std=0.02, a=-0.04, b=0.04,
+                              generator=generator)
+
+
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()

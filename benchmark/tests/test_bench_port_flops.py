@@ -2,8 +2,8 @@
 ``torch.utils.flop_counter`` over the frozen reference, at full width and
 depth on two 224x224 frames (every Video-Swin window whole, so that no
 window padding is counted by one side only) with two 6-word captions (8
-tokens, no text padding): the serving forward of both configurations and
-the training forward and backward."""
+tokens, no text padding): the serving forward of every configuration of
+``BENCHMARK.json`` and the training forward and backward."""
 
 import json
 
@@ -21,7 +21,7 @@ CAPTIONS = ["a b c d e f", "g h i j k l"]
 
 
 def model_and_inputs(name):
-    cfg = json.loads((bh.ROOT / "benchmark" / "configs" / f"{name}.json").read_text())
+    cfg = bh.config(name)
     cfg["compute_dtype"] = "float32"
     model = reference.build(cfg, "cpu")
     g = torch.Generator().manual_seed(0)
@@ -40,7 +40,7 @@ def few_threads():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("name", ["tce_r50_ftf8_iqt", "tce_vswinb_ftf8_iqt"])
+@pytest.mark.parametrize("name", bh.CONFIGS)
 def test_serving_forward(name):
     cfg, model, video, mask, ids, attn, sizes = model_and_inputs(name)
     model.requires_grad_(False)

@@ -1,8 +1,8 @@
 """The frozen reference against the port at tiny widths on the CPU, in
-float32 from the same weights: the serving forward of both backbones (the
-backbone, and the trunk over its features with two expressions), and
-three training steps of the port's trainer (flat AdamW, dropout drawn
-alike on both sides) against the reference's step."""
+float32 from the same weights: the serving forward of every configuration
+of ``BENCHMARK.json`` (the backbone, and the trunk over its features with
+two expressions), and three training steps of the port's trainer (flat
+AdamW, dropout drawn alike on both sides) against the reference's step."""
 
 import copy
 import time
@@ -27,15 +27,15 @@ def few_threads():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("name", ["tce_r50_ftf8_iqt.clip_e1", "tce_vswinb_ftf8_iqt.clip_e1"])
+@pytest.mark.parametrize("name", bh.CONFIGS)
 def test_forward_matches_the_port(name):
     from tce_rvos_tpu_torch.models.referformer import ReferFormer
 
-    cell = bh.tiny_cell(name)
-    sd, _ = weights.state_dict(cell.config, 5, "cpu")
-    port = ReferFormer(serve._program_config(cell.config))
+    cfg = bh.tiny_config(name)
+    sd, _ = weights.state_dict(cfg, 5, "cpu")
+    port = ReferFormer(serve._program_config(cfg))
     port.load_state_dict(sd, strict=True)
-    ref = reference.build(cell.config, "cpu")
+    ref = reference.build(cfg, "cpu")
     ref.load_state_dict(sd, strict=True)
     g = torch.Generator().manual_seed(1)
     video = torch.randn(1, 3, 64, 96, 3, generator=g)

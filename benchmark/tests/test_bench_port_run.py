@@ -35,8 +35,7 @@ def test_only_the_benchmark_no_result(tmp_path):
     assert not [l for l in out.stdout.splitlines() if l.startswith("{")]
 
 
-@pytest.mark.parametrize("name", ["tce_r50_ftf8_iqt.ytvos_whole", "tce_r50_ftf8_iqt.train_b1",
-                                  "tce_vswinb_ftf8_iqt.clip_e1", "tce_r50_ftf8_iqt.clip_e1"])
+@pytest.mark.parametrize("name", bh.CELLS)
 def test_every_cell_is_found_by_name(name):
     from harness import core
 
