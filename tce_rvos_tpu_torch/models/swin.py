@@ -27,6 +27,11 @@ rule. The backbones take and return NCHW.
   * LayerNorm eps 1e-6 (flax's default, which the JAX package keeps); the
     attention and MLP dropout rates are 0 in every spec, so there is no
     dropout module.
+  * Tracing (``utils/profiling.py``): each stage of either backbone, its
+    blocks and its output, is the span ``tce.model.backbone.stage{i}``
+    (``stage_span``, units: frames); each block counts the tokens it feeds
+    to window attention, padding included (``swin.window_tokens``), and the
+    tokens it returns (``swin.window_tokens_real``), under its stage's span.
 
 Checkpoint keys (``backbone.0.body.`` + ``patch_embed.proj``,
 ``layers.{i}.blocks.{j}.{norm1,attn.qkv,attn.proj,
@@ -48,6 +53,7 @@ from torch import nn
 
 from tce_rvos_tpu_torch.models.layers import ATTN_LOGITS_CHUNK, layer_norm, run_layer
 from tce_rvos_tpu_torch.parallel.collectives import gather_frame_range, spread
+from tce_rvos_tpu_torch.utils import profiling
 
 SWIN_CONFIGS = {
     # the JAX package's swin.py:204-209 (reference swin_transformer.py:687-745)
@@ -60,6 +66,22 @@ SWIN_CONFIGS = {
     "swin_l_p4w7": dict(embed_dim=192, depths=(2, 2, 18, 2),
                         num_heads=(6, 12, 24, 48), drop_path_rate=0.3),
 }
+
+
+STAGE_SPANS = tuple(f"tce.model.backbone.stage{i}" for i in range(4))
+
+
+def stage_span(i: int, frames: int):
+    """The span of a Swin backbone's stage ``i`` (its blocks and its
+    output) over ``frames`` frames."""
+    return profiling.span(STAGE_SPANS[i], frames)
+
+
+def count_window_tokens(b: int, padded: Sequence[int], dims: Sequence[int]) -> None:
+    """Counts a block's tokens: ``b * prod(padded)`` fed to window
+    attention, ``b * prod(dims)`` its own."""
+    profiling.count("swin.window_tokens", b * math.prod(padded))
+    profiling.count("swin.window_tokens_real", b * math.prod(dims))
 
 
 def swin_spec(name: str) -> dict:
@@ -295,6 +317,7 @@ class SwinBlock(nn.Module):
         if any(pads):  # F.pad's pairs run from the last axis: C, then the dims reversed
             x = F.pad(x, [0, 0] + [a for p in reversed(pads) for a in (0, p)])
         padded = tuple(d + p for d, p in zip(dims, pads))
+        count_window_tokens(b, padded, dims)
         axes = tuple(range(1, 1 + len(dims)))
         labels = None
         if any(shift):
@@ -316,7 +339,7 @@ class SwinBlock(nn.Module):
         first frames that wrap into the last window), lays those windows
         out in the shifted order, runs their attention with the region
         labels of the whole padded clip, and keeps its own frames' rows."""
-        b, _, h, w, _ = x.shape
+        b, t, h, w, _ = x.shape
         plan = temporal_window_plan(shard.frames, window[0], shift[0], shard.first, shard.count)
         parts = [gather_frame_range(x, shard, lo, hi) for lo, hi in plan.ranges]
         take = torch.as_tensor(plan.take, device=x.device)
@@ -325,6 +348,7 @@ class SwinBlock(nn.Module):
         if any(pads):
             x = F.pad(x, [0, 0, 0, pads[1], 0, pads[0]])
         padded = (len(plan.take), h + pads[0], w + pads[1])
+        count_window_tokens(b, padded, (t, h, w))
         labels = None
         if any(shift):
             x = torch.roll(x, [-shift[1], -shift[2]], (2, 3))
@@ -422,12 +446,14 @@ class SwinBackbone(nn.Module):
             self.add_module(f"norm{i}", layer_norm(dim))
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        n = x.shape[0]
         x = self.patch_embed(x)
         outs = []
         for i, stage in enumerate(self.layers):
-            for blk in stage.blocks:
-                x = run_layer(blk, self.use_checkpoint, x)
-            outs.append(getattr(self, f"norm{i}")(x).permute(0, 3, 1, 2).contiguous())
+            with stage_span(i, n):
+                for blk in stage.blocks:
+                    x = run_layer(blk, self.use_checkpoint, x)
+                outs.append(getattr(self, f"norm{i}")(x).permute(0, 3, 1, 2).contiguous())
             if stage.downsample is not None:
                 x = stage.downsample(x)
         return outs

@@ -14,6 +14,9 @@
     windows the rank's frames fall in (``swin.temporal_window_plan``): up
     to 7 frames beyond each end, the pad, the wrapped first frames; at
     T <= 8 the one temporal window is the whole clip;
+  * each stage, its blocks and its output, is the span
+    ``tce.model.backbone.stage{i}`` in frames (``swin.stage_span``), as in
+    2D Swin;
   * each stage's output is taken before its spatial downsample, and the
     downsamples are hoisted out of the stages as ``downsamples.{i}``, the
     layout of the reference wrapper (video_swin_transformer.py:666-670),
@@ -31,7 +34,13 @@ import torch
 from torch import nn
 
 from tce_rvos_tpu_torch.models.layers import run_layer
-from tce_rvos_tpu_torch.models.swin import PatchEmbed, PatchMerging, SwinStage, swin_stages
+from tce_rvos_tpu_torch.models.swin import (
+    PatchEmbed,
+    PatchMerging,
+    SwinStage,
+    stage_span,
+    swin_stages,
+)
 
 VIDEO_SWIN_CONFIGS = {
     # the JAX package's video_swin.py:217-222 (reference video_swin_transformer.py:733-779)
@@ -70,9 +79,10 @@ class VideoSwinBackbone(nn.Module):
         x = self.patch_embed(x)  # [b, t, h, w, C]
         outs = []
         for i, stage in enumerate(self.layers):
-            for blk in stage.blocks:
-                x = run_layer(blk, self.use_checkpoint, x, frame_shard)
-            outs.append(x.reshape(b * t, *x.shape[2:]).permute(0, 3, 1, 2).contiguous())
+            with stage_span(i, b * t):
+                for blk in stage.blocks:
+                    x = run_layer(blk, self.use_checkpoint, x, frame_shard)
+                outs.append(x.reshape(b * t, *x.shape[2:]).permute(0, 3, 1, 2).contiguous())
             if i < len(self.downsamples):
                 x = self.downsamples[i](x)
         return outs

@@ -12,7 +12,9 @@ CPU, without JAX:
   engine's and the model's spans once a window and a chunk, and the trunk's
   padding counters (a whole video of T = 12 at ``t_bucket`` 8 computes 16
   frames, E = 3 is padded to 4);
-* the train step's ``tce.train.*`` spans, once a step and in order.
+* the train step's ``tce.train.*`` spans, once a step and in order;
+* a tiny image Swin's and Video-Swin's stage spans, in frames, and the
+  window attention's padded and real token counters under each.
 """
 
 import json
@@ -27,6 +29,8 @@ from tce_rvos_tpu_torch.engine import train_one_epoch
 from tce_rvos_tpu_torch.infer import InferenceEngine
 from tce_rvos_tpu_torch.models.build import build_model
 from tce_rvos_tpu_torch.models.criterion import criterion_from_configs
+from tce_rvos_tpu_torch.models.swin import SwinBackbone
+from tce_rvos_tpu_torch.models.video_swin import VideoSwinBackbone
 from tce_rvos_tpu_torch.parallel.train_step import create_train_state, make_train_step
 from tce_rvos_tpu_torch.utils import profiling
 
@@ -252,3 +256,49 @@ def test_train_step_spans_once_a_step_in_order():
                                                *MODEL_SPANS, "tce.train.criterion"]
         assert {s["units"] for s in inside if s["name"].startswith("tce.model.")} == {2}
         assert all(by_id[s["parent"]]["name"] == "tce.train.forward" for s in inside)
+
+
+TINY_SWIN = dict(embed_dim=16, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8), drop_path_rate=0.0,
+                 channels=[16, 32, 64, 128])
+# two 64x96 frames: stage maps 16x24, 8x12, 4x6, 2x3; two blocks a stage.
+# Image Swin pads each to whole 7x7 windows: 21x28, 14x14, 7x7, 7x7.
+# Video-Swin's windows shrink to an axis no longer than the window (T = 2:
+# 2x7x7, 2x7x7, 2x4x6, 2x2x3), so its last two stages have no padding.
+SWIN_TOKENS = {
+    "swin": ([2 * 2 * 21 * 28, 2 * 2 * 14 * 14, 2 * 2 * 7 * 7, 2 * 2 * 7 * 7],
+             [2 * 2 * 16 * 24, 2 * 2 * 8 * 12, 2 * 2 * 4 * 6, 2 * 2 * 2 * 3]),
+    "video_swin": ([2 * 2 * 21 * 28, 2 * 2 * 14 * 14, 2 * 2 * 4 * 6, 2 * 2 * 2 * 3],
+                   [2 * 2 * 16 * 24, 2 * 2 * 8 * 12, 2 * 2 * 4 * 6, 2 * 2 * 2 * 3]),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(SWIN_TOKENS))
+def test_swin_stage_spans_and_window_token_counters(kind):
+    torch.manual_seed(0)
+    x = torch.randn(2, 3, 64, 96)
+    if kind == "swin":
+        body = SwinBackbone(dict(TINY_SWIN, window_size=7)).eval()
+    else:
+        body = VideoSwinBackbone(dict(TINY_SWIN, window_size=(8, 7, 7))).eval()
+        x = x.permute(1, 0, 2, 3)[None]  # one clip of two frames [1, 3, 2, H, W]
+    stages = [f"tce.model.backbone.stage{i}" for i in range(4)]
+    with profiling.tracing():
+        pass  # clears the records
+    with torch.no_grad():
+        body(x)
+    off = profiling.collect()
+    assert off["spans"] == [] and off["counters"] == {} == off["counters_by_span"]
+
+    with profiling.tracing(), torch.no_grad():
+        maps = body(x)
+    got = profiling.collect()
+    assert [tuple(m.shape) for m in maps] == [(2, 16, 16, 24), (2, 32, 8, 12), (2, 64, 4, 6),
+                                              (2, 128, 2, 3)]
+    assert [(s["name"], s["units"], s["parent"]) for s in got["spans"]] == [
+        (name, 2, None) for name in stages]
+    padded, real = SWIN_TOKENS[kind]
+    assert got["counters_by_span"] == {
+        name: {"swin.window_tokens": p, "swin.window_tokens_real": r}
+        for name, p, r in zip(stages, padded, real)}
+    assert got["counters"] == {"swin.window_tokens": sum(padded),
+                               "swin.window_tokens_real": sum(real)}
