@@ -29,8 +29,9 @@ Phases (each one fails the run, nothing is caught and carried on from):
                weights; InferenceEngine.run_video_batch on a 10-frame
                360x640 video (two 5-frame windows) with E = 4 captions, in
                bf16 and f32; checks shapes, finiteness, boxes in [0, 1],
-               12 MSDA kernel launches per trunk forward, batched masks
-               equal serial run_video masks;
+               12 MSDA kernel launches per trunk forward (the kernels the
+               profiler saw run, a graph's replays among them, and the
+               launch counters), batched masks equal serial run_video masks;
   4. parity  - one window, E = 1, f32 with TF32 off, GPU (kernel) against
                the same weights on the CPU (plain MSDA);
   5. train   - the flagship at full width and depth, b = 1, 5x384x640,
@@ -63,7 +64,7 @@ Phases (each one fails the run, nothing is caught and carried on from):
                farther from it than the CPU's own f32 step plus the
                GPU-against-CPU limits):
                run_video_batch E = 4 in bf16 (8 3D + 4 2D forward launches
-               per trunk forward; batched against serial masks printed as a
+               per trunk forward, as phase 3 counts them; batched against serial masks printed as a
                reading, since the 3D op's time axis spans the expressions;
                where the encoder's taps land in time, a reading);
                one window at E = 2, f32, GPU against CPU; 4 bf16 train
@@ -1079,7 +1080,7 @@ def expression_isolation(engine, frames, label: str) -> dict:
     stages += [(f"decoder{i}", m) for i, m in enumerate(tr.decoder.layers)]
     stages += [("pixel_decoder", model.pixel_decoder), ("controller", model.controller)]
     video, mask, size = engine.preprocess(frames[:engine.window])
-    sizes = torch.tensor([size], device=engine.device)
+    sizes = size
     feats = engine.backbone(video, mask)
     ids, attn = tokenize(list(CAPTIONS))
 
@@ -1110,7 +1111,7 @@ def expression_isolation(engine, frames, label: str) -> dict:
 
         hooks += [mod.register_forward_hook(keep_first(name)) for name, mod in pinpoint]
         try:
-            out = engine.trunk(feats, mask, ids_, attn_, sizes)
+            out = engine._trunk_eager(feats, mask, ids_, attn_, sizes)
         finally:
             for h in hooks:
                 h.remove()
@@ -1244,18 +1245,19 @@ def phase_path(dtype_name: str, sd, videos, backbone: str = "resnet50", tag: str
 
     reset_launch_counts()
     t0 = time.perf_counter()
-    outs = engine.run_video_batch(frames, list(CAPTIONS), exp_batch=len(CAPTIONS))
-    torch.cuda.synchronize()
+    outs, ran = device_launches(
+        lambda: engine.run_video_batch(frames, list(CAPTIONS), exp_batch=len(CAPTIONS)))
     first_s = time.perf_counter() - t0
-    launches = launch_counts()["msda_fwd"]
+    launches, counted = ran["msda_fwd"], launch_counts()["msda_fwd"]
     trunk_forwards = n_windows  # one expression chunk per window
-    if launches != per_forward * trunk_forwards:
-        raise AssertionError(f"{label} MSDA kernel launched {launches} times, "
-                             f"expected {per_forward} per trunk forward x {trunk_forwards}")
+    if not launches == counted == per_forward * trunk_forwards:
+        raise AssertionError(f"{label} MSDA kernel ran {launches} times (launch counters: "
+                             f"{counted}), expected {per_forward} per trunk forward x "
+                             f"{trunk_forwards}")
     check_outputs(outs, label)
     log(f"{label} run_video_batch E={len(CAPTIONS)}, {n_windows} windows: outputs ok, "
-        f"msda_fwd launches {launches} ({per_forward} x {trunk_forwards} trunk forwards), "
-        f"first call {first_s:.3f} s")
+        f"msda_fwd launches the device ran {launches} ({per_forward} x {trunk_forwards} trunk "
+        f"forwards; launch counters {counted}), first call {first_s:.3f} s under the profiler")
 
     isolation = expression_isolation(engine, frames, label)
     bvs = batched_vs_serial(engine, videos, outs, dtype_name, label, limits)
@@ -1279,7 +1281,7 @@ def phase_path(dtype_name: str, sd, videos, backbone: str = "resnet50", tag: str
     # per-window times: full forward (E = 1, the JAX bench's clip), the
     # backbone, and the trunk per E with its peak memory
     video, mask, size = engine.preprocess(frames[:engine.window])
-    sizes = torch.tensor([size], device="cuda")
+    sizes = size
     full_ms = cuda_ms(lambda: engine.run_window(video, mask, *tokenize([CAPTIONS[0]]), size),
                       reps=10)
     feats = engine.backbone(video, mask)
@@ -1342,7 +1344,7 @@ def temporal_taps(engine, feats, mask, sizes, e: int = 4) -> dict:
     handles = [lin.register_forward_hook(hook) for lin in layers]
     ids, attn = tokenize([CAPTIONS[i % len(CAPTIONS)] for i in range(e)])
     try:
-        engine.trunk(feats, mask, ids, attn, sizes)
+        engine._trunk_eager(feats, mask, ids, attn, sizes)
         torch.cuda.synchronize()
     finally:
         for h in handles:
@@ -1376,19 +1378,20 @@ def phase_path_3d(sd3, frames) -> dict:
     n_windows = -(-N_FRAMES // engine.window)
     reset_launch_counts()
     t0 = time.perf_counter()
-    outs = engine.run_video_batch(frames, list(CAPTIONS), exp_batch=len(CAPTIONS))
-    torch.cuda.synchronize()
+    outs, counts = device_launches(
+        lambda: engine.run_video_batch(frames, list(CAPTIONS), exp_batch=len(CAPTIONS)))
     first_s = time.perf_counter() - t0
-    counts = launch_counts()
+    counted = launch_counts()
     want = {"msda_fwd": 4 * n_windows, "msda_bwd": 0, "msda3d_fwd": 8 * n_windows,
             "msda3d_bwd": 0}
-    if counts != want:
-        raise AssertionError(f"{label} MSDA launches {counts}, expected {want} (8 3D and 4 2D "
-                             f"forward launches per trunk forward x {n_windows})")
+    if not counts == counted == want:
+        raise AssertionError(f"{label} MSDA kernels ran {counts} (launch counters: {counted}), "
+                             f"expected {want} (8 3D and 4 2D forward launches per trunk "
+                             f"forward x {n_windows})")
     check_outputs(outs, label)
     log(f"{label} run_video_batch E={len(CAPTIONS)}, {n_windows} windows: outputs ok, "
-        f"launches {counts} (8 msda3d_fwd + 4 msda_fwd per trunk forward x {n_windows}), "
-        f"first call {first_s:.3f} s")
+        f"launches the device ran {counts} (8 msda3d_fwd + 4 msda_fwd per trunk forward x "
+        f"{n_windows}; the launch counters agree), first call {first_s:.3f} s under the profiler")
     gaps = [mask_gap(outs[e]["pred_masks"], engine.run_video(frames, cap)["pred_masks"])
             for e, cap in enumerate(CAPTIONS)]
     log(f"{label} batched (E = 4) against serial (E = 1) masks, a reading (the 3D op's time "
@@ -1405,7 +1408,7 @@ def phase_path_3d(sd3, frames) -> dict:
     serve_s = (time.perf_counter() - t0) / reps
     serve_rate = len(CAPTIONS) * n_windows / serve_s
     video, mask, size = engine.preprocess(frames[:engine.window])
-    sizes = torch.tensor([size], device="cuda")
+    sizes = size
     feats = engine.backbone(video, mask)
     taps = temporal_taps(engine, feats, mask, sizes)
     trunk = {}
@@ -1480,13 +1483,13 @@ def stage_breakdown(engine, feats, mask, sizes, label: str, e: int = 4,
 
             hooks += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
     ids, attn = tokenize([CAPTIONS[i % len(CAPTIONS)] for i in range(e)])
-    engine.trunk(feats, mask, ids, attn, sizes)  # warm
+    engine._trunk_eager(feats, mask, ids, attn, sizes)  # warm
     for v in spans.values():
         v.clear()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    engine.trunk(feats, mask, ids, attn, sizes)
+    engine._trunk_eager(feats, mask, ids, attn, sizes)
     end.record()
     end.synchronize()
     for h in hooks:
@@ -1501,7 +1504,7 @@ def stage_breakdown(engine, feats, mask, sizes, label: str, e: int = 4,
 
     if not profile:
         return {"total_ms": total, "stages_ms": ms}
-    prof = profile_device(lambda: engine.trunk(feats, mask, ids, attn, sizes),
+    prof = profile_device(lambda: engine._trunk_eager(feats, mask, ids, attn, sizes),
                           f"{label} profiled trunk forward")
     return {"total_ms": total, "stages_ms": ms, **prof}
 
@@ -1759,6 +1762,23 @@ def _counters() -> dict:
 
     _stop_counting()
     return profiling.counters()
+
+
+def device_launches(fn) -> tuple:
+    """``fn()`` under torch.profiler, and the launches of the four MSDA
+    kernels (every instantiation of each) that the profiler saw the device
+    run meanwhile: kernels replayed from a CUDA graph count as they run,
+    where the launch counters add at a replay what its capture recorded.
+    Returns (``fn()``'s result, the counts as ``launch_counts`` keys them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return out, {name: sum(e.count for e in events if f"{name}_kernel<" in e.key)
+                 for name in ("msda_fwd", "msda_bwd", "msda3d_fwd", "msda3d_bwd")}
 
 
 def launch_counts() -> dict:
@@ -2489,13 +2509,17 @@ ENVELOPE_POINTS = {"bfloat16": ((1, 5), (2, 10), (4, 20), (8, 20), (4, 40)),
 def phase_envelope(sd, frames, hold: bool = True) -> dict:
     """Peak memory (``max_memory_allocated`` less what was allocated before
     the engine was built; the weights and the window's backbone features
-    resident) of one trunk forward at 384x640 at the
+    resident) of one eager trunk forward at 384x640 at the
     (E, T) points of ENVELOPE_POINTS, per compute dtype; the least-squares
     line peak = base + per_frame x E x T and its largest residual, printed
     for ``infer._ENVELOPE_GIB``. ``hold``: every measured point must lie on
     or under the line of ``infer._ENVELOPE_GIB``, so that the cap it gives
     (``trunk_frame_envelope``) keeps each measured dispatch within the
-    card's memory."""
+    card's memory. Then the CUDA graphs of ``infer.GRAPH_KEYS`` dispatch
+    shapes ``infer.graph_gate`` passes: the device memory an engine keeps
+    for them once each is captured and replayed (static inputs and outputs,
+    the graphs' pool), held within the share of the card the cap leaves
+    free (``graph_memory``)."""
     import numpy as np
     import torch
 
@@ -2512,12 +2536,12 @@ def phase_envelope(sd, frames, hold: bool = True) -> dict:
         rows = []
         for e, t in points:
             video, mask, size = engine.preprocess([frames[i % len(frames)] for i in range(t)])
-            sizes = torch.tensor([size], device=engine.device)
+            sizes = size
             feats = engine.backbone(video, mask)
             ids, attn = tokenize([CAPTIONS[i % len(CAPTIONS)] for i in range(e)])
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            out = engine.trunk(feats, mask, ids, attn, sizes)
+            out = engine._trunk_eager(feats, mask, ids, attn, sizes)  # the line is eager's
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() / 2**30 - before
             del out, feats, video, mask
@@ -2539,8 +2563,81 @@ def phase_envelope(sd, frames, hold: bool = True) -> dict:
         if hold and over:
             raise AssertionError(f"{label} measured peaks above infer._ENVELOPE_GIB's line: {over}")
         fits[name] = dict(points=rows, base=float(base), per_frame=float(slope), resid=resid,
-                          cap_frames=cap, total_gib=total_gib)
+                          cap_frames=cap, total_gib=total_gib,
+                          graphs=graph_memory(sd, frames, name, hold))
     return fits
+
+
+# what ``graph_memory`` captures: (E, T) of the dispatches, frames as
+# stored (FRAME_HW and portrait: buckets 384x640 and 640x384) and caption
+# lengths in tokens
+GRAPH_HOLD_SHAPES = ((1, 5), (1, 8), (1, 16), (2, 5), (2, 8), (4, 5))
+GRAPH_HOLD_VARIANTS = ((FRAME_HW, 16), (FRAME_HW[::-1], 24), (FRAME_HW, 24),
+                       (FRAME_HW[::-1], 16))
+
+
+def graph_hold_keys(dtype) -> list:
+    """``infer.GRAPH_KEYS`` distinct dispatch shapes (E, T, frame size,
+    caption tokens) that ``infer.graph_gate`` passes in ``dtype``: each
+    (E, T) of GRAPH_HOLD_SHAPES the gate passes at 384x640, the largest
+    first, in the first of GRAPH_HOLD_VARIANTS, then again in the next."""
+    from tce_rvos_tpu_torch import infer
+
+    shapes = sorted((s for s in GRAPH_HOLD_SHAPES
+                     if infer.graph_gate(*s, (384, 640), dtype, "cuda")),
+                    key=lambda s: -s[0] * s[1])
+    keys = [shapes[i % len(shapes)] + GRAPH_HOLD_VARIANTS[i // len(shapes)]
+            for i in range(infer.GRAPH_KEYS)]
+    assert len(set(keys)) == infer.GRAPH_KEYS, keys
+    return keys
+
+
+def graph_memory(sd, frames, name: str, hold: bool) -> dict:
+    """The device memory (``torch.cuda.mem_get_info``, the allocator's
+    unused cache emptied before both readings) that an engine in compute
+    dtype ``name`` keeps after capturing and replaying the trunk at each
+    of ``graph_hold_keys``, as many shapes as it keeps; ``hold``: all of
+    them kept, within the share of the card that ``trunk_frame_envelope``
+    leaves to what is not a dispatch (1 - ``infer._MEMORY_SAFETY``)."""
+    import numpy as np
+    import torch
+
+    from tce_rvos_tpu_torch import flagship_config, infer
+    from tce_rvos_tpu_torch.models.text_encoder import tokenize
+
+    label = f"[envelope {name}]"
+    total_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    keys = graph_hold_keys(getattr(torch, name))
+    engine = infer.InferenceEngine(flagship_config(compute_dtype=name), sd, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    buckets = []
+    for e, t, hw, tokens in keys:
+        clip = [frames[i % len(frames)] for i in range(t)]
+        if hw != clip[0].shape[:2]:  # portrait: the frames turned
+            clip = [np.ascontiguousarray(f.transpose(1, 0, 2)) for f in clip]
+        video, mask, size = engine.preprocess(clip)
+        buckets.append(tuple(mask.shape[2:]))
+        feats = engine.backbone(video, mask)
+        ids, attn = tokenize([CAPTIONS[i % len(CAPTIONS)] for i in range(e)], max_len=tokens)
+        for _ in range(2):  # the first dispatch captures, the second replays
+            out = engine.trunk(feats, mask, ids, attn, size)
+        del out, feats, video, mask
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    kept = (free_before - torch.cuda.mem_get_info()[0]) / 2**30
+    room = (1 - infer._MEMORY_SAFETY) * total_gib
+    held = len(engine._graphs.entries)
+    log(f"{label} CUDA graphs of {held} shapes (E, T, frames, tokens) {keys}, buckets "
+        f"{sorted(set(buckets))}: kept {kept:.3f} GiB of the card's {total_gib:.2f} GiB "
+        f"(room beside the cap: {room:.2f} GiB)")
+    del engine
+    torch.cuda.empty_cache()
+    if hold and not (held == infer.GRAPH_KEYS and kept <= room):
+        raise AssertionError(f"{label} CUDA graphs of {held} shapes keep {kept:.3f} GiB, "
+                             f"outside the {room:.2f} GiB beside the cap")
+    return dict(keys=keys, buckets=buckets, kept_gib=kept, room_gib=room)
 
 
 PROTO_HW = (720, 1280)  # frames as stored: downscaled to 360x640 by the engine
@@ -3996,7 +4093,7 @@ def family_forward(name: str, dilation: bool, frames) -> dict:
                                                  dilation=dilation), sd, device="cuda")
     del sd
     video, mask, size = engine.preprocess(frames[:5])
-    sizes = torch.tensor([size], device="cuda")
+    sizes = size
     ids, attn = tokenize(list(CAPTIONS))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4143,7 +4240,7 @@ def tokens_whole_video(sd, frames) -> dict:
                                      f"{bool(np.isfinite(m).all())}")
         e = want[0][0]
         video, mask, size = engine.preprocess(clip)
-        sizes = torch.tensor([size], device="cuda")
+        sizes = size
         feats = engine.backbone(video, mask)
         ids, attn = tokenize(list(CAPTIONS[:e]))
         torch.cuda.synchronize()
@@ -4247,7 +4344,7 @@ def vl_off(frames) -> dict:
         with torch.device("cuda"):  # the engine's model built on the card
             engine = InferenceEngine(cfg, sd, device="cuda")
         video, mask, size = engine.preprocess(frames[:engine.window])
-        sizes = torch.tensor([size], device="cuda")
+        sizes = size
         feats = engine.backbone(video, mask)
         trunk = {}
         for e in (1, 4):

@@ -7,7 +7,11 @@ command line.
 window, then the text-conditioned trunk with the expressions stacked on the
 batch axis (``exp_batch`` at a time, the last chunk padded up to a power of
 two). ``trunk_frame_envelope`` caps the expressions x frames of one trunk
-dispatch by a peak-memory fit made on an H100. Windows are ``window``
+dispatch by a peak-memory fit made on an H100. On a CUDA device a trunk
+dispatch small enough that issuing its launches takes the host longer than
+the device takes to run them (``graph_gate``) is replayed from CUDA graphs
+captured once for its shape (``TrunkGraphs``); every other dispatch, and
+every CPU one, runs eagerly. Windows are ``window``
 frames with ``f_extra`` context frames on both sides (clamped at the
 video's ends, their outputs dropped), or, with ``whole_video``, the whole
 video rounded up to a multiple of ``t_bucket`` frames by repeating the
@@ -35,13 +39,16 @@ Videos go round-robin over one engine per GPU (``make_engines``,
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
 import threading
 import time
+import warnings
 import zlib
-from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import (Dict, Iterator, List, Mapping, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -111,20 +118,15 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 STAGE_CAP_BYTES = 1 << 30
 
 
-class FrameStage:
-    """A window's frames to the device through one reused host buffer: f32,
-    pinned for a CUDA device, grow-only (a power of two of elements, at
-    most ``STAGE_CAP_BYTES`` unless one frame is larger). Each frame is
-    copied once into its row (torch's copy, multi-threaded, converting to
-    f32 as ``np.asarray(f, np.float32)`` does), then the rows go up in one
-    copy, asynchronous from pinned memory; a CUDA event recorded after it
-    guards the buffer against the next call's writes. A window over the
-    cap goes in chunks of the cap, each under its own ``.stack`` and
-    ``.h2d`` spans. Counters: ``engine.pinned_frames`` (frames staged),
-    ``engine.pinned_waits`` (the last upload still in flight when the
-    buffer was needed again), ``engine.pinned_allocs`` (allocations and
-    growths of the buffer). One per engine; calls from several threads
-    take turns."""
+class _HostStage:
+    """Uploads to ``device`` through one reused host buffer of ``dtype``,
+    pinned for a CUDA device and grow-only (a power of two of elements,
+    under a cap if one is given, unless one request is larger); copies out
+    of it are asynchronous from pinned memory, and a CUDA event recorded
+    after the last one guards the buffer against the next writes. Callers
+    hold ``lock``, so that calls from several threads take turns."""
+
+    dtype = torch.float32
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -133,14 +135,42 @@ class FrameStage:
         self.event: Optional[torch.cuda.Event] = None
         self.lock = threading.Lock()
 
-    def _rows(self, n: int, shape: Tuple[int, ...]) -> torch.Tensor:
-        size = n * int(np.prod(shape))
-        if self.buf is None or self.buf.numel() < size:
-            cap = max(size, STAGE_CAP_BYTES // 4)
-            self.buf = torch.empty(min(_pow2_ceil(size), cap), dtype=torch.float32,
-                                   pin_memory=self.pin)
-            profiling.count("engine.pinned_allocs")
-        return self.buf[:size].view(n, *shape)
+    def _wait(self) -> bool:
+        """Waits for the last copy out of the buffer; whether it was still
+        in flight."""
+        if self.event is None or self.event.query():
+            return False
+        self.event.synchronize()
+        return True
+
+    def _host(self, n: int, cap: Optional[int] = None) -> Tuple[torch.Tensor, bool]:
+        """The buffer's first ``n`` elements, and whether it was allocated
+        or grown for them."""
+        grown = self.buf is None or self.buf.numel() < n
+        if grown:
+            size = _pow2_ceil(n) if cap is None else min(_pow2_ceil(n), max(n, cap))
+            self.buf = torch.empty(size, dtype=self.dtype, pin_memory=self.pin)
+        return self.buf[:n], grown
+
+    def _send(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        """``dst`` <- ``src``, a view of the buffer."""
+        dst.copy_(src, non_blocking=self.pin)
+        if self.pin:
+            if self.event is None:
+                self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(self.device))
+
+
+class FrameStage(_HostStage):
+    """A window's frames to the device through the stage's f32 buffer, at
+    most ``STAGE_CAP_BYTES`` unless one frame is larger. Each frame is
+    copied once into its row (torch's copy, multi-threaded, converting to
+    f32 as ``np.asarray(f, np.float32)`` does), then the rows go up in one
+    copy. A window over the cap goes in chunks of the cap, each under its
+    own ``.stack`` and ``.h2d`` spans. Counters: ``engine.pinned_frames``
+    (frames staged), ``engine.pinned_waits`` (the last upload still in
+    flight when the buffer was needed again), ``engine.pinned_allocs``
+    (allocations and growths of the buffer). One per engine."""
 
     def upload(self, frames: Sequence[np.ndarray]) -> torch.Tensor:
         """[t, h, w, c] f32 on the device, the frames' values bitwise."""
@@ -155,21 +185,47 @@ class FrameStage:
             for s in range(0, len(src), chunk):
                 part = src[s:s + chunk]
                 with profiling.span("tce.engine.preprocess.stack", len(part)):
-                    if self.event is not None and not self.event.query():
+                    if self._wait():
                         profiling.count("engine.pinned_waits")
-                        self.event.synchronize()
-                    rows = self._rows(len(part), shape)
+                    rows, grown = self._host(len(part) * int(np.prod(shape)),
+                                             STAGE_CAP_BYTES // 4)
+                    if grown:
+                        profiling.count("engine.pinned_allocs")
+                    rows = rows.view(len(part), *shape)
                     for row, a in zip(rows, part):
                         if min(a.strides, default=0) < 0:  # torch takes no negative stride
                             a = np.ascontiguousarray(a)
                         row.copy_(torch.from_numpy(a))
                     profiling.count("engine.pinned_frames", len(part))
                 with profiling.span("tce.engine.preprocess.h2d", len(part)):
-                    out[s:s + len(part)].copy_(rows, non_blocking=self.pin)
-                    if self.pin:
-                        if self.event is None:
-                            self.event = torch.cuda.Event()
-                        self.event.record(torch.cuda.current_stream(self.device))
+                    self._send(out[s:s + len(part)], rows)
+        return out
+
+
+class IntStage(_HostStage):
+    """The small integer inputs of a dispatch (token ids, attention masks,
+    the clip's size) to the device as one int64 vector, through the
+    stage's int64 buffer in one copy, without waiting for the stream. One
+    per engine."""
+
+    dtype = torch.int64
+
+    def upload(self, arrays: Sequence[np.ndarray], out: torch.Tensor) -> torch.Tensor:
+        """The arrays' values, flattened and joined in order, into the
+        int64 vector ``out`` of as many elements."""
+        parts = [np.asarray(a).reshape(-1) for a in arrays]
+        n = sum(p.size for p in parts)
+        if out.numel() != n:
+            raise ValueError(f"{n} values for {out.numel()} elements")
+        with self.lock:
+            self._wait()
+            flat, _ = self._host(n)
+            host = flat.numpy()
+            off = 0
+            for p in parts:
+                host[off:off + p.size] = p
+                off += p.size
+            self._send(out, flat)
         return out
 
 
@@ -193,6 +249,10 @@ class FrameStage:
 # probabilities would take 88 GiB. ``layers.MultiheadAttention`` computes
 # them in chunks of at most ``ATTN_LOGITS_CHUNK`` logits, which keeps the
 # peak linear in E x T.
+# The line is the eager forward's. What an engine keeps for the CUDA graphs
+# of its small dispatches (``TrunkGraphs``: static inputs and outputs, the
+# pool) lies outside it, in the 1 - _MEMORY_SAFETY of the card the cap
+# leaves free (chip_smoke.py's envelope phase holds it there).
 # ---------------------------------------------------------------------------
 
 _ENVELOPE_GIB = {  # compute dtype -> (base, per frame at 384x640)
@@ -219,6 +279,136 @@ def trunk_frame_envelope(
     base, per_frame = _ENVELOPE_GIB[compute_dtype]
     scale = (hw[0] * hw[1]) / (384.0 * 640.0)
     return max(1, int((memory_gib * _MEMORY_SAFETY - base) / (per_frame * scale)))
+
+
+# ---------------------------------------------------------------------------
+# the trunk from CUDA graphs.
+#
+# A trunk dispatch issues some 1,500 launches. At small E x T the host takes
+# longer to issue them than the device takes to run them, and the device
+# waits between launches; a CUDA graph of the dispatch issues them all in a
+# few graph launches. GRAPH_MAX_EXPFRAMES: the largest dispatch, in
+# expression-frames of bf16 features at 384x640, whose eager host time
+# still exceeded its device time on an H100 80GB HBM3 at 700 W (PERF.md
+# gives the readings): E x T = 20 took the host 74.5 ms to issue and the
+# device 49.5 ms to run from its graphs; at 24, 49.5 and 65.7 ms. A bucket
+# of another size counts in proportion to its pixels, wider features in
+# proportion to their bytes: the graphs keep their captures' working set
+# in their pool for the engine's life, which must fit in the share of the
+# card the trunk's memory envelope leaves free (counted in f32's bytes, two
+# shapes of 5 and 20 expression-frames kept 12.2 GiB, over it).
+# GRAPH_KEYS: the most dispatch shapes an engine keeps captured, the least
+# recently used dropped first; eight kept 6.4 GiB in bf16 and 6.5 GiB in
+# f32, with 11.9 GiB free beside the envelope (chip_smoke.py's envelope
+# phase holds it).
+# ---------------------------------------------------------------------------
+
+GRAPH_MAX_EXPFRAMES = 20
+GRAPH_KEYS = 8
+
+
+def graph_gate(e_pad: int, t_clip: int, hw: Tuple[int, int], dtype: torch.dtype,
+               device: Union[str, torch.device]) -> bool:
+    """Whether a trunk dispatch of ``e_pad`` expressions over ``t_clip``
+    frames padded to ``hw``, its features in ``dtype``, replays from CUDA
+    graphs: on a CUDA device, at most ``GRAPH_MAX_EXPFRAMES``
+    expression-frames of bf16 features at 384x640 (another size in
+    proportion to its pixels, another dtype to its bytes). Never on the
+    CPU."""
+    nbytes = e_pad * t_clip * hw[0] * hw[1] * torch.empty((), dtype=dtype).element_size()
+    return torch.device(device).type == "cuda" and nbytes <= GRAPH_MAX_EXPFRAMES * 384 * 640 * 2
+
+
+class _Graphed(NamedTuple):
+    """One dispatch shape's capture: the static inputs (the feature
+    pyramid, the mask and the integer vector of ``InferenceEngine._inputs``),
+    the recording (``profiling.recording``: CUDA graphs between the model's
+    span boundaries, its spans and counts) and the static outputs."""
+
+    feats: List[torch.Tensor]
+    mask: torch.Tensor
+    ints: torch.Tensor
+    steps: List[tuple]
+    outputs: Dict[str, torch.Tensor]
+
+
+class TrunkGraphs:
+    """An engine's trunk dispatches replayed from CUDA graphs, one capture
+    per dispatch shape (the expressions, the caption length, the clip's
+    frames and padded size, the feature pyramid's shapes and dtype), at
+    most ``GRAPH_KEYS`` of them, every graph in one memory pool.
+
+    A shape's first dispatch runs eagerly, which warms it, and returns its
+    outputs; the trunk is then captured at that shape on a side stream, in
+    segments cut at the model's spans (``profiling.recording``). Each later
+    dispatch copies its inputs into the capture's static inputs, replays
+    the segments in order on the current stream under their spans
+    (``profiling.replay``: the stage spans and the MSDA launch counts read
+    as an eager run's) and returns clones of the static outputs, which the
+    next replay of any shape may overwrite. Counters:
+    ``engine.trunk_graph_captures``, ``engine.trunk_graph_replays``."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device)  # the captures'
+        self.entries: "collections.OrderedDict[tuple, _Graphed]" = collections.OrderedDict()
+        self.lock = threading.Lock()
+
+    def run(self, engine: "InferenceEngine", feats, mask, text_ids, text_attn,
+            size) -> Dict[str, torch.Tensor]:
+        key = (np.shape(text_ids), tuple(mask.shape),
+               tuple((tuple(f.shape), f.dtype) for f in feats))
+        with self.lock:
+            entry = self.entries.get(key)
+            if entry is None:
+                out = engine._trunk_eager(feats, mask, text_ids, text_attn, size)
+                self.entries[key] = self._capture(engine, feats, mask, np.shape(text_ids))
+                if len(self.entries) > GRAPH_KEYS:
+                    self.entries.popitem(last=False)
+                profiling.count("engine.trunk_graph_captures")
+                return out
+            self.entries.move_to_end(key)
+            for dst, src in zip(entry.feats, feats):
+                dst.copy_(src)
+            entry.mask.copy_(mask)
+            engine._inputs(text_ids, text_attn, size, entry.ints)
+            profiling.replay(entry.steps, torch.cuda.CUDAGraph.replay)
+            profiling.count("engine.trunk_graph_replays")
+            return {k: v.clone() for k, v in entry.outputs.items()}
+
+    def _capture(self, engine: "InferenceEngine", feats, mask, text_shape) -> _Graphed:
+        # zeros: valid token ids and mask values, though the capture reads none
+        static_feats = [torch.zeros_like(f) for f in feats]
+        static_mask = torch.zeros_like(mask)
+        ints = torch.zeros(2 * int(np.prod(text_shape)) + 2, dtype=torch.int64,
+                           device=self.device)
+        graphs: List[torch.cuda.CUDAGraph] = []
+
+        def begin():
+            graphs.append(torch.cuda.CUDAGraph())
+            graphs[-1].capture_begin(pool=self.pool, capture_error_mode="thread_local")
+
+        def end():
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # a stretch without work is an empty graph
+                graphs[-1].capture_end()
+            return graphs[-1]
+
+        torch.cuda.synchronize(self.device)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            with profiling.recording(begin, end) as steps:
+                out = engine.model(None, static_mask, *_int_views(ints, text_shape),
+                                   precomputed_feats=static_feats)
+        return _Graphed(static_feats, static_mask, ints, steps,
+                        {k: out[k] for k in OUTPUT_KEYS})
+
+
+def _int_views(flat: torch.Tensor, text_shape) -> Tuple[torch.Tensor, ...]:
+    """(token ids [E, L], attention mask [E, L], sizes [1, 2]) in ``flat``."""
+    n = int(np.prod(text_shape))
+    return (flat[:n].view(*text_shape), flat[n:2 * n].view(*text_shape),
+            flat[2 * n:].view(1, 2))
 
 
 def _pow2_floor(x: int) -> int:
@@ -266,15 +456,27 @@ class InferenceEngine:
         self.t_bucket = t_bucket
         self._mean = torch.tensor(IMAGENET_MEAN, device=self.device)[:, None, None]
         self._std = torch.tensor(IMAGENET_STD, device=self.device)[:, None, None]
-        # a CUDA engine stages its frames through a pinned buffer of its own
-        self._stage = FrameStage(self.device) if self.device.type == "cuda" else None
+        # a CUDA engine stages its frames through a pinned buffer of its
+        # own, and replays small trunk dispatches
+        cuda = self.device.type == "cuda"
+        self._stage = FrameStage(self.device) if cuda else None
+        self._ints = IntStage(self.device)
+        self._graphs = TrunkGraphs(self.device) if cuda else None
 
     # ------------------------------------------------------------------
     def _tensor(self, x: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x)).to(self.device)
 
-    def _text(self, ids: np.ndarray, attn: np.ndarray):
-        return self._tensor(ids).long(), self._tensor(attn).long()
+    def _inputs(self, text_ids, text_attn, size, flat: Optional[torch.Tensor] = None):
+        """(token ids [E, L], attention mask [E, L], sizes [1, 2]) as int64
+        views of one vector on the device (``flat``, a capture's static
+        inputs, if given), sent up through the engine's ``IntStage`` in one
+        copy; ``size`` is the clip's unpadded (h, w)."""
+        ids = np.asarray(text_ids)
+        if flat is None:
+            flat = torch.empty(2 * ids.size + 2, dtype=torch.int64, device=self.device)
+        self._ints.upload([ids, text_attn, size], flat)
+        return _int_views(flat, ids.shape)
 
     def on_device(self):
         """The context a thread serving this engine runs under: its CUDA
@@ -318,9 +520,8 @@ class InferenceEngine:
     @torch.inference_mode()
     def run_window(self, video, mask, text_ids, text_attn, model_size) -> Dict[str, torch.Tensor]:
         """Full forward of one padded clip -> the output tensors."""
-        ids, attn = self._text(text_ids, text_attn)
-        sizes = torch.tensor([model_size], dtype=torch.long, device=self.device)
-        out = self.model(video.to(self.dtype), mask, ids, attn, sizes)
+        out = self.model(video.to(self.dtype), mask,
+                         *self._inputs(text_ids, text_attn, model_size))
         return {k: out[k] for k in OUTPUT_KEYS}
 
     @torch.inference_mode()
@@ -330,14 +531,27 @@ class InferenceEngine:
             return self.model(video.to(self.dtype), mask, backbone_only=True)
 
     @torch.inference_mode()
-    def trunk(self, feats, mask, text_ids, text_attn, sizes) -> Dict[str, torch.Tensor]:
+    def trunk(self, feats, mask, text_ids, text_attn, size) -> Dict[str, torch.Tensor]:
         """Text-conditioned half over precomputed features; the text batch
-        E tiles the video axis inside the model. Its span's units are the
-        expression-frames it computes, padding included."""
-        with profiling.span("tce.engine.trunk", len(text_ids) * mask.shape[1]):
-            ids, attn = self._text(text_ids, text_attn)
-            out = self.model(None, mask, ids, attn, sizes, precomputed_feats=feats)
-            return {k: out[k] for k in OUTPUT_KEYS}
+        E tiles the video axis inside the model. ``size``: the clip's
+        unpadded (h, w), as ``preprocess`` returns it. Its span's units are the
+        expression-frames it computes, padding included. A dispatch that
+        ``graph_gate`` passes replays from the engine's ``TrunkGraphs``; the
+        others run eagerly (``engine.trunk_graph_eager``)."""
+        e_pad, t_clip = len(text_ids), mask.shape[1]
+        with profiling.span("tce.engine.trunk", e_pad * t_clip):
+            if graph_gate(e_pad, t_clip, tuple(mask.shape[2:]), feats[0].dtype, self.device):
+                return self._graphs.run(self, feats, mask, text_ids, text_attn, size)
+            profiling.count("engine.trunk_graph_eager")
+            return self._trunk_eager(feats, mask, text_ids, text_attn, size)
+
+    @torch.inference_mode()
+    def _trunk_eager(self, feats, mask, text_ids, text_attn, size) -> Dict[str, torch.Tensor]:
+        """The trunk's dispatch run eagerly, outside its span: what a
+        replay reproduces, and what a module's forward hooks see."""
+        out = self.model(None, mask, *self._inputs(text_ids, text_attn, size),
+                         precomputed_feats=feats)
+        return {k: out[k] for k in OUTPUT_KEYS}
 
     def window_length(self, t_total: int, whole_video: bool = False) -> int:
         """Core frames of a window: ``window``, or the whole video rounded
@@ -414,7 +628,6 @@ class InferenceEngine:
         model_size = None
         for ext, n_core in self.windows(len(frames), f_extra, whole_video):
             video, mask, model_size = self.preprocess([frames[i] for i in ext])
-            sizes = torch.tensor([model_size], dtype=torch.long, device=self.device)
             feats = self.backbone(video, mask)
             sl = slice(f_extra, f_extra + n_core)
             for c_off, n_real, n_pad in chunks:
@@ -423,7 +636,7 @@ class InferenceEngine:
                 if n_pad != n_real:  # pad rows are duplicates, discarded
                     ids = np.concatenate([ids, np.repeat(ids[:1], n_pad - n_real, 0)])
                     attn = np.concatenate([attn, np.repeat(attn[:1], n_pad - n_real, 0)])
-                out = self.trunk(feats, mask, ids, attn, sizes)
+                out = self.trunk(feats, mask, ids, attn, model_size)
                 profiling.count("engine.trunk_dispatches")
                 profiling.count("engine.trunk_expframes", n_pad * t_clip)
                 profiling.count("engine.trunk_expframes_real", n_real * n_core)

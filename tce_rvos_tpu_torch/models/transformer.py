@@ -108,6 +108,7 @@ class MSDeformAttn(nn.Module):
         self.value_proj = nn.Linear(d_model, d_model)
         self.output_proj = nn.Linear(d_model, d_model)
         self.reset_parameters()
+        self._normalizers: Dict[tuple, torch.Tensor] = {}
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         with torch.no_grad():
@@ -119,6 +120,21 @@ class MSDeformAttn(nn.Module):
             for lin in (self.value_proj, self.output_proj):
                 xavier_(lin.weight, generator)
                 lin.bias.zero_()
+
+    def _normalizer(self, spatial_shapes: SpatialShapes, dtype, device) -> torch.Tensor:
+        """[L, 2] (w, h) of each level, made once per (shapes, dtype, device)
+        and kept: a copy to the device on every call would wait for the
+        stream, and no CUDA graph can hold one. Made outside inference mode,
+        so that a training forward after a served one may save it for its
+        backward."""
+        key = (tuple(spatial_shapes), dtype, device)
+        got = self._normalizers.get(key)
+        if got is None:
+            with torch.inference_mode(False):
+                got = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=dtype,
+                                   device=device)
+            self._normalizers[key] = got
+        return got
 
     def forward(
         self,
@@ -144,8 +160,7 @@ class MSDeformAttn(nn.Module):
         ref = reference_points[:, :, None]  # broadcast over heads
         off_xy = offsets[..., :2]
         if reference_points.shape[-1] == 2:
-            normalizer = torch.tensor([[w, h] for h, w in spatial_shapes],
-                                      dtype=offsets.dtype, device=offsets.device)
+            normalizer = self._normalizer(spatial_shapes, offsets.dtype, offsets.device)
             loc = ref[:, :, :, :, None, :] + off_xy / normalizer[None, None, None, :, None, :]
         elif reference_points.shape[-1] == 4:
             loc = ref[:, :, :, :, None, :2] + off_xy / p * ref[:, :, :, :, None, 2:] * 0.5

@@ -29,6 +29,15 @@ profiler's clock, and the exporter (counterpart of
     exported Chrome trace (its ``baseTimeNanoseconds`` plus ``ts``).
     ``counters()``: the counters' totals alone, without waiting for the
     device.
+  * ``recording(begin, end)``: while a CUDA graph is captured, the spans
+    and counters of the captured code, whether tracing is on or not, as a
+    list of steps: each span's entry and exit end the segment being
+    captured (``end()`` returns it) and begin the next (``begin()``), so a
+    segment holds the work of one stretch between span boundaries; the
+    counts are kept in their place. ``replay(steps, run)`` runs the
+    segments in order (``run(segment)``), each under the spans that were
+    open around it, and adds the counts again: spans and counters as an
+    eager run gives them while tracing is on, nothing while it is off.
   * ``trace(logdir)``: the exporter: the block under ``torch.profiler``
     (CPU and, where there is one, CUDA activity) and ``tracing()``; it
     writes the Chrome trace ``trace.json`` (Perfetto, chrome://tracing)
@@ -142,9 +151,47 @@ class _Span:
                 "host_ms": (self.t1 - self.t0) * 1e-6, "device_ms": device_ms}
 
 
+class _Boundary:
+    """A span met while a capture is recorded (``recording``)."""
+
+    __slots__ = ("rec", "name", "units")
+
+    def __init__(self, rec: "_Recording", name: str, units):
+        self.rec, self.name, self.units = rec, name, units
+
+    def __enter__(self):
+        self.rec.cut()
+        self.rec.steps.append(("open", self.name, self.units))
+        self.rec.names.append(self.name)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.rec.cut()
+        self.rec.steps.append(("close",))
+        self.rec.names.pop()
+        return False
+
+
+class _Recording:
+    __slots__ = ("begin", "end", "steps", "names")
+
+    def __init__(self, begin, end):
+        self.begin, self.end = begin, end
+        self.steps: List[tuple] = []
+        self.names: List[str] = []  # the recorded spans open
+
+    def cut(self) -> None:
+        self.steps.append(("segment", self.end()))
+        self.begin()
+
+
 def span(name: str, units=None):
     """A span of the stage ``name`` that did ``units`` of work; the shared
-    no-op while tracing is off."""
+    no-op while tracing is off (a boundary of the segments while a
+    capture is recorded on this thread)."""
+    rec = getattr(_local, "recording", None)
+    if rec is not None:
+        return _Boundary(rec, name, units)
     if not (_ON or _profiler_on()):
         return _NOOP
     return _Span(name, units)
@@ -152,6 +199,9 @@ def span(name: str, units=None):
 
 def site() -> Optional[str]:
     """The name of the innermost span open on this thread, or None."""
+    rec = getattr(_local, "recording", None)
+    if rec is not None and rec.names:
+        return rec.names[-1]
     stack = getattr(_local, "stack", None)
     return stack[-1].name if stack else None
 
@@ -159,6 +209,10 @@ def site() -> Optional[str]:
 def count(name: str, n: int = 1, site: Optional[str] = None) -> None:
     """Adds ``n`` to the counter ``name`` while tracing is on, and to its
     count under ``site`` (the innermost open span's name by default)."""
+    rec = getattr(_local, "recording", None)
+    if rec is not None:  # the replay's innermost span stands for a site of None
+        rec.steps.append(("count", name, n, site))
+        return
     if not (_ON or _profiler_on()):
         return
     if site is None:
@@ -175,6 +229,45 @@ def _clear() -> None:
         _spans.clear()
         _counters.clear()
         _by_span.clear()
+
+
+@contextlib.contextmanager
+def recording(begin, end):
+    """Records the spans and counters of the block on this thread as steps
+    for ``replay`` (the module's docstring), cutting the segments with
+    ``begin()`` and ``end()``: ``begin()`` on entry, each span's entry and
+    exit, and ``end()`` on exit, also when the block raises. Yields the
+    list of steps, complete once the block has ended."""
+    if getattr(_local, "recording", None) is not None:
+        raise RuntimeError("a recording is already open on this thread")
+    rec = _local.recording = _Recording(begin, end)
+    begin()
+    try:
+        yield rec.steps
+    finally:
+        _local.recording = None
+        rec.steps.append(("segment", end()))
+
+
+def replay(steps: List[tuple], run) -> None:
+    """Runs a recording's segments in order (``run(segment)``) under its
+    spans, and adds its counts, as tracing is on or off."""
+    opened = []
+    try:
+        for step in steps:
+            kind = step[0]
+            if kind == "segment":
+                run(step[1])
+            elif kind == "open":
+                opened.append(span(step[1], step[2]))
+                opened[-1].__enter__()
+            elif kind == "close":
+                opened.pop().__exit__(None, None, None)
+            else:
+                count(*step[1:])
+    finally:
+        while opened:  # a segment raised: the spans it left open close
+            opened.pop().__exit__(None, None, None)
 
 
 @contextlib.contextmanager

@@ -6,8 +6,10 @@ forward's query frames fewer than the value's, as the frame-sharded
 forward calls it) and the
 fused flat AdamW update (``csrc/flat_adamw.cu``: its float4 and its
 one-float path, four tiers, the clip on and off, early and late steps),
-and the engine's input stage on the card (the pinned ``FrameStage``
-against the stack and pageable copy, bitwise).
+the engine's input stage on the card (the pinned ``FrameStage``
+against the stack and pageable copy, bitwise) and the engine's trunk
+replayed from CUDA graphs against its eager trunk (bitwise, with the
+spans and counters a replay gives).
 
 The file imports torch, numpy, pytest and the port only, so that it runs
 on a machine with a GPU and no JAX:
@@ -27,6 +29,7 @@ import torch
 from tce_rvos_tpu_torch.config import ModelConfig
 from tce_rvos_tpu_torch.infer import InferenceEngine
 from tce_rvos_tpu_torch.models.build import build_model
+from tce_rvos_tpu_torch.models.text_encoder import tokenize
 from tce_rvos_tpu_torch.ops.msda import ms_deform_attn_3d_plain, ms_deform_attn_plain
 from tce_rvos_tpu_torch.ops.flat_adamw_cuda import UpdateScalars, flat_adamw_cuda
 from tce_rvos_tpu_torch.ops.msda_cuda import ms_deform_attn, ms_deform_attn_3d
@@ -402,3 +405,135 @@ def test_cuda_preprocess_pinned_stage_is_bitwise_the_pageable_path():
         want = pageable(w)
         assert size == want[2] == (360, 640)
         assert torch.equal(video, want[0]) and torch.equal(mask, want[1])
+
+
+# ---- the trunk from CUDA graphs -------------------------------------------------------
+
+SERVING = dict(with_box_refine=True, qtrans=True, f_token=8, binary=True,
+               compute_dtype="bfloat16")
+
+
+def _serving_engine(backbone):
+    """The serving cells' model on ``backbone`` at full width, its weights
+    the model's init plus N(0, 0.02) drawn on the card."""
+    from tce_rvos_tpu_torch.models.referformer import ReferFormer, init_weights
+
+    cfg = ModelConfig(backbone=backbone, **SERVING)
+    with torch.device("cuda"):
+        model = ReferFormer(cfg)
+    gen = torch.Generator("cuda").manual_seed(0)
+    init_weights(model, gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=gen, device="cuda") * 0.02)
+    return InferenceEngine(cfg, model.state_dict(), device="cuda", window=5)
+
+
+def _outputs_equal(got, want):
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        assert torch.equal(got[k], want[k]), (k, (got[k].float() - want[k].float()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backbone", ["resnet50", "swin_l_p4w7"])
+def test_cuda_trunk_graph_replay_is_bitwise_eager(backbone):
+    """The trunk replayed from CUDA graphs against the same engine's eager
+    trunk, bitwise, at the interactive cells' dispatch (E = 1 over 5
+    720x1280 frames, padded to 384x640) on ResNet-50 and on Swin-L's
+    feature channels: two captions and two frame sets, a dispatch of
+    another shape (E = 2) captured and replayed in between, and outputs
+    returned earlier untouched by later replays. Traced: the first dispatch runs eagerly and captures
+    once; a replay counts 12 MSDA launches under the model's spans, which
+    keep their parents, units and finite CUDA-event times."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU engine never replays")
+    engine = _serving_engine(backbone)
+    rng = np.random.RandomState(0)
+    clips = []
+    for _ in range(2):
+        video, mask, size = engine.preprocess(
+            [rng.rand(720, 1280, 3).astype(np.float32) for _ in range(5)])
+        clips.append((engine.backbone(video, mask), mask, size))
+    assert tuple(clips[0][1].shape[2:]) == (384, 640)
+    captions = ["the man in a red shirt on the left", "a small brown dog running"]
+    caps = [tokenize([c], max_len=16) for c in captions]
+    both = tokenize(captions, max_len=16)
+
+    def trunk(clip, text, run=engine.trunk):
+        feats, mask, size = clip
+        return run(feats, mask, *text, size)
+
+    eager = engine._trunk_eager  # the references
+    want = {(c, x): trunk(clips[c], caps[x], eager) for c in range(2) for x in range(2)}
+    want_both = trunk(clips[0], both, eager)
+    assert engine._graphs.entries == {}
+
+    with profiling.tracing():
+        first = trunk(clips[0], caps[0])
+    got = profiling.collect()
+    assert got["counters"]["engine.trunk_graph_captures"] == 1
+    assert "engine.trunk_graph_replays" not in got["counters"]
+    assert got["counters"]["msda.fwd"] == 12  # the first dispatch's eager run
+    _outputs_equal(first, want[0, 0])
+
+    with profiling.tracing():
+        replayed = trunk(clips[0], caps[0])
+    got = profiling.collect()
+    assert got["counters"]["engine.trunk_graph_replays"] == 1
+    assert "engine.trunk_graph_captures" not in got["counters"]
+    assert got["counters"]["msda.fwd"] == 12
+    sites = got["counters_by_span"]
+    assert sites["tce.model.encoder"]["msda.fwd"] == 4 == sites["tce.model.ftf"]["msda.fwd"]
+    assert sites["tce.model.decoder"]["msda.fwd"] == 4
+    by_id = {s["id"]: s for s in got["spans"]}
+    names = [s["name"] for s in got["spans"]]
+    for name in ("tce.model.text", "tce.model.fusion", "tce.model.encoder",
+                 "tce.model.decoder", "tce.model.pixel_decoder", "tce.model.heads"):
+        assert names.count(name) == 1, name
+    assert names.count("tce.model.ftf") == 4
+    for s in got["spans"]:
+        assert np.isfinite(s["device_ms"]) and s["device_ms"] >= 0, s
+        if s["name"] == "tce.model.ftf":
+            assert by_id[s["parent"]]["name"] == "tce.model.encoder"
+        elif s["name"].startswith("tce.model."):
+            assert by_id[s["parent"]]["name"] == "tce.engine.trunk" and s["units"] == 5
+    _outputs_equal(replayed, want[0, 0])
+
+    other = trunk(clips[1], caps[1])
+    _outputs_equal(other, want[1, 1])
+    _outputs_equal(trunk(clips[0], both), want_both)  # another shape: eager, captured
+    _outputs_equal(trunk(clips[1], caps[0]), want[1, 0])
+    _outputs_equal(trunk(clips[0], both), want_both)  # its replay
+    _outputs_equal(trunk(clips[0], caps[1]), want[0, 1])
+    _outputs_equal(replayed, want[0, 0])  # clones: no later replay wrote them
+    _outputs_equal(other, want[1, 1])
+    assert len(engine._graphs.entries) == 2
+
+
+@pytest.mark.cuda
+def test_cuda_trunk_graph_captures_and_replays_under_the_profiler():
+    """A shape's first dispatch captured, and replayed, while a torch
+    profiler records (``infer.main --trace_dir``): outputs bitwise the
+    eager trunk's, and the replay's MSDA kernels in the profiler's trace."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU engine never replays")
+    from torch.profiler import ProfilerActivity, profile
+
+    engine = _serving_engine("resnet50")
+    rng = np.random.RandomState(1)
+    video, mask, size = engine.preprocess(
+        [rng.rand(720, 1280, 3).astype(np.float32) for _ in range(5)])
+    feats = engine.backbone(video, mask)
+    text = tokenize(["the man in a red shirt on the left"], max_len=16)
+    want = engine._trunk_eager(feats, mask, *text, size)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        first = engine.trunk(feats, mask, *text, size)
+        replayed = engine.trunk(feats, mask, *text, size)
+        torch.cuda.synchronize()
+    _outputs_equal(first, want)
+    _outputs_equal(replayed, want)
+    assert len(engine._graphs.entries) == 1
+    launches = sum(e.count for e in prof.key_averages() if "msda_fwd_kernel<" in e.key)
+    assert launches == 24, launches  # the first dispatch's 12 and the replay's 12

@@ -175,6 +175,7 @@ def test_engine_spans_and_padding_counters():
     got = profiling.collect()
     assert [o["pred_logits"].shape[0] for o in outs] == [12] * 3
     assert got["counters"]["engine.trunk_dispatches"] == 1
+    assert got["counters"]["engine.trunk_graph_eager"] == 1  # never a graph on the CPU
     assert got["counters"]["engine.trunk_expframes"] == 4 * 16
     assert got["counters"]["engine.trunk_expframes_real"] == 3 * 12
     units = {s["name"]: s["units"] for s in got["spans"]}
@@ -192,8 +193,11 @@ def test_engine_spans_and_padding_counters():
     assert _children(got, "tce.model.encoder") == ["tce.model.ftf"] * TINY.enc_layers
     assert {s["root"] for s in got["spans"]} == {
         s["id"] for s in got["spans"] if s["name"] == "tce.engine.request"}
-    # the engine counts under its request; no MSDA kernel launches on the CPU
-    assert got["counters_by_span"] == {"tce.engine.request": got["counters"]}
+    # the engine counts under its request, the gate's choice under the trunk;
+    # no MSDA kernel launches on the CPU
+    request = {k: v for k, v in got["counters"].items() if k != "engine.trunk_graph_eager"}
+    assert got["counters_by_span"] == {"tce.engine.request": request,
+                                       "tce.engine.trunk": {"engine.trunk_graph_eager": 1}}
 
     # windows of 2 frames over T = 5 (3 windows), E = 3 in chunks of 2 and 1:
     # 6 dispatches, the last window's padded frame and the lone chunk's
@@ -202,7 +206,7 @@ def test_engine_spans_and_padding_counters():
         engine.run_video_batch(_frames(5, seed=2), caps, exp_batch=2)
     got = profiling.collect()
     names = _names(got)
-    assert got["counters"] == {"engine.trunk_dispatches": 6,
+    assert got["counters"] == {"engine.trunk_dispatches": 6, "engine.trunk_graph_eager": 6,
                                "engine.trunk_expframes": 3 * (2 * 2 + 1 * 2),
                                "engine.trunk_expframes_real": 5 * 3}
     assert names.count("tce.engine.request") == 1
