@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (``tce_rvos_tpu_torch``) on one GPU.
+"""The port's (``tce_rvos_tpu_torch``) correctness gate on one GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-``python3 chip_smoke.py --dist-gap`` runs only the build and
-``probe_dist_gap``: phase 13's two-rank step against one process under the
-flat AdamW (aligned and packed) and ``--no-flat_opt``.
+Every phase checks; nothing is caught and carried on from. The end-to-end
+and per-layer performance of the port is measured by ``benchmark/``; this
+script times only the kernels alone (the source of PERF.md's kernel table).
 
-Phases (each one fails the run, nothing is caught and carried on from):
+Phases:
   1. build   - compile every CUDA kernel from csrc/ (one nvcc per source,
                all started together), printing registers and spills;
   2. kernels - hold each kernel against its plain PyTorch version: the MSDA
@@ -20,10 +20,10 @@ Phases (each one fails the run, nothing is caught and carried on from):
                edge cases (a ragged query count, shuffled queries, far
                taps, x or y = -1, L = 3 and P = 2; in 3D also f_im = -1
                and N - 1, integer and halfway frames, frames past both
-               ends, N = 1); times and bounds; then the 2D and 3D kernels
-               timed in turns against other builds of their entry points
-               found in build/ab/ (git-ignored), e.g. an earlier version's
-               sources (phase_ab);
+               ends, N = 1); each kernel's device time by graph replay and
+               its bound; then the 2D and 3D kernels timed in turns against
+               other builds of their entry points found in build/ab/
+               (git-ignored), e.g. an earlier version's sources (phase_ab);
   3. path    - flagship model at full width (ResNet-50 + RoBERTa-base,
                f_token 8, IQT, box refine, binary) from seeded random
                weights; InferenceEngine.run_video_batch on a 10-frame
@@ -31,7 +31,8 @@ Phases (each one fails the run, nothing is caught and carried on from):
                bf16 and f32; checks shapes, finiteness, boxes in [0, 1],
                12 MSDA kernel launches per trunk forward (the kernels the
                profiler saw run, a graph's replays among them, and the
-               launch counters), batched masks equal serial run_video masks;
+               launch counters), expression isolation (bitwise), batched
+               masks against serial run_video masks;
   4. parity  - one window, E = 1, f32 with TF32 off, GPU (kernel) against
                the same weights on the CPU (plain MSDA);
   5. train   - the flagship at full width and depth, b = 1, 5x384x640,
@@ -42,19 +43,17 @@ Phases (each one fails the run, nothing is caught and carried on from):
                update launch per step (the default --flat_opt); the
                gradients of one f32 step with use_checkpoint (dropout off)
                held against one without (24 forward launches); bf16 steps
-               with recomputation; ms/step, steps/s, peak memory and MFU
-               with and without recomputation; the device's busy share and
-               top ops of one step under torch.profiler;
+               with recomputation;
  5b. flat adamw - the fused flat AdamW's update kernel against its plain
                version, bitwise, at the flagship's 183,506,503 parameters
                (Adam steps 1 and 1000, the norm below and above the clip,
                weight decay 5e-4 and 0.1; the same gate refuses the kernel
-               launched without decay or eps), its time by
-               graph replay with its bound, the plain version's and
-               torch.optim.AdamW's (fused, foreach; with the clip); the
-               f32 step flat against --no-flat_opt (the loss bitwise equal,
-               the largest parameter gap located); the bf16 steps of both
-               in turns (one update launch a flat step) and their profiles;
+               launched without decay or eps), its time by graph replay
+               with its bound, the plain version's and torch.optim.AdamW's
+               (fused, foreach; with the clip); the f32 step flat against
+               --no-flat_opt (the loss bitwise equal, the largest parameter
+               gap located); bf16 steps of both (one update launch a flat
+               step, none a --no-flat_opt one);
   6. train parity - one f32 step (TF32 off, dropout off), GPU (kernels)
                against CPU (plain MSDA), full width on a 2x192x320 clip;
   7. 3D path - the temporal-MSDA flagship (``--msda_3d``: 3D MSDA in the
@@ -64,27 +63,27 @@ Phases (each one fails the run, nothing is caught and carried on from):
                farther from it than the CPU's own f32 step plus the
                GPU-against-CPU limits):
                run_video_batch E = 4 in bf16 (8 3D + 4 2D forward launches
-               per trunk forward, as phase 3 counts them; batched against serial masks printed as a
-               reading, since the 3D op's time axis spans the expressions;
-               where the encoder's taps land in time, a reading);
-               one window at E = 2, f32, GPU against CPU; 4 bf16 train
-               steps (8 + 8 3D and 4 + 4 2D launches per step, a gradient
-               on every parameter and on the temporal offset rows); one f32
-               train step GPU against CPU. The kernels phase holds the 3D
-               forward at the serving shapes (N = 20 and 5) and the 3D
-               backward at the training shapes (N = 5, and N = 10 with taps
-               crossing clips), with frames past both ends of the axis,
-               exact-integer and halfway frames;
+               per trunk forward, as phase 3 counts them; batched against
+               serial masks printed as a reading, since the 3D op's time
+               axis spans the expressions; where the encoder's taps land in
+               time, a reading); one window at E = 2, f32, GPU against CPU;
+               4 bf16 train steps (8 + 8 3D and 4 + 4 2D launches per step,
+               a gradient on every parameter and on the temporal offset
+               rows); one f32 train step GPU against CPU. The kernels phase
+               holds the 3D forward at the serving shapes (N = 20 and 5) and
+               the 3D backward at the training shapes (N = 5, and N = 10
+               with taps crossing clips), with frames past both ends of the
+               axis, exact-integer and halfway frames;
   8. protocols - the trunk's peak memory at (E, T) points per compute
-               dtype, fitted and held under ``infer._ENVELOPE_GIB``; on
-               synthetic trees of 720x1280 JPEG frames: ytvos whole-video
-               in bf16 (PNGs bitwise the threshold of run_video_batch on
-               the same engine, 12 2D forward launches per trunk forward,
-               N = 160 at the 40-frame window; the kernels phase holds the
-               2D forward at N = 160 too), davis through ``infer.main``,
-               mevis, windowed f32 PNGs GPU against CPU, a ``--msda_3d``
-               windowed run; wall seconds, frames/s, expression-windows/s
-               and peak memory per protocol;
+               dtype, fitted and held under ``infer._ENVELOPE_GIB``, and the
+               memory the trunk's CUDA graphs keep; on synthetic trees of
+               720x1280 JPEG frames: ytvos whole-video in bf16 (PNGs bitwise
+               the threshold of run_video_batch on the same engine, 12 2D
+               forward launches per trunk forward, N = 160 at the 40-frame
+               window; the kernels phase holds the 2D forward at N = 160
+               too), davis through ``infer.main``, mevis, windowed f32 PNGs
+               GPU against CPU, a ``--msda_3d`` windowed run, the launches
+               of each;
   9. main    - ``train.main`` at full width and depth, bf16, on a
                synthetic 720x1280 Ref-YouTube-VOS train tree (2 videos x 10
                frames x 2 expressions = 8 samples an epoch; an object that
@@ -95,12 +94,10 @@ Phases (each one fails the run, nothing is caught and carried on from):
                ``.pth`` for a third (AdamW empty, the schedules
                fast-forwarded, then an epoch of steps);
                ``--msda_3d --batch_size 2`` for one epoch (8 + 8 3D and
-               4 + 4 2D launches per step); the 2D kernels held against
-               plain at the largest padded shape of the 2D runs (N = 5)
-               and, with the 3D kernels, at that of the ``--msda_3d`` run
-               (N = 10); ms/step and the step thread's CPU time, the
-               logger's data share, padded shapes, peak memory, checkpoint
-               seconds and bytes;
+               4 + 4 2D launches per step); frames with valid = 0 and
+               resampled clips seen; the 2D kernels held against plain at
+               the largest padded shape of the 2D runs (N = 5) and, with
+               the 3D kernels, at that of the ``--msda_3d`` run (N = 10);
  10. eval    - evaluation at full width, bf16, on synthetic trees at the
                datasets' sizes: ``train.main --eval`` on JHMDB-Sentences
                (320x240 PNG frames, puppet_mask.mat; 12 2D forward
@@ -115,10 +112,7 @@ Phases (each one fails the run, nothing is caught and carried on from):
                9's ytvos tree, batch 2) and one MeViS epoch (12 + 12 launches
                a step); the 2D forward held against plain at each
                evaluation's shape and both 2D kernels at train_joint's
-               largest; samples/s with the evaluator's wall split into the
-               loader's wait, the device forward, the device postprocess,
-               the host postprocess with RLE encoding and the metric;
-               ms/step and data share; eval_davis's seconds;
+               largest;
  11. backbones - the other backbone families at full width, from seeded
                random weights: the 2D forward kernel held against plain at
                the DC5 levels (48x80, 24x40, 24x40, 12x20: S = 6000) and
@@ -129,37 +123,34 @@ Phases (each one fails the run, nothing is caught and carried on from):
                of two windows, exact expression isolation, batched against
                serial masks, bf16 under limits calibrated on an H100) and
                phase 4's f32 window GPU against CPU; a whole-video ytvos run
-               through ``infer.main`` on one 34-frame 720x1280 video (one
-               40-frame window: 8-frame windows, a temporal shift of 4),
-               its PNG tree and the backbone's peak memory; 6 bf16 train
-               steps at b = 1, 5x384x640, without and with recomputation
-               (12 + 12 and 24 + 12 launches a step), ms/step, peak memory,
-               MFU over a useful-FLOP count derived from the code
-               (``video_swin_forward_flops``) and the device's busy share;
-               one bf16 forward (a 5-frame window, E = 4: finite outputs,
-               12 launches) on Video-Swin-T and -S, Swin-L, ResNet-101,
-               ResNet-50 with DC5 and X3D-M, with the backbone's ms and
-               peak memory; the phase's wall time;
+               through ``infer.main`` on one 18-frame 720x1280 video (one
+               24-frame window: 8-frame windows, a temporal shift of 4),
+               its backbone calls and its PNG tree; 4 bf16 train steps at
+               b = 1, 5x384x640, without and 3 with recomputation (12 + 12
+               and 24 + 12 launches a step), every backbone parameter with
+               a gradient; one bf16 forward (a 5-frame window, E = 4:
+               finite outputs, 12 launches) on Video-Swin-T and -S, Swin-L,
+               ResNet-101, ResNet-50 with DC5 and X3D-M;
  12. options - the model options at full width: the LastLayerAsToken
                flagship (``--f_token -1``) through phase 3's path in bf16 (8
                launches a trunk forward, exact expression isolation,
                batched against serial within phase 3's limits) and f32 GPU
                against CPU; its whole-video windows at T = 40 and 160 (E =
                4, as many a dispatch as the memory envelope allows), each
-               trunk's peak under ``infer._ENVELOPE_GIB``'s line; 6 bf16
+               trunk's peak under ``infer._ENVELOPE_GIB``'s line; 4 bf16
                train steps (8 + 8 launches, every parameter learns);
                ``train.main`` on the 65-class ytvos objective (no
                ``--binary``; ``--masks --vis_loss --contrastive``) on phase
                9's tree, ``infer.main --resume`` on its weights, a
                ``--binary --pretrained_weights`` fine-tune that re-initialises
                only ``class_embed.*``, an epoch without ``--masks`` (no mask
-               loss logged); ``--vlblock --no_rel_coord`` against the
-               flagship (trunk at E = 1 and 4, 3 train steps); the 2D kernels
-               held against plain at the runs' largest padded shape;
+               loss logged); ``--vlblock --no_rel_coord`` beside the
+               flagship (the trunk at E = 1 and 4, 3 train steps); the 2D
+               kernels held against plain at the runs' largest padded shape;
  13. dist    - the multi-process path and the host modules (run after 11):
                the C RLE built and taken by phase 10's JHMDB evaluation
                (``--batch_size 1``), bitwise equal to numpy on its masks,
-               samples/s with each; two processes sharing the card over
+               the metrics equal; two processes sharing the card over
                gloo, one f32 step (TF32 off, dropout off, ``--vis_loss
                --masks``) of the full-width flagship at 2 + 2 layers on one
                5x384x640 clip each, held against one process on both
@@ -169,20 +160,20 @@ Phases (each one fails the run, nothing is caught and carried on from):
                one-process step; ``train.main`` at world 1 over NCCL
                through the launcher's environment (4 bf16 steps), its
                gradient all-reduce (one call on the flat AdamW's
-               gradient buffer) and loss sum bitwise, timed;
+               gradient buffer) and loss sum bitwise;
  14. sp      - the frame-sharded forward of one video
-               (``parallel/mesh.py::shard_time_axis``): two processes
-               sharing the card over gloo, 5 frames each of one 10x384x640
-               clip, the flagship at full width and depth and its
-               ``--msda_3d`` variant: the gathered outputs against the
+               (``parallel/mesh.py::shard_time_axis``): the dry run as a
+               user runs it; two processes sharing the card over gloo, 5
+               frames each of one 10x384x640 clip, the flagship at full
+               width and depth, its ``--msda_3d`` variant, Video-Swin-B,
+               X3D-M and ``valid_indices``: the gathered outputs against the
                one-process forward (f32 at ``SP_F32_TOL``; bf16 mask
-               decisions within ``SP_BF16_MARGIN`` of 0), NCCL at world 1
-               bitwise, each rank's launches; forward ms and peak GiB of
-               each rank and of one process. The kernels phase holds the 3D
-               forward at the sharded calls (Nq = 5 of N = 10, 20 of 40);
- 15. numbers - card name and power limit, clips/s and ms per trunk
-               forward, peak memory per E, and a JSON ``kernels`` line.
+               decisions within ``SP_BF16_LIMITS``), NCCL at world 1
+               bitwise, each rank's launches. The kernels phase holds the
+               3D forward at the sharded calls (Nq = 5 of N = 10, 20 of 40).
 
+Then the card's name and power limit, and a JSON ``kernels`` line: each
+kernel's errors, device time and bound by shape, and its launches by path.
 The last line of standard output is the device JSON line. Without a CUDA
 device, or without the package beside it, the script exits non-zero and
 prints no result.
@@ -204,11 +195,6 @@ FLAGSHIP_SHAPES = ((48, 80), (24, 40), (12, 20), (6, 10))  # 384x640 clip
 M, D, L, P = 8, 32, 4, 4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12    # non-tensor-core float32 peak
-BF16_DENSE_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor-core dense peak
-# useful forward + backward FLOPs of one flagship training step on one
-# 5x384x640 clip (the JAX package's scripts/count_flops.py, recomputation
-# not counted), the numerator of the training MFU
-TRAIN_USEFUL_FLOPS_PER_CLIP = 3.7012e12
 
 
 T_START = time.perf_counter()
@@ -1221,20 +1207,16 @@ def expression_isolation(engine, frames, label: str) -> dict:
 
 
 def phase_path(dtype_name: str, sd, videos, backbone: str = "resnet50", tag: str = "path",
-               limits=BF16_BATCHED_VS_SERIAL_LIMITS, overrides: dict = None,
-               trunk_es=(1, 2, 4, 8), timings: bool = True) -> dict:
+               limits=BF16_BATCHED_VS_SERIAL_LIMITS, overrides: dict = None) -> tuple:
     """run_video_batch (E = 4, two 5-frame windows) through the kernel;
     expression isolation and where batched and serial part; the batched
     masks against serial run_video for every caption of every video (bf16
-    within ``limits``); with ``timings``, times: the serving rate, the
-    full forward, the backbone, the trunk's at each E of ``trunk_es`` and
-    its stage breakdown. The flagship on ``backbone``, with the model
-    options ``overrides``."""
+    within ``limits``). The flagship on ``backbone``, with the model
+    options ``overrides``. Returns (the readings, the masks)."""
     import torch
 
     from tce_rvos_tpu_torch import flagship_config
     from tce_rvos_tpu_torch.infer import InferenceEngine
-    from tce_rvos_tpu_torch.models.text_encoder import tokenize
 
     cfg = flagship_config(compute_dtype=dtype_name, backbone=backbone, **(overrides or {}))
     engine = InferenceEngine(cfg, sd, device="cuda")
@@ -1244,10 +1226,8 @@ def phase_path(dtype_name: str, sd, videos, backbone: str = "resnet50", tag: str
     per_forward = msda_per_forward(cfg)
 
     reset_launch_counts()
-    t0 = time.perf_counter()
     outs, ran = device_launches(
         lambda: engine.run_video_batch(frames, list(CAPTIONS), exp_batch=len(CAPTIONS)))
-    first_s = time.perf_counter() - t0
     launches, counted = ran["msda_fwd"], launch_counts()["msda_fwd"]
     trunk_forwards = n_windows  # one expression chunk per window
     if not launches == counted == per_forward * trunk_forwards:
@@ -1257,55 +1237,12 @@ def phase_path(dtype_name: str, sd, videos, backbone: str = "resnet50", tag: str
     check_outputs(outs, label)
     log(f"{label} run_video_batch E={len(CAPTIONS)}, {n_windows} windows: outputs ok, "
         f"msda_fwd launches the device ran {launches} ({per_forward} x {trunk_forwards} trunk "
-        f"forwards; launch counters {counted}), first call {first_s:.3f} s under the profiler")
+        f"forwards; launch counters {counted})")
 
     isolation = expression_isolation(engine, frames, label)
     bvs = batched_vs_serial(engine, videos, outs, dtype_name, label, limits)
     result = dict(launches=launches, per_forward=per_forward, trunk_forwards=trunk_forwards,
-                  first_call_s=first_s, isolation=isolation, batched_vs_serial=bvs["worst"])
-    if not timings:
-        del engine
-        torch.cuda.empty_cache()
-        return result, bvs["masks"]
-
-    # steady-state serving rate: expression-windows per second
-    reps = 3
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        engine.run_video_batch(frames, list(CAPTIONS), exp_batch=len(CAPTIONS))
-    torch.cuda.synchronize()
-    serve_s = (time.perf_counter() - t0) / reps
-    serve_rate = len(CAPTIONS) * n_windows / serve_s
-
-    # per-window times: full forward (E = 1, the JAX bench's clip), the
-    # backbone, and the trunk per E with its peak memory
-    video, mask, size = engine.preprocess(frames[:engine.window])
-    sizes = size
-    full_ms = cuda_ms(lambda: engine.run_window(video, mask, *tokenize([CAPTIONS[0]]), size),
-                      reps=10)
-    feats = engine.backbone(video, mask)
-    backbone_ms = cuda_ms(lambda: engine.backbone(video, mask), reps=10)
-    trunk = {}
-    for e in trunk_es:
-        ids, attn = tokenize([CAPTIONS[i % len(CAPTIONS)] for i in range(e)])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        ms = cuda_ms(lambda: engine.trunk(feats, mask, ids, attn, sizes), reps=10)
-        peak = torch.cuda.max_memory_allocated()
-        trunk[e] = dict(ms=ms, peak_gib=peak / 2**30, peak_above_resident_gib=(peak - base) / 2**30)
-        log(f"{label} trunk E={e}: {ms:.3f} ms/forward, {e * 1000.0 / ms:.2f} expression-clips/s, "
-            f"max_memory_allocated {peak / 2**30:.3f} GiB "
-            f"({(peak - base) / 2**30:.3f} GiB above the resident weights and features)")
-    breakdown = stage_breakdown(engine, feats, mask, sizes, label)
-    log(f"{label} full forward (E=1, one 5x384x640 clip): {full_ms:.3f} ms = "
-        f"{1000.0 / full_ms:.2f} clips/s; backbone {backbone_ms:.3f} ms/window; "
-        f"run_video_batch E={len(CAPTIONS)}: {serve_s * 1e3:.3f} ms for {n_windows} windows = "
-        f"{serve_rate:.2f} expression-windows/s")
-    result.update(full_ms=full_ms, clips_per_s=1000.0 / full_ms, backbone_ms=backbone_ms,
-                  trunk=trunk, serve_ms=serve_s * 1e3, expression_windows_per_s=serve_rate,
-                  breakdown=breakdown)
+                  isolation=isolation, batched_vs_serial=bvs["worst"])
     del engine
     torch.cuda.empty_cache()
     return result, bvs["masks"]
@@ -1361,26 +1298,23 @@ def phase_path_3d(sd3, frames) -> dict:
     """The temporal-MSDA flagship (``--msda_3d``) serving path in bf16:
     run_video_batch (E = 4, two 5-frame windows) through the kernels, with
     8 3D and 4 2D MSDA forward launches per trunk forward; shapes,
-    finiteness, boxes in [0, 1]; times, peak memory and the trunk's stage
-    breakdown. The 3D op takes the
-    whole batch axis (E x 5 frames) as time, as in the JAX package, so
-    expressions are not isolated from each other and batched masks need not
-    equal serial ones: their gap is printed as a reading, not held."""
+    finiteness, boxes in [0, 1]; where the 3D encoder's taps land in time
+    (``temporal_taps``). The 3D op takes the whole batch axis (E x 5
+    frames) as time, as in the JAX package, so expressions are not
+    isolated from each other and batched masks need not equal serial ones:
+    their gap is printed as a reading, not held."""
     import torch
 
     from tce_rvos_tpu_torch import flagship_config
     from tce_rvos_tpu_torch.infer import InferenceEngine
-    from tce_rvos_tpu_torch.models.text_encoder import tokenize
 
     cfg = flagship_config(msda_3d=True, compute_dtype="bfloat16")
     engine = InferenceEngine(cfg, sd3, device="cuda")
     label = "[path 3d bfloat16]"
     n_windows = -(-N_FRAMES // engine.window)
     reset_launch_counts()
-    t0 = time.perf_counter()
     outs, counts = device_launches(
         lambda: engine.run_video_batch(frames, list(CAPTIONS), exp_batch=len(CAPTIONS)))
-    first_s = time.perf_counter() - t0
     counted = launch_counts()
     want = {"msda_fwd": 4 * n_windows, "msda_bwd": 0, "msda3d_fwd": 8 * n_windows,
             "msda3d_bwd": 0}
@@ -1391,7 +1325,7 @@ def phase_path_3d(sd3, frames) -> dict:
     check_outputs(outs, label)
     log(f"{label} run_video_batch E={len(CAPTIONS)}, {n_windows} windows: outputs ok, "
         f"launches the device ran {counts} (8 msda3d_fwd + 4 msda_fwd per trunk forward x "
-        f"{n_windows}; the launch counters agree), first call {first_s:.3f} s under the profiler")
+        f"{n_windows}; the launch counters agree)")
     gaps = [mask_gap(outs[e]["pred_masks"], engine.run_video(frames, cap)["pred_masks"])
             for e, cap in enumerate(CAPTIONS)]
     log(f"{label} batched (E = 4) against serial (E = 1) masks, a reading (the 3D op's time "
@@ -1399,38 +1333,12 @@ def phase_path_3d(sd3, frames) -> dict:
         + ", ".join(f"{g[0]:.3e}" for g in gaps) + "; share of pixels whose mask differs "
         + ", ".join(f"{g[1]:.3e}" for g in gaps))
 
-    reps = 3
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        engine.run_video_batch(frames, list(CAPTIONS), exp_batch=len(CAPTIONS))
-    torch.cuda.synchronize()
-    serve_s = (time.perf_counter() - t0) / reps
-    serve_rate = len(CAPTIONS) * n_windows / serve_s
     video, mask, size = engine.preprocess(frames[:engine.window])
-    sizes = size
     feats = engine.backbone(video, mask)
-    taps = temporal_taps(engine, feats, mask, sizes)
-    trunk = {}
-    for e in (1, 4):
-        ids, attn = tokenize([CAPTIONS[i % len(CAPTIONS)] for i in range(e)])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        ms = cuda_ms(lambda: engine.trunk(feats, mask, ids, attn, sizes), reps=10)
-        peak = torch.cuda.max_memory_allocated()
-        trunk[e] = dict(ms=ms, peak_gib=peak / 2**30, peak_above_resident_gib=(peak - base) / 2**30)
-        log(f"{label} trunk E={e}: {ms:.3f} ms/forward, max_memory_allocated "
-            f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the resident "
-            f"weights and features)")
-    breakdown = stage_breakdown(engine, feats, mask, sizes, label)
-    log(f"{label} run_video_batch E={len(CAPTIONS)}: {serve_s * 1e3:.3f} ms for {n_windows} "
-        f"windows = {serve_rate:.2f} expression-windows/s")
+    taps = temporal_taps(engine, feats, mask, size)
     del engine
     torch.cuda.empty_cache()
-    return dict(launches=counts, first_call_s=first_s, batched_vs_serial=gaps, trunk=trunk,
-                serve_ms=serve_s * 1e3, expression_windows_per_s=serve_rate, breakdown=breakdown,
-                temporal_taps=taps)
+    return dict(launches=counts, batched_vs_serial=gaps, temporal_taps=taps)
 
 
 def bf16_against_f32(masks) -> None:
@@ -1445,123 +1353,6 @@ def bf16_against_f32(masks) -> None:
     log("[bf16 vs f32] masks against serial f32, largest over videos and captions: " + ", ".join(
         f"{k} bf16: relative RMS {v['rel_rms']:.3e}, mask differs on {v['flip']:.3e} of pixels"
         for k, v in out.items()))
-
-
-def stage_breakdown(engine, feats, mask, sizes, label: str, e: int = 4,
-                    profile: bool = True) -> dict:
-    """Where one trunk forward (E captions) spends device time: CUDA events
-    around each stage (forward hooks on the model's modules, no change to
-    the model), then (``profile``) torch.profiler's top kernels and the
-    device's busy share of the forward's wall time."""
-    import torch
-
-    from tce_rvos_tpu_torch.models.text_encoder import tokenize
-
-    model = engine.model
-    tr = model.transformer
-    # the encoder's frame tokens: FTF, or LastLayerAsToken at f_token < 0
-    tokens = "encoder_ftf" if engine.cfg.f_token > 0 else "encoder_last_layer_tokens"
-    stages = {"text_encoder": [model.text_encoder], "input_proj": list(model.input_proj),
-              "fusion": [model.fusion_module],
-              tokens: [l.ftoken_layers or l.inter_frame_atten for l in tr.encoder.layers],
-              "encoder_msda": [l.self_attn for l in tr.encoder.layers],
-              "encoder": list(tr.encoder.layers), "decoder": list(tr.decoder.layers),
-              "pixel_decoder": [model.pixel_decoder]}
-    spans = {k: [] for k in stages}
-    hooks = []
-    for name, mods in stages.items():
-        for mod in mods:
-            def pre(_m, _a, name=name):
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                spans[name].append([ev, None])
-
-            def post(_m, _a, _o, name=name):
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                spans[name][-1][1] = ev
-
-            hooks += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
-    ids, attn = tokenize([CAPTIONS[i % len(CAPTIONS)] for i in range(e)])
-    engine._trunk_eager(feats, mask, ids, attn, sizes)  # warm
-    for v in spans.values():
-        v.clear()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    engine._trunk_eager(feats, mask, ids, attn, sizes)
-    end.record()
-    end.synchronize()
-    for h in hooks:
-        h.remove()
-    total = start.elapsed_time(end)
-    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
-    ms["encoder_rest"] = ms["encoder"] - ms[tokens] - ms["encoder_msda"]
-    ms["other"] = total - sum(ms[k] for k in ("text_encoder", "input_proj", "fusion",
-                                              "encoder", "decoder", "pixel_decoder"))
-    log(f"{label} trunk E={e} stage breakdown, {total:.3f} ms: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in ms.items()))
-
-    if not profile:
-        return {"total_ms": total, "stages_ms": ms}
-    prof = profile_device(lambda: engine._trunk_eager(feats, mask, ids, attn, sizes),
-                          f"{label} profiled trunk forward")
-    return {"total_ms": total, "stages_ms": ms, **prof}
-
-
-def profile_device(fn, label: str, top: int = 12, host_top: int = 0) -> dict:
-    """One call of ``fn`` under torch.profiler: its wall time (CUDA events),
-    the device's busy time (the sum of device-side kernel times), the top
-    device ops, the number of device ops, and with ``host_top`` the top
-    host ops by their own CPU time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-    wall = a.elapsed_time(b)
-
-    def dev_us(evt):
-        return getattr(evt, "self_device_time_total", None) or getattr(
-            evt, "self_cuda_time_total", 0)
-
-    # device-side entries only: a CPU op's self device time repeats the
-    # time of the kernels it launched, and a user annotation's device span
-    # (the optimizer step's) that of the kernels inside it
-    kernels = sorted(((dev_us(evt), evt.key, evt.count) for evt in prof.key_averages()
-                      if str(evt.device_type).endswith("CUDA") and dev_us(evt) > 0
-                      and not getattr(evt, "is_user_annotation", False)),
-                     reverse=True)
-    busy_ms = sum(k[0] for k in kernels) / 1e3
-    n_ops = sum(k[2] for k in kernels)
-    if busy_ms == 0:
-        log(f"{label}: the profiler saw no device time")
-    else:
-        log(f"{label}: wall {wall:.3f} ms, device busy {busy_ms:.3f} ms "
-            f"({100.0 * busy_ms / wall:.1f}%) in {n_ops} device ops; top device ops:")
-        for us, key, count in kernels[:top]:
-            log(f"{label}   {us / 1e3:9.3f} ms  x{count:<5d} {key[:100]}")
-        for kname in ("msda_fwd_kernel", "msda_bwd_kernel", "msda3d_fwd_kernel",
-                      "msda3d_bwd_kernel"):  # every instantiation of each
-            mine = [(us, count) for us, key, count in kernels if f"{kname}<" in key]
-            if mine:
-                log(f"{label}   {kname}: {sum(u for u, _ in mine) / 1e3:.3f} ms in "
-                    f"{sum(c for _, c in mine)} launches")
-    host = sorted(((evt.self_cpu_time_total, evt.key, evt.count) for evt in prof.key_averages()
-                   if not str(evt.device_type).endswith("CUDA")), reverse=True)
-    if host_top:
-        log(f"{label}: host ops, own CPU time {sum(h[0] for h in host) / 1e3:.3f} ms in all; "
-            f"top {host_top}:")
-        for us, key, count in host[:host_top]:
-            log(f"{label}   {us / 1e3:9.3f} ms  x{count:<5d} {key[:100]}")
-    return {"profiled_wall_ms": wall, "device_busy_ms": busy_ms, "device_ops": n_ops,
-            "top_ops": [(key[:100], us / 1e3, count) for us, key, count in kernels[:top]],
-            "top_host_ops": [(key[:100], us / 1e3, count) for us, key, count in host[:host_top]]}
 
 
 def phase_parity(sd, frames, msda_3d: bool = False, backbone: str = "resnet50",
@@ -1592,13 +1383,11 @@ def phase_parity(sd, frames, msda_3d: bool = False, backbone: str = "resnet50",
         engine = InferenceEngine(cfg, sd, device=dev)
         video, mask, size = engine.preprocess(frames[:engine.window])
         reset_launch_counts()
-        t0 = time.perf_counter()
         out = engine.run_window(video, mask, ids, attn, size)
         outs[dev] = {k: v.float().cpu().numpy() for k, v in out.items()}
-        secs = time.perf_counter() - t0
         counts = launch_counts()
         launched = {k: counts[k] for k in want}
-        log(f"{label} {dev}: one window, E={len(ids)}, in {secs:.3f} s, launches {launched}")
+        log(f"{label} {dev}: one window, E={len(ids)}, launches {launched}")
         expected = want if dev == "cuda" else {k: 0 for k in want}
         if launched != expected:
             raise AssertionError(f"{label} {dev} run launched the MSDA kernels {launched} "
@@ -1616,7 +1405,7 @@ def phase_parity(sd, frames, msda_3d: bool = False, backbone: str = "resnet50",
 # ---------------------------------------------------------------------------
 
 TRAIN_T, TRAIN_HW = 5, (384, 640)   # the flagship training clip, b = 1
-TRAIN_STEPS, TRAIN_STEPS_CKPT, TRAIN_WARMUP = 10, 6, 2
+TRAIN_STEPS, TRAIN_STEPS_CKPT = 10, 6
 # the train runs of phases 11 and 12 (the other backbones and options)
 OTHER_TRAIN_STEPS, OTHER_TRAIN_STEPS_CKPT = 4, 3
 PARITY_T, PARITY_HW = 2, (192, 320)  # small enough for the CPU's f32 step
@@ -1799,56 +1588,35 @@ def adamw_per_step(state) -> int:
     return state.optimizer.update_launches
 
 
-FLOPS_SOURCE = "from the JAX package's count of the 2D flagship"
-
-
-def train_run(state, step, batches, label: str, tag: str, warmup: int = TRAIN_WARMUP,
-              useful_flops: float = TRAIN_USEFUL_FLOPS_PER_CLIP,
-              flops_source: str = FLOPS_SOURCE) -> dict:
-    """train_one_epoch over ``batches``, each step timed to its end on the
-    device; MSDA launch counts of the run and peak memory; MFU from
-    ``useful_flops`` per clip."""
-    import torch
-
+def train_run(state, step, batches, label: str, tag: str) -> dict:
+    """train_one_epoch over ``batches``: finite losses, the MSDA launch
+    counts of the run, one flat AdamW update launch a step (none with
+    ``--no-flat_opt``)."""
     from tce_rvos_tpu_torch.engine import train_one_epoch
 
-    times, losses = [], []
+    losses = []
 
-    def timed(st, batch):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    def logged(st, batch):
         st, metrics = step(st, batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
         return st, metrics
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    train_one_epoch(state, timed, batches, epoch=0, print_freq=5)
+    train_one_epoch(state, logged, batches, epoch=0, print_freq=5)
     counts, adamw = launch_counts(), adamw_launches()
-    peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{label} {tag}: a loss is not finite: {losses}")
     if adamw != adamw_per_step(state) * len(batches):
         raise AssertionError(f"{label} {tag}: {adamw} flat AdamW update launches over "
                              f"{len(batches)} steps, expected {adamw_per_step(state)} a step")
-    ms = statistics.median(times[warmup:])
     n_steps = len(batches)
-    out = dict(steps=n_steps, ms_per_step=ms, steps_per_s=1e3 / ms, step_ms=times,
-               losses=losses, peak_gib=peak / 2**30, launches=counts["msda_fwd"],
+    out = dict(steps=n_steps, losses=losses, launches=counts["msda_fwd"],
                backward_launches=counts["msda_bwd"], launches_3d=counts["msda3d_fwd"],
-               backward_launches_3d=counts["msda3d_bwd"], adamw_launches=adamw,
-               mfu=useful_flops / (ms / 1e3) / BF16_DENSE_FLOPS_PER_S)
+               backward_launches_3d=counts["msda3d_bwd"], adamw_launches=adamw)
     log(f"{label} {tag}: {n_steps} steps, losses {[round(x, 4) for x in losses]}; "
-        f"{ms:.3f} ms/step (median after {warmup} warm-up steps) = "
-        f"{out['steps_per_s']:.3f} steps/s; max_memory_allocated {out['peak_gib']:.3f} GiB; "
         f"MSDA launches forward {counts['msda_fwd']}, backward {counts['msda_bwd']}, "
         f"3D forward {counts['msda3d_fwd']}, 3D backward {counts['msda3d_bwd']}; flat AdamW "
-        f"update launches {adamw}; MFU {100 * out['mfu']:.2f}% (useful FLOPs "
-        f"{useful_flops:.4e} per clip "
-        f"{flops_source}, over the H100 SXM bf16 dense peak of 989 TFLOP/s)")
+        f"update launches {adamw}")
     return out
 
 
@@ -1901,10 +1669,6 @@ def phase_train(sd) -> dict:
     every_parameter_learns(model, start, label, "value_proj and sampling_offsets of encoder "
                                                 "layer 0 included")
     del start
-
-    result["profile"] = profile_device(lambda: step(state, batches[0]),
-                                       f"{label} profiled bf16 train step (no recomputation)",
-                                       host_top=12)
 
     # recomputation against none: one f32 step's gradients from the same
     # state, dropout off; a second run without recomputation reads the noise
@@ -1964,7 +1728,7 @@ ADAMW_BYTES, ADAMW_FLOPS, NORM_BYTES = 28, 16, 4
 # operation); weight decays of the default and of 0.1, whose term
 # lr * wd * |p| (1e-5 |p|) stands far above the rounding of p
 ADAMW_WDS = (None, 0.1)
-ADAMW_AB_STEPS = 6  # bf16 steps a turn of the flat against --no-flat_opt comparison
+ADAMW_AB_STEPS = 6  # bf16 steps of each of the flat AdamW and --no-flat_opt
 
 
 def adamw_cases(lay, gen, dev):
@@ -2089,7 +1853,7 @@ def gap_line(w: dict) -> str:
                if "g_clipped_over_eps" in w["want"] else ""))
 
 
-def phase_flat_adamw(sd, train: dict) -> dict:
+def phase_flat_adamw(sd) -> dict:
     """Phase 5b, the fused flat AdamW on the card:
     1. its update kernel against ``flat_adamw_update_plain`` at the
        flagship's full width (183,506,503 parameters in its four tiers,
@@ -2106,11 +1870,8 @@ def phase_flat_adamw(sd, train: dict) -> dict:
        bitwise equal (the forward through the aligned views runs the
        per-leaf kernels), the rest at the JAX package's DP tolerances
        (``dryrun.DP_TOL``), where the largest parameter gap is;
-    4. the same two models' bf16 steps (dropout on) in turns, flat,
-       ``--no-flat_opt``, ``--no-flat_opt``, flat (ms/step each turn, one
-       update launch a flat step and none a ``--no-flat_opt`` one), and
-       one profiled ``--no-flat_opt`` step (device-busy share, device-op
-       count) beside phase 5's profiled flat step (``train``).
+    4. the same two models' bf16 steps (dropout on): one update launch a
+       flat step and none a ``--no-flat_opt`` one.
     Phase 5's run gives the main path's launches: one update a step."""
     import dataclasses
 
@@ -2134,7 +1895,6 @@ def phase_flat_adamw(sd, train: dict) -> dict:
     )
 
     label = "[flat adamw]"
-    t_phase = time.perf_counter()
     dev = torch.device("cuda")
     tcfg = TrainConfig()
     lay = flagship_layout(tcfg)
@@ -2242,51 +2002,28 @@ def phase_flat_adamw(sd, train: dict) -> dict:
         + gap_line(step_gap["worst"]))
     del runs
 
-    # 4. their bf16 steps (dropout on) in turns, flat, --no-flat_opt,
-    # --no-flat_opt, flat, then one profiled --no-flat_opt step (phase 5
-    # profiled the flat one)
+    # 4. their bf16 steps (dropout on)
     step = make_train_step(crit, cfg.compute_dtype)
     batches = [batch_to_device(train_batch(TRAIN_T, TRAIN_HW, seed=10 + i), dev)
                for i in range(ADAMW_AB_STEPS)]
-    turns = {True: [], False: []}
-    for flat_opt in (True, False, False, True):
-        states[flat_opt].model.train()
-        tag = "bf16 steps, flat AdamW" if flat_opt else "bf16 steps, --no-flat_opt"
-        turns[flat_opt].append(train_run(states[flat_opt], step, batches, label, tag))
-    profiles = {True: train["profile"],
-                False: profile_device(lambda: step(states[False], batches[0]),
-                                      f"{label} profiled bf16 step, --no-flat_opt")}
     bf16 = {}
     for flat_opt, name in ((True, "flat"), (False, "no_flat_opt")):
-        prof = profiles[flat_opt]
-        bf16[name] = dict(ms_per_step=[r["ms_per_step"] for r in turns[flat_opt]],
-                          step_ms=[r["step_ms"] for r in turns[flat_opt]],
-                          adamw_launches_per_step=[r["adamw_launches"] / r["steps"]
-                                                   for r in turns[flat_opt]],
-                          **{k: prof[k] for k in ("device_ops", "device_busy_ms",
-                                                  "profiled_wall_ms")})
+        states[flat_opt].model.train()
+        tag = "bf16 steps, flat AdamW" if flat_opt else "bf16 steps, --no-flat_opt"
+        run = train_run(states[flat_opt], step, batches, label, tag)
+        bf16[name] = dict(adamw_launches_per_step=run["adamw_launches"] / run["steps"])
     del states, batches, step
     torch.cuda.empty_cache()
-    log(f"{label} bf16 step in turns (flat, --no-flat_opt, --no-flat_opt, flat; median ms/step "
-        f"after {TRAIN_WARMUP} warm-up steps of {ADAMW_AB_STEPS}): flat "
-        f"{bf16['flat']['ms_per_step']}, --no-flat_opt {bf16['no_flat_opt']['ms_per_step']}; "
-        f"profiled step: flat (phase 5) {bf16['flat']['device_ops']} device ops, "
-        f"{bf16['flat']['device_busy_ms']:.3f} ms busy of {bf16['flat']['profiled_wall_ms']:.3f}; "
-        f"--no-flat_opt {bf16['no_flat_opt']['device_ops']} device ops, "
-        f"{bf16['no_flat_opt']['device_busy_ms']:.3f} ms busy of "
-        f"{bf16['no_flat_opt']['profiled_wall_ms']:.3f}; update launches a step "
-        f"{bf16['flat']['adamw_launches_per_step']} and "
-        f"{bf16['no_flat_opt']['adamw_launches_per_step']}")
-    res = dict(elements=n, parameters=sum(lay.sizes), tiers=[list(t) for t in lay.tier_slices],
-               cases=cases,
-               max_abs_err=worst, gate_refuses=refused, ms=ms, plain_ms=plain_ms,
-               bound_ms=bound_ms, bound_by=bound_by,
-               bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms, pair_ms=pair_ms,
-               pair_bound_ms=pair_bound_ms, norm_ms=norm_ms, library=library,
-               library_ms=library["fused"], step_gap=step_gap, bf16_step=bf16,
-               seconds=time.perf_counter() - t_phase)
-    log(f"{label} phase 5b wall {res['seconds']:.1f} s")
-    return res
+    log(f"{label} update launches a bf16 step: flat {bf16['flat']['adamw_launches_per_step']}, "
+        f"--no-flat_opt {bf16['no_flat_opt']['adamw_launches_per_step']}")
+    return dict(elements=n, parameters=sum(lay.sizes), tiers=[list(t) for t in lay.tier_slices],
+                cases=cases,
+                max_abs_err=worst, gate_refuses=refused, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms, pair_ms=pair_ms,
+                pair_bound_ms=pair_bound_ms, norm_ms=norm_ms, library=library,
+                library_ms=library["fused"], step_gap=step_gap, bf16_step=bf16)
+
 
 TRAIN_STEPS_3D = 4
 
@@ -2297,7 +2034,7 @@ def phase_train_3d(sd3) -> dict:
     5x384x640); finite losses, 8 + 8 3D and 4 + 4 2D MSDA launches per
     step, a non-zero gradient on every trainable parameter, the temporal
     rows (every third) of each 3D ``sampling_offsets.weight`` included, and
-    every parameter moved; ms/step and peak memory."""
+    every parameter moved."""
     import torch
 
     from tce_rvos_tpu_torch import flagship_config
@@ -2323,7 +2060,7 @@ def phase_train_3d(sd3) -> dict:
     batches = [batch_to_device(train_batch(TRAIN_T, TRAIN_HW, seed=30 + i), dev)
                for i in range(TRAIN_STEPS_3D)]
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
-    result = train_run(state, step, batches, label, "bf16 train_one_epoch", warmup=1)
+    result = train_run(state, step, batches, label, "bf16 train_one_epoch")
     per_step = {k: result[k] // TRAIN_STEPS_3D for k in
                 ("launches", "backward_launches", "launches_3d", "backward_launches_3d")}
     counts = (result["launches_3d"], result["backward_launches_3d"], result["launches"],
@@ -2384,16 +2121,14 @@ def phase_train_parity(sd, msda_3d: bool = False) -> None:
         state = create_train_state(model, tcfg)
         step = make_train_step(criterion_from_configs(cfg, tcfg))
         reset_launch_counts()
-        t0 = time.perf_counter()
         _, m = step(state, batch)
         metrics[dev] = {k: float(v) for k, v in m.items()}
-        secs = time.perf_counter() - t0
         launched = launch_counts()
         if adamw_launches() != (1 if dev == "cuda" else 0):
             raise AssertionError(f"{label} {dev} step launched the flat AdamW update "
                                  f"{adamw_launches()} times, expected once on the GPU only")
         log(f"{label} {dev}: one f32 step on a {PARITY_T}x{PARITY_HW[0]}x{PARITY_HW[1]} "
-            f"clip in {secs:.3f} s, loss {metrics[dev]['loss']:.6f}, MSDA launches {launched}")
+            f"clip, loss {metrics[dev]['loss']:.6f}, MSDA launches {launched}")
         if launched != (expected if dev == "cuda" else {k: 0 for k in expected}):
             raise AssertionError(f"{label} {dev} step launched MSDA kernels {launched}, "
                                  f"expected {expected} on the GPU and none on the CPU")
@@ -2465,15 +2200,14 @@ def phase_train_against_f64(msda_3d: bool = True) -> dict:
         runs = {}
         for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
                            ("cpu", torch.float64)):
-            t0 = time.perf_counter()
             runs[(dev, dtype)] = step_gradients(sd, msda_3d, dev, dtype)
             launched = runs[(dev, dtype)][2]
             want = expected if dev == "cuda" else {k: 0 for k in expected}
             if launched != want:
                 raise AssertionError(f"{label} {dev} {dtype} step launched MSDA kernels "
                                      f"{launched}, expected {want}")
-            log(f"{label} {dev} {dtype_name(dtype)}: loss {runs[(dev, dtype)][0]:.9f} in "
-                f"{time.perf_counter() - t0:.3f} s, launches {launched}")
+            log(f"{label} {dev} {dtype_name(dtype)}: loss {runs[(dev, dtype)][0]:.9f}, "
+                f"launches {launched}")
         del sd
         torch.cuda.empty_cache()
         loss64, g64, _ = runs[("cpu", torch.float64)]
@@ -2764,59 +2498,12 @@ def expected_trunks(n_exp: int, t_clip: int, dtype: str = "bfloat16", exp_batch:
     return [(infer._pow2_ceil(min(eb, n_exp - off)), t_clip, 12) for off in range(0, n_exp, eb)]
 
 
-def timed_protocol(label: str, fn, n_frames: int, n_expression_windows: int) -> dict:
-    """Run ``fn`` (one protocol over a tree) with the launch counts at 0 and
-    the peak memory reset; wall seconds, frames/s, expression-windows/s,
-    peak memory, launches, and the wall time split into JPEG decoding
-    (``infer._load_frame``), ``run_video_batch`` (the device's work and the
-    copies of its outputs to the host), ``masks_to_original`` (the
-    upsample to the original size and its copy to the host), PNG encoding
-    (``PIL.Image.Image.save``) and the rest."""
-    import torch
-    from PIL import Image
-
-    from tce_rvos_tpu_torch import infer
-
-    stages = {"jpeg decode": (infer, "_load_frame"),
-              "run_video_batch": (infer.InferenceEngine, "run_video_batch"),
-              "masks_to_original": (infer, "masks_to_original"),
-              "png encode": (Image.Image, "save")}
-    spent = dict.fromkeys(stages, 0.0)
-    originals = {k: getattr(owner, name) for k, (owner, name) in stages.items()}
-
-    def timed(stage):
-        def call(*args, **kwargs):
-            t = time.perf_counter()
-            try:
-                return originals[stage](*args, **kwargs)  # returns host arrays: synchronised
-            finally:
-                spent[stage] += time.perf_counter() - t
-        return call
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+def protocol_launches(fn) -> dict:
+    """Run ``fn`` (one protocol over a tree) with the launch counts at 0;
+    the MSDA kernels' launches it made."""
     reset_launch_counts()
-    for stage, (owner, name) in stages.items():
-        setattr(owner, name, timed(stage))
-    try:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-    finally:
-        for stage, (owner, name) in stages.items():
-            setattr(owner, name, originals[stage])
-    split = dict(spent, other=secs - sum(spent.values()))
-    out = dict(seconds=secs, frames_per_s=n_frames / secs,
-               expression_windows_per_s=n_expression_windows / secs,
-               peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launch_counts(),
-               split_s=split)
-    log(f"{label} {secs:.3f} s wall: {out['frames_per_s']:.2f} frames/s, "
-        f"{out['expression_windows_per_s']:.2f} expression-windows/s ({n_frames} frames, "
-        f"{n_expression_windows} expression-windows); max_memory_allocated "
-        f"{out['peak_gib']:.3f} GiB; launches {out['launches']}; wall split: "
-        + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()))
-    return out
+    fn()
+    return launch_counts()
 
 
 def phase_protocols(sd, sd3, root: str) -> dict:
@@ -2835,9 +2522,7 @@ def phase_protocols(sd, sd3, root: str) -> dict:
       the threshold;
     * ytvos windowed with the ``--msda_3d`` flagship (weights of seed 1),
       bf16: 8 3D and 4 2D forward launches per trunk forward; the
-      whole-video batched-against-serial gap as a reading.
-    Prints wall seconds, frames/s, expression-windows/s and peak memory per
-    protocol."""
+      whole-video batched-against-serial gap as a reading."""
     import os
 
     import numpy as np
@@ -2858,11 +2543,10 @@ def phase_protocols(sd, sd3, root: str) -> dict:
     label = "[protocol ytvos bf16 whole-video]"
     engine = infer.InferenceEngine(flagship_config(compute_dtype="bfloat16"), sd, device="cuda")
     trunks = count_trunks(engine)
-    n_frames = sum(n for n, _ in PROTO_YTVOS.values())
-    n_exp = sum(len(c) for _, c in PROTO_YTVOS.values())
-    res["ytvos"] = timed_protocol(label, lambda: infer.run_ytvos(engine, ytvos, out["ytvos"]),
-                                  n_frames, n_exp)
-    log(f"{label} trunk forwards (E, T, msda_fwd launches): {trunks}")
+    res["ytvos"] = {"launches": protocol_launches(
+        lambda: infer.run_ytvos(engine, ytvos, out["ytvos"]))}
+    log(f"{label} trunk forwards (E, T, msda_fwd launches): {trunks}; launches "
+        f"{res['ytvos']['launches']}")
     want = [t for n, c in PROTO_YTVOS.values() for t in expected_trunks(len(c), -(-n // 8) * 8)]
     if trunks != want or res["ytvos"]["launches"]["msda_fwd"] != 12 * len(want):
         raise AssertionError(f"{label} trunk forwards {trunks}, launches "
@@ -2893,8 +2577,8 @@ def phase_protocols(sd, sd3, root: str) -> dict:
     trunks.clear()
     (n, caps), = PROTO_MEVIS.values()
     windows = -(-n // engine.window)
-    res["mevis"] = timed_protocol(label, lambda: infer.run_mevis(engine, mevis, out["mevis"]),
-                                  n, len(caps) * windows)
+    res["mevis"] = {"launches": protocol_launches(
+        lambda: infer.run_mevis(engine, mevis, out["mevis"]))}
     want = expected_trunks(len(caps), engine.window) * windows
     if trunks != want:
         raise AssertionError(f"{label} trunk forwards {trunks}, expected {want}")
@@ -2909,7 +2593,7 @@ def phase_protocols(sd, sd3, root: str) -> dict:
     argv = ["--dataset_file", "davis", "--davis_path", davis, "--output_dir", out["davis"],
             "--binary", "--with_box_refine", "--f_token", "8", "--qtrans",
             "--compute_dtype", "bfloat16"]
-    res["davis"] = timed_protocol(label, lambda: infer.main(argv), n, len(caps))
+    res["davis"] = {"launches": protocol_launches(lambda: infer.main(argv))}
     if res["davis"]["launches"]["msda_fwd"] != 12 * chunks:
         raise AssertionError(f"{label} launches {res['davis']['launches']}, expected 12 x "
                              f"{chunks} trunk forwards")
@@ -2941,9 +2625,7 @@ def phase_protocols(sd, sd3, root: str) -> dict:
 
             infer.masks_to_original = recording
         try:
-            t0 = time.perf_counter()
             infer.run_ytvos(engine, small, out[dev], whole_video=False, f_extra=1)
-            log(f"{label} {dev}: {time.perf_counter() - t0:.3f} s")
         finally:
             infer.masks_to_original = mto
         del engine
@@ -2968,9 +2650,8 @@ def phase_protocols(sd, sd3, root: str) -> dict:
     engine = infer.InferenceEngine(flagship_config(msda_3d=True, compute_dtype="bfloat16"), sd3,
                                    device="cuda", window=5)
     windows = -(-n // engine.window)
-    res["msda_3d"] = timed_protocol(
-        label, lambda: infer.run_ytvos(engine, small, out["3d"], whole_video=False, f_extra=1),
-        n, len(caps) * windows)
+    res["msda_3d"] = {"launches": protocol_launches(
+        lambda: infer.run_ytvos(engine, small, out["3d"], whole_video=False, f_extra=1))}
     want = {"msda_fwd": 4 * windows, "msda_bwd": 0, "msda3d_fwd": 8 * windows, "msda3d_bwd": 0}
     if res["msda_3d"]["launches"] != want:
         raise AssertionError(f"{label} launches {res['msda_3d']['launches']}, expected {want}")
@@ -3006,20 +2687,17 @@ MAIN_ABSENT = {"t0": range(6, MAIN_FRAMES), "t1": range(1, MAIN_FRAMES)}
 MAIN_FLAGS = ["--binary", "--with_box_refine", "--f_token", "8", "--qtrans", "--masks",
               "--compute_dtype", "bfloat16", "--lr_drop", "1", "--num_workers", "4",
               "--device", "cuda"]
-MAIN_WARMUP = 2
 
 
 @contextlib.contextmanager
 def main_probe():
-    """Instruments the runs of ``train.main``: each train step timed to its
-    end on the device, with the CPU time of the thread that runs it (with
-    its base LR, padded (H, W) and invisible frames), the state handed to the first step (to ``rec["on_first"]``),
-    checkpoint saves and loads (seconds, bytes) and the dataset's sampling
-    attempts (more attempts than samples = resamples of empty clips)."""
+    """Instruments the runs of ``train.main``: each train step's base LR,
+    loss, padded (H, W) and invisible frames, the state handed to the first
+    step (to ``rec["on_first"]``), the checkpoint saves (directory, bytes)
+    and loads, and the dataset's sampling attempts (more attempts than
+    samples = resamples of empty clips)."""
     import os
     import threading
-
-    import torch
 
     from tce_rvos_tpu_torch.data import ytvos
     from tce_rvos_tpu_torch.parallel import train_step
@@ -3038,13 +2716,8 @@ def main_probe():
             if rec["on_first"] is not None:
                 rec["on_first"](state)
                 rec["on_first"] = None
-            torch.cuda.synchronize()
-            t0, c0 = time.perf_counter(), time.thread_time()
             state, metrics = step(state, batch)
-            torch.cuda.synchronize()
-            rec["steps"].append(dict(ms=(time.perf_counter() - t0) * 1e3,
-                                     cpu_ms=(time.thread_time() - c0) * 1e3, lr=metrics["lr"],
-                                     loss=float(metrics["loss"]),
+            rec["steps"].append(dict(lr=metrics["lr"], loss=float(metrics["loss"]),
                                      hw=tuple(int(x) for x in batch["video"].shape[2:4]),
                                      invisible=int((batch["targets"]["valid"] == 0).sum())))
             return state, metrics
@@ -3052,17 +2725,13 @@ def main_probe():
         return probed
 
     def save_probed(path, *args, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         save(path, *args, **kw)
-        rec["saves"].append(dict(path=path, s=time.perf_counter() - t0, bytes=sum(
+        rec["saves"].append(dict(path=path, bytes=sum(
             os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))))
 
-    def load_probed(*args, **kw):
-        t0 = time.perf_counter()
-        out = load(*args, **kw)
-        rec["loads"].append(time.perf_counter() - t0)
-        return out
+    def load_probed(path, *args, **kw):
+        rec["loads"].append(path)
+        return load(path, *args, **kw)
 
     def count(key, fn):
         def counted(*args, **kw):
@@ -3096,19 +2765,13 @@ def main_run(rec: dict, argv: list, label: str, launches_per_step: dict, entry=N
     under ``main_probe``: the launch counts set to 0 before it and read
     after, held at ``launches_per_step`` per step; finite losses. Returns
     (the final TrainState, the run's numbers)."""
-    import torch
-
     from tce_rvos_tpu_torch import train
 
     first = len(rec["steps"])
     n_saves, n_loads, attempts, samples = (len(rec["saves"]), len(rec["loads"]),
                                            rec["attempts"], rec["samples"])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    t0 = time.perf_counter()
     state = (entry or train.main)(argv)
-    wall = time.perf_counter() - t0
     counts, adamw = launch_counts(), adamw_launches()
     steps = rec["steps"][first:]
     want = {k: v * len(steps) for k, v in launches_per_step.items()}
@@ -3121,36 +2784,16 @@ def main_run(rec: dict, argv: list, label: str, launches_per_step: dict, entry=N
     losses = [s["loss"] for s in steps]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{label}: a loss is not finite: {losses}")
-    out = dict(steps=len(steps), wall_s=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-               launches=counts, adamw_launches=adamw, saves=rec["saves"][n_saves:],
-               loads=rec["loads"][n_loads:],
+    out = dict(steps=len(steps), launches=counts, adamw_launches=adamw,
+               saves=rec["saves"][n_saves:], loads=rec["loads"][n_loads:],
                attempts=rec["attempts"] - attempts, samples=rec["samples"] - samples,
                invisible_frames=sum(s["invisible"] for s in steps),
                hw=sorted({s["hw"] for s in steps}))
-    if len(steps) > MAIN_WARMUP:
-        timed = steps[MAIN_WARMUP:]
-        ms = statistics.median(s["ms"] for s in timed)
-        # steps slower than 1.5x the median against the rest: wall and the
-        # step thread's CPU time (CPU time flat while wall grows: the thread
-        # waits; CPU time grows with it: the step itself works more)
-        slow = [s for s in timed if s["ms"] > 1.5 * ms]
-        rest = [s for s in timed if s["ms"] <= 1.5 * ms]
-        split = {k: dict(steps=len(g), ms=statistics.median(s["ms"] for s in g),
-                         cpu_ms=statistics.median(s["cpu_ms"] for s in g))
-                 for k, g in (("slow", slow), ("rest", rest)) if g}
-        out.update(ms_per_step=ms, steps_per_s=1e3 / ms, step_ms=[s["ms"] for s in steps],
-                   step_cpu_ms=[s["cpu_ms"] for s in steps], slow_split=split)
-    log(f"{label}: {len(steps)} steps in {wall:.1f} s of wall time; "
-        + (f"{out['ms_per_step']:.3f} ms/step (median after {MAIN_WARMUP} warm-up steps) = "
-           f"{out['steps_per_s']:.3f} steps/s; steps over 1.5x the median against the rest "
-           "(count, median wall ms, median CPU ms of the step's thread): " + ", ".join(
-               f"{k} {v['steps']}, {v['ms']:.3f}, {v['cpu_ms']:.3f}"
-               for k, v in out["slow_split"].items()) + "; " if "ms_per_step" in out else "")
-        + f"max_memory_allocated {out['peak_gib']:.3f} GiB; MSDA launches {counts}; padded "
-        f"(H, W) {out['hw']}; {out['invisible_frames']} invisible frames; "
+    log(f"{label}: {len(steps)} steps; MSDA launches {counts}; padded (H, W) {out['hw']}; "
+        f"{out['invisible_frames']} invisible frames; "
         f"{out['attempts'] - out['samples']} resamples in {out['samples']} samples; checkpoint "
-        + ", ".join(f"save {s['s']:.3f} s ({s['bytes']} bytes)" for s in out["saves"])
-        + "".join(f", load {x:.3f} s" for x in out["loads"]))
+        + ", ".join(f"save ({s['bytes']} bytes)" for s in out["saves"])
+        + "".join(f", load {x}" for x in out["loads"]))
     return state, out
 
 
@@ -3193,13 +2836,6 @@ def assert_state_saved(state, path: str, label: str) -> None:
                              f"{state.step}")
 
 
-def data_share(logs: list) -> list:
-    """Per epoch: the logger's seconds per step, of it the wait for data,
-    and the share."""
-    return [dict(epoch=x["epoch"], time_s=x["train_time"], data_s=x["train_data"],
-                 share=x["train_data"] / x["train_time"]) for x in logs]
-
-
 def main_levels(hw) -> tuple:
     """The MSDA level shapes of a padded (H, W): strides 8, 16, 32, 64."""
     return tuple((-(-hw[0] // s), -(-hw[1] // s)) for s in (8, 16, 32, 64))
@@ -3226,10 +2862,7 @@ def phase_main(root: str) -> dict:
     directories, the launch counts, frames with valid = 0 and resamples;
     then the 2D forward and backward kernels held against their plain
     versions at the largest padded shape of run 1 (N = 5), and the 2D and
-    3D forward and backward at N = 10 at run 4's. Readings: ms/step,
-    steps/s, the step thread's CPU time a step, the logger's data time and
-    its share, the padded shapes, peak memory, checkpoint seconds and
-    bytes."""
+    3D forward and backward at N = 10 at run 4's."""
     import os
     import shutil
 
@@ -3247,7 +2880,6 @@ def phase_main(root: str) -> dict:
         _, res["run1"] = main_run(rec, flags + ["--output_dir", out, "--epochs", "2"],
                                   f"{label} run 1, 2 epochs", per_step_2d)
         spe = res["run1"]["steps"] // 2
-        logs = read_log(out)
         for name in ("checkpoint", "checkpoint0000", "checkpoint0001"):
             if sorted(os.listdir(os.path.join(out, name))) != ["meta.json", "model.pt",
                                                              "optimizer.pt"]:
@@ -3320,7 +2952,6 @@ def phase_main(root: str) -> dict:
             rec, flags + ["--output_dir", out3, "--epochs", "1", "--msda_3d", "--batch_size", "2"],
             f"{label} run 4, --msda_3d --batch_size 2",
             {"msda_fwd": 4, "msda_bwd": 4, "msda3d_fwd": 8, "msda3d_bwd": 8})
-        logs3 = read_log(out3)
         shutil.rmtree(out3)
     torch.cuda.empty_cache()
     if not res["run1"]["invisible_frames"] + res["run2"]["invisible_frames"]:
@@ -3328,11 +2959,7 @@ def phase_main(root: str) -> dict:
     resamples = sum(r["attempts"] - r["samples"] for r in res.values())
     if not resamples:
         raise AssertionError(f"{label} no clip was resampled")
-    res.update(data=data_share(logs), data_3d=data_share(logs3), resamples=resamples,
-               steps_per_epoch=spe)
-    for row in res["data"] + res["data_3d"]:
-        log(f"{label} epoch {row['epoch']}: {row['time_s']:.4f} s a step by the logger, "
-            f"{row['data_s']:.4f} s of it waiting for data ({100 * row['share']:.1f}%)")
+    res.update(resamples=resamples, steps_per_epoch=spe)
 
     hw = max(res["run1"]["hw"], key=lambda x: x[0] * x[1])
     hw3 = max(res["run4"]["hw"], key=lambda x: x[0] * x[1])
@@ -3363,8 +2990,6 @@ JHMDB_HW, JHMDB_VIDEOS, JHMDB_FRAMES = (240, 320), 6, 30   # JHMDB's frame size
 COCO_HW = (480, 640)                                         # COCO's usual image size
 REFEXP_VAL_IMAGES, REFEXP_TRAIN_IMAGES = 8, 2
 MEVIS_VIDEOS, MEVIS_FRAMES = 3, 10
-EVAL_STAGES = ("loader wait", "device forward", "device postprocess", "host postprocess",
-               "metric")
 
 
 def smooth_frame(rng, hw, period: float = 80.0):
@@ -3529,50 +3154,22 @@ def msda_per_forward(cfg) -> int:
 
 @contextlib.contextmanager
 def eval_probe():
-    """Instruments ``train.main --eval``: the wall time of the evaluator,
-    split into the wait for the loader's next batch, the device forward,
-    the device postprocess (each ended by a synchronise), the host
-    postprocess (with RLE encoding) and the metric (the evaluators'
-    per-image matching and summaries); the padded (H, W) and size of each
-    batch; the evaluator's arguments (its ground truth)."""
-    import torch
-
+    """Instruments ``train.main --eval``: the [b, t, H, W] of each batch
+    the model takes, the evaluator's arguments and its ground truth."""
     from tce_rvos_tpu_torch import engine
-    from tce_rvos_tpu_torch.data.loader import PrefetchLoader
-    from tce_rvos_tpu_torch.eval import a2d_eval, coco_eval, refexp_eval
-    from tce_rvos_tpu_torch.models import postprocessors
+    from tce_rvos_tpu_torch.eval import a2d_eval
 
-    rec = {"spent": dict.fromkeys(EVAL_STAGES, 0.0), "evaluate_s": 0.0, "batches": [],
-           "args": None, "gt": None}
-    spent = rec["spent"]
-
-    def timed(stage, fn, sync=False):
-        def call(*args, **kw):
-            if sync:
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            try:
-                out = fn(*args, **kw)
-                if sync:
-                    torch.cuda.synchronize()
-                return out
-            finally:
-                spent[stage] += time.perf_counter() - t0
-        return call
+    rec = {"batches": [], "args": None, "gt": None}
 
     def evaluator(fn):
         def call(*args, **kw):
             rec["args"] = (args, kw)
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kw)
-            finally:
-                rec["evaluate_s"] += time.perf_counter() - t0
+            return fn(*args, **kw)
         return call
 
     def forward(make):
         def wrapped(model, compute_dtype="float32"):
-            fwd = timed("device forward", make(model, compute_dtype), sync=True)
+            fwd = make(model, compute_dtype)
 
             def call(batch, *args, **kw):
                 rec["batches"].append((tuple(int(x) for x in batch["video"].shape[:4])))
@@ -3580,38 +3177,15 @@ def eval_probe():
             return call
         return wrapped
 
-    loader_iter = PrefetchLoader.__iter__
-
-    def waited(self):
-        it = loader_iter(self)
-        while True:
-            t0 = time.perf_counter()
-            try:
-                batch = next(it)
-            except StopIteration:
-                return
-            finally:
-                spent["loader wait"] += time.perf_counter() - t0
-            yield batch
-
-    patches = [(postprocessors, "a2d_device_postprocess",
-                lambda f: timed("device postprocess", f, sync=True))]
-    patches += [(postprocessors, n, lambda f: timed("host postprocess", f))
-                for n in ("a2d_host_postprocess", "coco_postprocess_bbox", "coco_postprocess_segm")]
     def recording_gt(fn):
         def call(gt_by_image, *args, **kw):
             rec["gt"] = gt_by_image
             return fn(gt_by_image, *args, **kw)
         return call
 
-    patches += [(a2d_eval, "calculate_map", lambda f: recording_gt(timed("metric", f))),
-                (a2d_eval, "calculate_precision_at_k_and_iou_metrics",
-                 lambda f: timed("metric", f)),
-                (refexp_eval.RefExpEvaluator, "summarize", lambda f: timed("metric", f)),
-                (coco_eval.CocoEvaluator, "update", lambda f: timed("metric", f)),
-                (coco_eval.CocoEvaluator, "stats", lambda f: timed("metric", f)),
-                (engine, "evaluate_a2d", evaluator), (engine, "evaluate_coco_pretrain", evaluator),
-                (engine, "model_forward", forward), (PrefetchLoader, "__iter__", lambda f: waited)]
+    patches = [(a2d_eval, "calculate_map", recording_gt),
+               (engine, "evaluate_a2d", evaluator), (engine, "evaluate_coco_pretrain", evaluator),
+               (engine, "model_forward", forward)]
     originals = [(owner, name, getattr(owner, name)) for owner, name, _ in patches]
     for owner, name, wrap in patches:
         setattr(owner, name, wrap(getattr(owner, name)))
@@ -3627,17 +3201,11 @@ def eval_run(argv: list, label: str, per_batch: int) -> tuple:
     counts set to 0 before it and read after, held at ``per_batch`` 2D
     forward launches per batch. Returns (the metric dict, the run's
     numbers, the probe's record)."""
-    import torch
-
     from tce_rvos_tpu_torch import train
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     with eval_probe() as rec:
-        t0 = time.perf_counter()
         stats = train.main(argv)
-        wall = time.perf_counter() - t0
     counts = launch_counts()
     batches = rec["batches"]
     want = {"msda_fwd": per_batch * len(batches), "msda_bwd": 0, "msda3d_fwd": 0,
@@ -3646,19 +3214,11 @@ def eval_run(argv: list, label: str, per_batch: int) -> tuple:
         raise AssertionError(f"{label}: MSDA launches {counts} over {len(batches)} batches, "
                              f"expected {per_batch} forward launches a batch")
     samples = sum(b[0] for b in batches)
-    secs = rec["evaluate_s"]
-    split = dict(rec["spent"], other=secs - sum(rec["spent"].values()))
     out = dict(samples=samples, batches=len(batches), shapes=sorted(set(batches)),
-               evaluate_s=secs, main_wall_s=wall, samples_per_s=samples / secs,
-               peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=counts,
-               launches_per_batch=per_batch, split_s=split,
-               host_share=(split["host postprocess"] + split["metric"]) / secs)
+               launches=counts, launches_per_batch=per_batch)
     log(f"{label} {samples} samples in {len(batches)} batches (shapes [b, t, H, W] "
-        f"{out['shapes']}): {secs:.3f} s in the evaluator = {out['samples_per_s']:.3f} "
-        f"samples/s ({wall:.3f} s of train.main's wall, the model's build included); "
-        f"max_memory_allocated {out['peak_gib']:.3f} GiB; MSDA forward launches "
-        f"{counts['msda_fwd']} = {per_batch} a batch (msda_per_forward); evaluator's wall split: "
-        + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()))
+        f"{out['shapes']}); MSDA forward launches {counts['msda_fwd']} = {per_batch} a batch "
+        "(msda_per_forward)")
     return stats, out, rec
 
 
@@ -3734,10 +3294,7 @@ def phase_eval(root: str, davis_results: str, ytvos_train: str) -> dict:
        MSDA launches a step, the 2D forward and backward held at the
        epoch's largest padded shape (N = 10);
     5. ``train.main --dataset_file mevis`` for one epoch (6 steps) on a
-       MeViS train tree at 720x1280, 12 + 12 MSDA launches a step.
-    Readings: samples/s and the evaluator's wall split, the host's share,
-    peak memory; ms/step, the logger's data share and peak memory of the
-    training runs; eval_davis's seconds."""
+       MeViS train tree at 720x1280, 12 + 12 MSDA launches a step."""
     import shutil
 
     import numpy as np
@@ -3818,9 +3375,7 @@ def phase_eval(root: str, davis_results: str, ytvos_train: str) -> dict:
     (n_frames, _), = PROTO_DAVIS.values()
     davis17 = write_davis_annotations(os.path.join(root, "davis17"),
                                       {seq: n_frames for seq in PROTO_DAVIS})
-    t0 = time.perf_counter()
     jf = eval_davis.main(["--davis_path", davis17, "--results_path", davis_results])
-    secs = time.perf_counter() - t0
     if len(jf) != 4 or not all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in jf):
         raise AssertionError(f"{label} J&F per annotator {jf}")
     self_dir = os.path.join(root, "davis_self")
@@ -3840,9 +3395,9 @@ def phase_eval(root: str, davis_results: str, ytvos_train: str) -> dict:
           for a in sorted(os.listdir(davis_results)) if a.startswith("anno_")
           for seq in PROTO_DAVIS for f in os.listdir(os.path.join(davis_results, a, seq))
           if f.endswith(".png")]
-    res["eval_davis"] = dict(seconds=secs, jf=jf, frames=n_frames, annotators=len(jf),
+    res["eval_davis"] = dict(jf=jf, frames=n_frames, annotators=len(jf),
                              object_share=float(np.mean(fg)))
-    log(f"{label} {secs:.3f} s for {len(jf)} annotators x {n_frames} frames of "
+    log(f"{label} {len(jf)} annotators x {n_frames} frames of "
         f"{PROTO_HW[0]}x{PROTO_HW[1]} (2 objects): J&F {jf} (the protocol's PNGs mark "
         f"{100 * np.mean(fg):.3f}% of their pixels as an object); the annotations against "
         "themselves: 1.0")
@@ -3863,13 +3418,8 @@ def phase_eval(root: str, davis_results: str, ytvos_train: str) -> dict:
             prec, ["--dataset_file", "mevis", "--mevis_path", mevis, "--output_dir",
                    os.path.join(root, "out_mevis"), "--epochs", "1", "--binary", *flags],
             "[train mevis bf16]", per_step)
-    for key, out, label in (("train_joint", "out_joint", "[train_joint bf16]"),
-                            ("mevis", "out_mevis", "[train mevis bf16]")):
-        res[key]["data"] = data_share(read_log(os.path.join(root, out)))
+    for out in ("out_joint", "out_mevis"):
         shutil.rmtree(os.path.join(root, out))  # disk: 2 GB a checkpoint
-        for row in res[key]["data"]:
-            log(f"{label} epoch {row['epoch']}: {row['time_s']:.4f} s a step by the logger, "
-                f"{row['data_s']:.4f} s of it waiting for data ({100 * row['share']:.1f}%)")
     want_steps = (3 * REFEXP_TRAIN_IMAGES + len(MAIN_VIDEOS) * 2 * MAIN_ANCHORS) // 2  # batch 2
     if res["train_joint"]["steps"] != want_steps:
         raise AssertionError(f"[train_joint] {res['train_joint']['steps']} steps, expected "
@@ -3905,52 +3455,13 @@ WHOLE_VIDEO = {"w18": (18, CAPTIONS)}  # whole-video: a 24-frame window, E = 4
 VSWIN_B_BF16_LIMITS = (2.93e-2, 3.93e-3)
 
 
-def video_swin_forward_flops(name: str, t: int, hw) -> float:
-    """Useful FLOPs (2 per multiply-add) of a Video-Swin forward on one clip
-    of t frames at ``hw``, from the layer shapes of ``models/video_swin.py``:
-    the (1, 4, 4) patch embedding; per block the qkv (3C), proj (C) and MLP
-    (4C, back to C) matmuls of every token, 24 N C^2, and q k^T and attention
-    times v over the window's tokens (the shrink rule applied), 4 N n C; the
-    patch mergings, 4C to 2C. Padding tokens, softmax, norms and other
-    elementwise work are not counted."""
-    from tce_rvos_tpu_torch.models.swin import get_window_size
-    from tce_rvos_tpu_torch.models.video_swin import video_swin_spec
-
-    spec = video_swin_spec(name)
-    h, w = -(-hw[0] // 4), -(-hw[1] // 4)
-    c = spec["embed_dim"]
-    flops = 2 * t * h * w * 3 * 16 * c
-    for i, depth in enumerate(spec["depths"]):
-        n = t * h * w
-        window, _ = get_window_size((t, h, w), spec["window_size"], (0, 0, 0))
-        flops += depth * (24 * n * c * c + 4 * n * math.prod(window) * c)
-        if i < len(spec["depths"]) - 1:
-            h, w = -(-h // 2), -(-w // 2)
-            flops += 2 * t * h * w * 4 * c * 2 * c
-            c *= 2
-    return float(flops)
-
-
-def counted_flops(module, x) -> float:
-    """The matmul and convolution FLOPs of one forward of ``module`` on
-    ``x`` as ``torch.utils.flop_counter`` counts them (padding included)."""
-    import torch
-    from torch.utils.flop_counter import FlopCounterMode
-
-    with torch.no_grad(), FlopCounterMode(display=False) as counter:
-        module(x)
-    return float(counter.get_total_flops())
-
-
 def whole_video_backbone(root: str) -> dict:
     """Video-Swin-B whole-video ytvos through ``infer.main`` (bf16, the
     model's own init) on a synthetic 720x1280 tree, one video of 18 frames:
-    one 24-frame window (8-frame windows, a temporal shift of 4), E = 4;
-    wall seconds, frames/s, the backbone's peak memory, 12 launches a trunk
-    forward, the PNG tree."""
+    one 24-frame window (8-frame windows, a temporal shift of 4), E = 4:
+    one backbone call of the whole window, 12 launches a trunk forward, the
+    PNG tree."""
     import os
-
-    import torch
 
     from tce_rvos_tpu_torch import infer
 
@@ -3961,37 +3472,27 @@ def whole_video_backbone(root: str) -> dict:
     argv = ["--dataset_file", "ytvos", "--ytvos_path", tree, "--output_dir", out,
             "--binary", "--with_box_refine", "--f_token", "8", "--qtrans",
             "--compute_dtype", "bfloat16", "--backbone", VSWIN_B]
-    calls = []  # (frames, peak GiB, peak above what was resident before) per backbone call
+    calls = []  # the frames of each backbone call
     original = infer.InferenceEngine.backbone
 
     def backbone(self, video, mask):
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        feats = original(self, video, mask)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
-        calls.append((int(video.shape[1]), peak / 2**30, (peak - base) / 2**30))
-        return feats
+        calls.append(int(video.shape[1]))
+        return original(self, video, mask)
 
     infer.InferenceEngine.backbone = backbone
     try:
-        res = timed_protocol(label, lambda: infer.main(argv), n, len(caps))
+        res = {"launches": protocol_launches(lambda: infer.main(argv))}
     finally:
         infer.InferenceEngine.backbone = original
     t_clip = -(-n // 8) * 8
     trunks = expected_trunks(len(caps), t_clip)
-    if [c[0] for c in calls] != [t_clip] or res["launches"]["msda_fwd"] != 12 * len(trunks):
+    if calls != [t_clip] or res["launches"]["msda_fwd"] != 12 * len(trunks):
         raise AssertionError(f"{label} backbone calls {calls}, launches {res['launches']}; "
                              f"expected one {t_clip}-frame call and 12 x {len(trunks)}")
     files = check_binary_tree(out, WHOLE_VIDEO, label)
-    res.update(t_clip=t_clip, backbone_peak_gib=calls[0][1],
-               backbone_peak_above_resident_gib=calls[0][2], pngs=files)
-    log(f"{label} {n} frames as one {t_clip}-frame window: backbone max_memory_allocated "
-        f"{calls[0][1]:.3f} GiB ({calls[0][2]:.3f} GiB above what was resident), "
-        f"{res['frames_per_s']:.2f} frames/s, {res['seconds']:.3f} s wall (the protocol's "
-        f"peak above is from the backbone's start); {files} PNGs at "
-        f"{PROTO_HW[0]}x{PROTO_HW[1]}")
+    res.update(t_clip=t_clip, pngs=files)
+    log(f"{label} {n} frames as one {t_clip}-frame window, launches {res['launches']}; "
+        f"{files} PNGs at {PROTO_HW[0]}x{PROTO_HW[1]}")
     return res
 
 
@@ -3999,14 +3500,12 @@ def backbone_train(sd) -> dict:
     """OTHER_TRAIN_STEPS bf16 Video-Swin-B flagship steps (b = 1, 5x384x640,
     dropout and DropPath on) without and OTHER_TRAIN_STEPS_CKPT with
     recomputation (the backbone's blocks and the transformer's layers):
-    ms/step, peak memory, MFU over a useful-FLOP count; 12 + 12 MSDA
-    launches a step (24 + 12 with recomputation); every backbone parameter
-    gets a gradient."""
+    12 + 12 MSDA launches a step (24 + 12 with recomputation); every
+    backbone parameter gets a gradient."""
     import torch
 
     from tce_rvos_tpu_torch import flagship_config
     from tce_rvos_tpu_torch.config import TrainConfig
-    from tce_rvos_tpu_torch.models.backbone_resnet import ResNet
     from tce_rvos_tpu_torch.models.criterion import criterion_from_configs
     from tce_rvos_tpu_torch.models.referformer import ReferFormer
     from tce_rvos_tpu_torch.parallel.train_step import (
@@ -4024,27 +3523,13 @@ def backbone_train(sd) -> dict:
     model.load_state_dict(sd, strict=True)
     model.to(dev)
     body = model.backbone[0].body
-    clip = torch.randn(1, 3, TRAIN_T, *TRAIN_HW, device=dev)
-    vsb = video_swin_forward_flops(VSWIN_B, TRAIN_T, TRAIN_HW)
-    vsb_counted = counted_flops(body, clip)
-    r50 = counted_flops(ResNet().to(dev), clip[0].transpose(0, 1))
-    useful = TRAIN_USEFUL_FLOPS_PER_CLIP + 3.0 * (vsb - r50)
-    log(f"{label} useful FLOPs of one {TRAIN_T}x{TRAIN_HW[0]}x{TRAIN_HW[1]} clip: Video-Swin-B "
-        f"forward {vsb:.4e} (video_swin_forward_flops; torch.utils.flop_counter counts "
-        f"{vsb_counted:.4e}, window padding included), ResNet-50 forward {r50:.4e} "
-        f"(flop_counter); the train step's {useful:.4e} = the 2D flagship's "
-        f"{TRAIN_USEFUL_FLOPS_PER_CLIP:.4e} + 3 x (Video-Swin-B - ResNet-50) forward")
-    source = ("(the 2D flagship's count with the backbone's forward and backward, 3 x its "
-              "forward, taken as Video-Swin-B's)")
     state = create_train_state(model, tcfg, steps_per_epoch=1000)
     crit = criterion_from_configs(cfg, tcfg)
     step = make_train_step(crit, cfg.compute_dtype)
     batches = [batch_to_device(train_batch(TRAIN_T, TRAIN_HW, seed=10 + i), dev)
                for i in range(OTHER_TRAIN_STEPS)]
-    res = {"useful_flops": useful, "backbone_forward_flops": vsb,
-           "backbone_forward_flops_counted": vsb_counted, "resnet50_forward_flops": r50}
-    res["plain"] = train_run(state, step, batches, label, "bf16 train_one_epoch, no "
-                             "recomputation", useful_flops=useful, flops_source=source)
+    res = {"plain": train_run(state, step, batches, label,
+                              "bf16 train_one_epoch, no recomputation")}
     if (res["plain"]["launches"], res["plain"]["backward_launches"]) != (
             12 * OTHER_TRAIN_STEPS, 12 * OTHER_TRAIN_STEPS):
         raise AssertionError(f"{label} MSDA launches {res['plain']['launches']} / "
@@ -4063,8 +3548,7 @@ def backbone_train(sd) -> dict:
         f"DropPath and dropout off")
     model.transformer.use_checkpoint = body.use_checkpoint = True
     res["ckpt"] = train_run(state, step, batches[:OTHER_TRAIN_STEPS_CKPT], label, "bf16 "
-                            "train_one_epoch, with recomputation", useful_flops=useful,
-                            flops_source=source)
+                            "train_one_epoch, with recomputation")
     if (res["ckpt"]["launches"], res["ckpt"]["backward_launches"]) != (
             24 * OTHER_TRAIN_STEPS_CKPT, 12 * OTHER_TRAIN_STEPS_CKPT):
         raise AssertionError(f"{label} with recomputation: MSDA launches "
@@ -4077,8 +3561,7 @@ def backbone_train(sd) -> dict:
 def family_forward(name: str, dilation: bool, frames) -> dict:
     """One bf16 flagship forward on backbone ``name`` (weights drawn on the
     card, ``device_state_dict``): a 5-frame 384x640 window, E = 4: finite
-    outputs, 12 MSDA forward launches, the backbone's ms and the peak
-    memory."""
+    outputs, 12 MSDA forward launches."""
     import torch
 
     from tce_rvos_tpu_torch import flagship_config
@@ -4095,51 +3578,41 @@ def family_forward(name: str, dilation: bool, frames) -> dict:
     video, mask, size = engine.preprocess(frames[:5])
     sizes = size
     ids, attn = tokenize(list(CAPTIONS))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     feats = engine.backbone(video, mask)
     out = engine.trunk(feats, mask, ids, attn, sizes)
-    torch.cuda.synchronize()
     launches = launch_counts()["msda_fwd"]
-    peak = torch.cuda.max_memory_allocated() / 2**30
     bad = [k for k, v in out.items() if not bool(torch.isfinite(v.float()).all())]
     if bad or launches != 12:
         raise AssertionError(f"{label} outputs not finite: {bad}; MSDA launches {launches}, "
                              f"expected 12")
-    backbone_ms = cuda_ms(lambda: engine.backbone(video, mask), reps=10)
     levels = [tuple(f.shape[-2:]) for f in feats]
     log(f"{label} one 5x384x640 window, E={len(CAPTIONS)}: outputs finite, msda_fwd launches "
-        f"{launches}; backbone {backbone_ms:.3f} ms/window (levels {levels}, channels "
-        f"{[f.shape[1] for f in feats]}); max_memory_allocated {peak:.3f} GiB")
+        f"{launches}; backbone levels {levels}, channels {[f.shape[1] for f in feats]}")
     del engine
     torch.cuda.empty_cache()
-    return dict(launches=launches, backbone_ms=backbone_ms, peak_gib=peak,
-                levels=[list(x) for x in levels])
+    return dict(launches=launches, levels=[list(x) for x in levels])
 
 
 def phase_backbones(videos, root: str) -> dict:
     """Phase 11: the 2D kernels held at the DC5 levels and at Video-Swin-B's
     serving and training shapes; the Video-Swin-B flagship served in bf16
     and f32 (phase 3's gates: 24 launches per run_video_batch of two
-    windows, exact expression isolation, batched against serial; timed in
-    bf16), its f32 2-frame window GPU against CPU, the whole-video ytvos
-    run, bf16 train steps without and with recomputation; one forward on
-    each other family."""
+    windows, exact expression isolation, batched against serial), its f32
+    2-frame window GPU against CPU, the whole-video ytvos run, bf16 train
+    steps without and with recomputation; one forward on each other
+    family."""
     import torch
 
     from tce_rvos_tpu_torch import flagship_config
 
-    t0 = time.perf_counter()
     res = {"kernels": {"dc5_e4": phase_kernels(e=4, shapes=DC5_SHAPES),
                        "video_swin_b_e4": phase_kernels(e=4)},
            "backward": {"video_swin_b_train": phase_backward_kernels()}}
     sd = random_state_dict(flagship_config(backbone=VSWIN_B), seed=0)
-    # the script's time limit: the bf16 trunk timed at E = 4 only, the f32
-    # path's gates without its timings, GPU against CPU on a 2-frame window
+    # the script's time limit: GPU against CPU on a 2-frame window
     res["path"] = {dtype: phase_path(dtype, sd, videos[:2], backbone=VSWIN_B,
-                                     tag="backbones video_swin_b", limits=VSWIN_B_BF16_LIMITS,
-                                     trunk_es=(4,), timings=dtype == "bfloat16")[0]
+                                     tag="backbones video_swin_b", limits=VSWIN_B_BF16_LIMITS)[0]
                    for dtype in ("bfloat16", "float32")}
     phase_parity(sd, videos[0][:PARITY_FRAMES], backbone=VSWIN_B)
     res["whole_video"] = whole_video_backbone(root)
@@ -4148,16 +3621,6 @@ def phase_backbones(videos, root: str) -> dict:
     torch.cuda.empty_cache()
     res["families"] = {name + ("_dc5" if dil else ""): family_forward(name, dil, videos[0])
                        for name, dil in OTHER_BACKBONES}
-    res["seconds"] = time.perf_counter() - t0
-    path = res["path"]["bfloat16"]
-    train = res["train"]["plain"]
-    log(f"[backbones] Video-Swin-B flagship: {path['expression_windows_per_s']:.2f} "
-        f"expression-windows/s bf16, backbone {path['backbone_ms']:.3f} ms/window, trunk "
-        f"E=4 {path['trunk'][4]['ms']:.3f} ms ({path['trunk'][4]['peak_gib']:.3f} GiB); train "
-        f"{train['ms_per_step']:.3f} ms/step, MFU {100 * train['mfu']:.2f}%, "
-        f"{train['peak_gib']:.3f} GiB; whole-video backbone at T = "
-        f"{res['whole_video']['t_clip']}: {res['whole_video']['backbone_peak_gib']:.3f} GiB; "
-        f"phase 11 wall {res['seconds']:.1f} s")
     return res
 
 
@@ -4222,12 +3685,8 @@ def tokens_whole_video(sd, frames) -> dict:
         want = [(infer._pow2_ceil(min(eb, len(CAPTIONS) - off)), t, msda_per_forward(cfg))
                 for off in range(0, len(CAPTIONS), eb)]
         calls = count_trunks(engine)
-        torch.cuda.synchronize()
         reset_launch_counts()
-        t0 = time.perf_counter()
         outs = engine.run_video_batch(clip, list(CAPTIONS), whole_video=True)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
         launches = launch_counts()["msda_fwd"]
         del engine.trunk  # count_trunks' wrapper
         if calls != want or launches != sum(c[2] for c in want):
@@ -4251,12 +3710,11 @@ def tokens_whole_video(sd, frames) -> dict:
         del out, feats, video, mask
         line = base + per_frame * e * t
         tokens = t * (hw[0] // 64) * (hw[1] // 64)
-        res[t] = dict(seconds=secs, expression_windows_per_s=len(CAPTIONS) / secs,
-                      dispatches=calls, launches=launches, cap=cap, e=e, tokens=tokens,
+        res[t] = dict(dispatches=calls, launches=launches, cap=cap, e=e, tokens=tokens,
                       peak_gib=peak, line_gib=line)
         log(f"{label} T={t} ({tokens} tokens a clip), E={len(CAPTIONS)}: trunk dispatches "
-            f"(E, T, launches) {calls} (the envelope's cap {cap} expressions); {secs:.3f} s = "
-            f"{len(CAPTIONS) / secs:.2f} expression-windows/s; one trunk forward at E={e}: "
+            f"(E, T, launches) {calls} (the envelope's cap {cap} expressions); one trunk "
+            f"forward at E={e}: "
             f"peak {peak:.3f} GiB above what was allocated before the engine, the envelope's "
             f"line {line:.3f} GiB")
         if peak > line:
@@ -4270,8 +3728,7 @@ def tokens_whole_video(sd, frames) -> dict:
 def tokens_train(sd) -> dict:
     """OTHER_TRAIN_STEPS bf16 steps of the LastLayerAsToken flagship (b = 1,
     5x384x640, dropout on): 8 + 8 MSDA launches a step, every parameter
-    (``inter_frame_atten.*`` included) gets a gradient and moves; ms/step,
-    peak memory, MFU over the 2D flagship's useful-FLOP count."""
+    (``inter_frame_atten.*`` included) gets a gradient and moves."""
     import torch
 
     from tce_rvos_tpu_torch import flagship_config
@@ -4296,9 +3753,7 @@ def tokens_train(sd) -> dict:
     batches = [batch_to_device(train_batch(TRAIN_T, TRAIN_HW, seed=10 + i), dev)
                for i in range(OTHER_TRAIN_STEPS)]
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
-    res = train_run(state, step, batches, label, "bf16 train_one_epoch",
-                    flops_source="from the JAX package's count of the 2D flagship (FTF's "
-                    "instead of the token attention's)")
+    res = train_run(state, step, batches, label, "bf16 train_one_epoch")
     per = msda_per_forward(cfg)
     if (res["launches"], res["backward_launches"]) != (per * OTHER_TRAIN_STEPS,
                                                        per * OTHER_TRAIN_STEPS):
@@ -4317,11 +3772,10 @@ def tokens_train(sd) -> dict:
 def vl_off(frames) -> dict:
     """``--vlblock --no_rel_coord`` (no V-L blocks in the FPN, no relative
     coordinates into the mask head; the flagship's switches otherwise), on
-    weights drawn on the card (``device_state_dict``): the trunk at E = 1
-    and 4 (12 launches a forward, finite outputs) and its stage breakdown
-    (CUDA events, no profile) at E = 4, against the flagship's in the same
-    run;
-    TRAIN_STEPS_NO_VL bf16 train steps, finite, 12 + 12 launches a step."""
+    weights drawn on the card (``device_state_dict``), beside the flagship:
+    the trunk at E = 1 and 4 (12 launches a forward, finite outputs), no
+    V-L block in the FPN; TRAIN_STEPS_NO_VL bf16 train steps, finite,
+    12 + 12 launches a step."""
     import torch
 
     from tce_rvos_tpu_torch import flagship_config
@@ -4346,7 +3800,7 @@ def vl_off(frames) -> dict:
         video, mask, size = engine.preprocess(frames[:engine.window])
         sizes = size
         feats = engine.backbone(video, mask)
-        trunk = {}
+        res[name] = {}
         for e in (1, 4):
             ids, attn = tokenize(list(CAPTIONS[:e]))
             reset_launch_counts()
@@ -4356,11 +3810,7 @@ def vl_off(frames) -> dict:
             if bad or launches != 12:
                 raise AssertionError(f"{label} E={e}: outputs not finite {bad}, MSDA launches "
                                      f"{launches} (expected 12)")
-            trunk[e] = cuda_ms(lambda: engine.trunk(feats, mask, ids, attn, sizes), reps=10)
-        res[name] = dict(trunk_ms=trunk, breakdown=stage_breakdown(engine, feats, mask, sizes,
-                                                                   label, profile=False))
-        log(f"{label} trunk E=1 {trunk[1]:.3f} ms, E=4 {trunk[4]:.3f} ms; pixel decoder at E=4 "
-            f"{res[name]['breakdown']['stages_ms']['pixel_decoder']:.3f} ms")
+        log(f"{label} trunk E=1 and E=4: outputs finite, 12 msda_fwd launches each")
         del engine, feats
         if name == "flagship":
             continue
@@ -4374,7 +3824,7 @@ def vl_off(frames) -> dict:
         step = make_train_step(criterion_from_configs(cfg, tcfg), cfg.compute_dtype)
         batches = [batch_to_device(train_batch(TRAIN_T, TRAIN_HW, seed=10 + i), "cuda")
                    for i in range(TRAIN_STEPS_NO_VL)]
-        run = train_run(state, step, batches, label, "bf16 train_one_epoch", warmup=1)
+        run = train_run(state, step, batches, label, "bf16 train_one_epoch")
         if (run["launches"], run["backward_launches"]) != (12 * TRAIN_STEPS_NO_VL,
                                                            12 * TRAIN_STEPS_NO_VL):
             raise AssertionError(f"{label} MSDA launches {run['launches']} / "
@@ -4436,13 +3886,11 @@ def options_main(tree: str, small_tree: str, root: str) -> dict:
         infer.select_query = lambda logits: (classes.append(logits.shape[-1]),
                                              select_query(logits))[1]
         out = os.path.join(root, "out_classes65_infer")
-        (n_frames, caps), = PROTO_SMALL.values()
+        (_, caps), = PROTO_SMALL.values()
         try:
-            res["infer"] = timed_protocol(
-                f"{label} 2. infer.main ytvos --resume, 65 classes",
+            res["infer"] = {"launches": protocol_launches(
                 lambda: infer.main(["--dataset_file", "ytvos", "--ytvos_path", small_tree,
-                                    "--output_dir", out, "--resume", pth, *CLASSES_FLAGS]),
-                n_frames, len(caps))
+                                    "--output_dir", out, "--resume", pth, *CLASSES_FLAGS]))}
         finally:
             infer.select_query = select_query
         if classes != [65] * len(caps) or res["infer"]["launches"]["msda_fwd"] != 12:
@@ -4500,7 +3948,7 @@ def options_main(tree: str, small_tree: str, root: str) -> dict:
 def phase_options(videos, tree: str, small_tree: str, root: str) -> dict:
     """Phase 12: the model options at full width. The LastLayerAsToken
     flagship (``--f_token -1``) served through phase 3's path and gates in
-    bf16 (8 launches a trunk forward, timed at E = 4) and held f32 GPU
+    bf16 (8 launches a trunk forward) and held f32 GPU
     against CPU on a 2-frame window, its whole-video windows at T = 40 and
     160, its train steps; the 65-class objective, ``--resume`` and the
     binary fine-tune without ``--masks`` through the command lines
@@ -4510,10 +3958,9 @@ def phase_options(videos, tree: str, small_tree: str, root: str) -> dict:
 
     from tce_rvos_tpu_torch import flagship_config
 
-    t0 = time.perf_counter()
     sd = random_state_dict(flagship_config(**TOKENS), seed=0)
     res = {"tokens_path": phase_path("bfloat16", sd, videos[:2], tag="options f_token -1",
-                                     overrides=TOKENS, trunk_es=(4,))[0]}
+                                     overrides=TOKENS)[0]}
     phase_parity(sd, videos[0][:PARITY_FRAMES], overrides=TOKENS, tag="options f_token -1")
     res["tokens_whole_video"] = tokens_whole_video(sd, videos[0])
     res["tokens_train"] = tokens_train(sd)
@@ -4521,13 +3968,6 @@ def phase_options(videos, tree: str, small_tree: str, root: str) -> dict:
     torch.cuda.empty_cache()
     res["main"] = options_main(tree, small_tree, root)
     res["vl_off"] = vl_off(videos[0])
-    res["seconds"] = time.perf_counter() - t0
-    path, vl = res["tokens_path"], res["vl_off"]
-    log(f"[options] f_token -1: {path['expression_windows_per_s']:.2f} expression-windows/s "
-        f"bf16, trunk E=4 {path['trunk'][4]['ms']:.3f} ms ({path['trunk'][4]['peak_gib']:.3f} "
-        f"GiB); train {res['tokens_train']['ms_per_step']:.3f} ms/step; --vlblock "
-        f"--no_rel_coord trunk E=4 {vl['vl_off']['trunk_ms'][4]:.3f} ms against the "
-        f"flagship's {vl['flagship']['trunk_ms'][4]:.3f}; phase 12 wall {res['seconds']:.1f} s")
     return res
 
 
@@ -4573,16 +4013,15 @@ def nccl_world_one():
 def reduction_probe():
     """Wraps the train step's gradient all-reduce and its sum of the logged
     losses: every gradient and every loss bitwise the same after them as
-    before (one rank reduces to itself), the backend and world held, and
-    the all-reduce timed to its end on the device (ms per call); exactly
-    one all-reduce a step, of every parameter's gradient (with the flat
-    AdamW, in place on its gradient buffer)."""
+    before (one rank reduces to itself), the backend and world held;
+    exactly one all-reduce a step, of every parameter's gradient (with the
+    flat AdamW, in place on its gradient buffer)."""
     import torch
     import torch.distributed as dist
 
     from tce_rvos_tpu_torch.parallel import collectives, train_step
 
-    rec = {"allreduce_ms": [], "checked_grads": 0, "checked_losses": 0, "allreduce_calls": []}
+    rec = {"checked_grads": 0, "checked_losses": 0, "allreduce_calls": []}
     reduce_grads, sum_losses = train_step.all_reduce_gradients, train_step.sum_over_ranks
     all_reduce_sum_ = collectives.all_reduce_sum_
 
@@ -4598,15 +4037,11 @@ def reduction_probe():
             calls.append((t.data_ptr(), t.numel()))
             return all_reduce_sum_(t)
 
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         collectives.all_reduce_sum_ = counted
         try:
             reduce_grads(state)
         finally:
             collectives.all_reduce_sum_ = all_reduce_sum_
-        torch.cuda.synchronize()
-        rec["allreduce_ms"].append((time.perf_counter() - t0) * 1e3)
         rec["allreduce_calls"].append(len(calls))
         buf = getattr(state.optimizer, "grads", None)  # the flat AdamW's gradient buffer
         n = buf.numel() if buf is not None else sum(p.numel() for p in model.parameters()
@@ -4708,84 +4143,13 @@ def dist_step_spec(cfg, root: str):
     return spec, weights
 
 
-def gap_rank(rank: int, spec: dict) -> dict:
-    """One of ``probe_dist_gap``'s two gloo processes: phase 13's f32 step
-    (TF32 off) with the flat AdamW's ``ALIGN`` at ``spec["align"]``."""
-    import torch
-
-    from tce_rvos_tpu_torch.parallel import dryrun, flat_adamw
-
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    flat_adamw.ALIGN = spec["align"]
-    step = dryrun.train_step_on_shard(rank, spec)
-    step.pop("grads", None)
-    return step
-
-
-GAP_SETUPS = (("flat", 64, True), ("flat_packed", 1, True), ("no_flat_opt", 64, False))
-
-
-def probe_dist_gap(root: str) -> dict:
-    """``python3 chip_smoke.py --dist-gap``: phase 13's two-rank gloo step
-    against one process, from the same weights and clips, under three
-    set-ups: the flat AdamW with every parameter at a 256-byte boundary
-    (the default), the flat AdamW with its parameters packed (the JAX
-    layout, ``ALIGN`` 1) and ``--no-flat_opt``. For each, the gaps and
-    where the largest parameter gap is (``explain_gap``); and whether each
-    one-process reference's loss is bitwise ``--no-flat_opt``'s."""
-    import torch
-
-    from tce_rvos_tpu_torch import flagship_config
-    from tce_rvos_tpu_torch.config import TrainConfig
-    from tce_rvos_tpu_torch.parallel import dryrun, flat_adamw
-
-    label = "[dist gap]"
-    cfg = flagship_config(**DIST_MODEL)
-    spec, weights = dist_step_spec(cfg, root)
-    out, refs = {}, {}
-    for tag, align, flat_opt in GAP_SETUPS:
-        spec_t = dict(spec, align=align, train={"flat_opt": flat_opt})
-        flat_adamw.ALIGN = align
-        try:
-            want = dryrun.train_step_on_shard(0, spec_t)
-        finally:
-            flat_adamw.ALIGN = 64
-        ranks = dryrun.run_processes(2, gap_rank, (spec_t,), device="cuda", backend="gloo",
-                                     timeout=600)
-        gap = dryrun.check_dp_step(ranks[0], want, f"{label} {tag}")
-        worst = explain_gap(gap, want, ranks[0], weights, TrainConfig(flat_opt=flat_opt),
-                            grads=want["grads"])
-        refs[tag] = want
-        out[tag] = dict(gap=gap, worst=worst, loss=want["metrics"]["loss"],
-                        grad_norm=want["metrics"]["grad_norm"])
-        log(f"{label} {tag}: two ranks against one process: loss {gap['loss_rel']:.3e} rel, "
-            f"grad norm {gap['grad_norm_rel']:.3e} rel, parameters {gap['param_max_abs']:.3e} "
-            f"abs; " + gap_line(worst))
-        del ranks
-    base = refs["no_flat_opt"]
-    for tag in ("flat", "flat_packed"):
-        g = max(float((refs[tag]["grads"][k] - v).abs().max()) for k, v in base["grads"].items())
-        out[tag]["against_no_flat_opt"] = dict(
-            loss_equal=refs[tag]["metrics"]["loss"] == base["metrics"]["loss"],
-            loss_rel=abs(refs[tag]["metrics"]["loss"] / base["metrics"]["loss"] - 1),
-            clipped_grad_max_abs=g)
-        log(f"{label} one process, {tag} against --no-flat_opt: loss bitwise equal "
-            f"{out[tag]['against_no_flat_opt']['loss_equal']} "
-            f"({out[tag]['against_no_flat_opt']['loss_rel']:.3e} rel), clipped gradients "
-            f"{g:.3e} max abs")
-    del refs, base, weights
-    torch.cuda.empty_cache()
-    return out
-
-
 def phase_dist(jhmdb_tree: str, root: str) -> dict:
     """Phase 13, the port's multi-process path and its host modules:
     (a) ``train.main`` at world 1 over NCCL through the launcher's
         environment, one epoch on a 720x1280 train tree (4 steps, bf16):
         the gradient all-reduce and the sum of the logged losses leave
         every gradient and loss bitwise as they were, 12 + 12 launches a
-        step, finite losses; the all-reduce's ms a step;
+        step, finite losses;
     (b) two processes sharing the card over gloo: one f32 step (TF32 off,
         dropout off, ``--vis_loss --masks``) of the flagship at full width
         and 2 + 2 layers on one 5x384x640 clip each, held against the
@@ -4796,8 +4160,7 @@ def phase_dist(jhmdb_tree: str, root: str) -> dict:
         rank's merged metrics exactly those of one process;
     (c) that one process's JHMDB evaluation with the C RLE and with numpy:
         the library built and taken, the metrics equal, every predicted
-        mask's RLE, decoding and boundary map bitwise equal; samples/s of
-        each;
+        mask's RLE, decoding and boundary map bitwise equal;
     (d) ``utils/profiling.trace`` around the one-process step writes a
         Chrome trace holding its span, the step's spans and device kernels,
         and ``spans.json`` with the span's CUDA-event time."""
@@ -4811,7 +4174,6 @@ def phase_dist(jhmdb_tree: str, root: str) -> dict:
     from tce_rvos_tpu_torch.utils import profiling, rle
 
     label = "[dist]"
-    t_phase = time.perf_counter()
     res = {}
 
     # (c) one process: JHMDB with the C RLE, then with numpy
@@ -4828,9 +4190,9 @@ def phase_dist(jhmdb_tree: str, root: str) -> dict:
 
     if native.lib() is None:
         raise AssertionError(f"{label} the C RLE library did not build (no C compiler?)")
-    rle.USE_NATIVE = False  # numpy first: the C path's run must not gain from warming up
+    rle.USE_NATIVE = False  # numpy first, then the C path
     try:
-        stats_numpy, run_numpy, _ = eval_run(argv, f"{label} jhmdb, numpy RLE", per_forward)
+        stats_numpy, _, _ = eval_run(argv, f"{label} jhmdb, numpy RLE", per_forward)
     finally:
         rle.USE_NATIVE = True
     calls = native.CALLS["native"]
@@ -4846,20 +4208,10 @@ def phase_dist(jhmdb_tree: str, root: str) -> dict:
         raise AssertionError(f"{label} JHMDB metrics with numpy {stats_numpy} against the C "
                              f"RLE's {stats_native}")
     res["rle"] = dict(rle_native_against_numpy(masks, label), native_calls=native_calls,
-                      samples_per_s_native=run_native["samples_per_s"],
-                      samples_per_s_numpy=run_numpy["samples_per_s"],
-                      metric_s_native=run_native["split_s"]["metric"],
-                      metric_s_numpy=run_numpy["split_s"]["metric"],
-                      host_post_s_native=run_native["split_s"]["host postprocess"],
-                      host_post_s_numpy=run_numpy["split_s"]["host postprocess"],
                       library=str(native.library_path()))
-    log(f"{label} JHMDB --batch_size 1: {run_native['samples_per_s']:.3f} samples/s with the C "
-        f"RLE ({native_calls} library calls), {run_numpy['samples_per_s']:.3f} with numpy; "
-        f"metric {run_native['split_s']['metric']:.3f} s against "
-        f"{run_numpy['split_s']['metric']:.3f}, host postprocess "
-        f"{run_native['split_s']['host postprocess']:.3f} s against "
-        f"{run_numpy['split_s']['host postprocess']:.3f}; {len(masks)} predicted masks: RLE, "
-        "decoding and boundary maps bitwise equal; metrics equal")
+    log(f"{label} JHMDB --batch_size 1 with the C RLE ({native_calls} library calls) and with "
+        f"numpy: metrics equal; {len(masks)} predicted masks: RLE, decoding and boundary maps "
+        "bitwise equal")
 
     # (b) two processes on the card over gloo, against one process
     cfg = flagship_config(**DIST_MODEL)
@@ -4888,10 +4240,8 @@ def phase_dist(jhmdb_tree: str, root: str) -> dict:
                                                                      profiling.TRACE_FILE)),
                             events=len(events), kernels=kernels, step_device_ms=step_ms)
     shutil.rmtree(trace_dir)
-    t0 = time.perf_counter()
     ranks = dryrun.run_processes(2, dist_rank, (spec,), device="cuda", backend="gloo",
                                  timeout=600)
-    res["gloo_wall_s"] = time.perf_counter() - t0
     gaps = [dryrun.check_dp_step(r["step"], want, f"{label} gloo rank {i}")
             for i, r in enumerate(ranks)]
     for name, p in ranks[0]["step"]["params"].items():
@@ -4923,8 +4273,7 @@ def phase_dist(jhmdb_tree: str, root: str) -> dict:
             f"rank {i} loss {g['loss_rel']:.3e} rel, grad norm {g['grad_norm_rel']:.3e} rel, "
             f"parameters {g['param_max_abs']:.3e} abs" for i, g in enumerate(gaps))
         + f"; the ranks' parameters bitwise equal; launches {per_step} a rank; JHMDB metrics "
-        f"merged from two shards equal one process's exactly; {res['gloo_wall_s']:.1f} s; "
-        + gap_line(worst))
+        f"merged from two shards equal one process's exactly; " + gap_line(worst))
     del want, ranks, weights
 
     # (a) train.main at world 1 over NCCL
@@ -4942,17 +4291,12 @@ def phase_dist(jhmdb_tree: str, root: str) -> dict:
     if read_log(out)[0]["epoch"] != 0 or not os.path.exists(os.path.join(out, "checkpoint")):
         raise AssertionError(f"{label} no log line or checkpoint")
     shutil.rmtree(out)
-    res["nccl"] = dict(run, allreduce_ms=red["allreduce_ms"],
-                       allreduce_ms_median=statistics.median(red["allreduce_ms"]),
-                       allreduce_calls=red["allreduce_calls"],
+    res["nccl"] = dict(run, allreduce_calls=red["allreduce_calls"],
                        grads_checked=red["checked_grads"])
     torch.cuda.empty_cache()
-    res["seconds"] = time.perf_counter() - t_phase
     log(f"{label} train.main over NCCL at world 1: {run['steps']} steps, every gradient and "
-        f"loss bitwise through the reductions ({red['checked_grads']} gradients checked); the "
-        f"gradient all-reduce {res['nccl']['allreduce_ms_median']:.3f} ms a step (median of "
-        f"{len(red['allreduce_ms'])}), {red['allreduce_calls']} all-reduce calls a step on the "
-        f"flat buffer; phase 13 wall {res['seconds']:.1f} s")
+        f"loss bitwise through the reductions ({red['checked_grads']} gradients checked); "
+        f"{red['allreduce_calls']} all-reduce calls a step on the flat buffer")
     return res
 
 
@@ -5022,11 +4366,11 @@ def sp_clip_inputs(path: str, t: int = SP_T) -> None:
                     sizes=np.asarray([[h, w]], np.int64)), path)
 
 
-def sp_timed(model, inputs: dict, shard) -> dict:
-    """A warm-up forward, then one timed (host clock around work that ends
-    in a synchronize) with the launch counts and the peak memory of this
-    process; the outputs on the CPU, gathered into the whole clip's (with
-    ``valid_indices`` every rank holds the annotated frames' whole)."""
+def sp_forward(model, inputs: dict, shard) -> dict:
+    """A first forward, then the one held (the second, as the limits were
+    calibrated on) with the launch counts of this process; the outputs on
+    the CPU, gathered into the whole clip's (with ``valid_indices`` every
+    rank holds the annotated frames' whole)."""
     import torch
 
     from tce_rvos_tpu_torch.parallel.collectives import all_gather_frames
@@ -5035,23 +4379,17 @@ def sp_timed(model, inputs: dict, shard) -> dict:
     kept = None if "valid_indices" in inputs else shard
     with torch.inference_mode():
         model(**inputs, frame_shard=shard)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        t0 = time.perf_counter()
         out = model(**inputs, frame_shard=shard)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
         launches = launch_counts()
-        peak = torch.cuda.max_memory_allocated() / 2**30
         outs = {k: all_gather_frames(out[k], kept, clip_axis=True).float().cpu()
                 for k in SP_OUTPUTS}
-    return dict(outs, ms=ms, peak_gib=peak, launches=launches)
+    return dict(outs, launches=launches)
 
 
 def sp_runs(spec: dict, shard_fn) -> dict:
     """Each model of ``spec["models"]`` in f32 then bf16 through
-    ``sp_timed``, its inputs laid out by ``shard_fn`` (inputs -> (inputs,
+    ``sp_forward``, its inputs laid out by ``shard_fn`` (inputs -> (inputs,
     shard))."""
     import torch
 
@@ -5063,7 +4401,7 @@ def sp_runs(spec: dict, shard_fn) -> dict:
         for dtype in ("float32", "bfloat16"):
             model.to(getattr(torch, dtype))
             inputs, shard = shard_fn(dryrun.sp_model_inputs(dict(case, dtype=dtype)))
-            res[f"{name}/{dtype}"] = dict(sp_timed(model, inputs, shard),
+            res[f"{name}/{dtype}"] = dict(sp_forward(model, inputs, shard),
                                           shard=None if shard is None else
                                           (shard.rank, shard.world, shard.first, shard.count))
         del model
@@ -5123,19 +4461,16 @@ def sp_halos(frames: int, world: int = 2) -> dict:
 def dryrun_on_card() -> dict:
     """``python -m tce_rvos_tpu_torch.parallel.dryrun --world 2`` as a user
     runs it, with no device flag: on the card, two ranks sharing it over
-    gloo. Its JSON line, with the command's wall seconds."""
-    t0 = time.perf_counter()
+    gloo. Its JSON line."""
     run = subprocess.run([sys.executable, "-m", "tce_rvos_tpu_torch.parallel.dryrun",
                           "--world", "2"], capture_output=True, text=True, timeout=600,
                          cwd=os.path.dirname(os.path.abspath(__file__)))
-    wall = time.perf_counter() - t0
     if run.returncode != 0:
         raise AssertionError(f"[sp] the dry run exited {run.returncode}:\n{run.stderr[-4000:]}")
     res = json.loads(run.stdout.strip().splitlines()[-1])
     if (res["device"], res["backend"], res["world"]) != ("cuda", "gloo", 2):
         raise AssertionError(f"[sp] the dry run ran on {res['device']} over {res['backend']} "
                              f"at world {res['world']}")
-    res["wall_s"] = wall
     log(f"[sp] dry run (python -m tce_rvos_tpu_torch.parallel.dryrun --world 2) on "
         f"{res['device']} over {res['backend']}: the step's gaps " + "; ".join(
             f"rank {i} loss {g['loss_rel']:.3e}, grad norm {g['grad_norm_rel']:.3e} relative, "
@@ -5144,7 +4479,7 @@ def dryrun_on_card() -> dict:
             f"rank {i} " + ", ".join(f"{tag} " + "/".join(f"{v:.3e}" for v in gaps.values())
                                      for tag, gaps in sp.items())
             for i, sp in enumerate(res["sp"]))
-        + f" (logits/boxes/masks); {res['seconds']:.1f} s in dryrun(), {wall:.1f} s wall")
+        + " (logits/boxes/masks)")
     return res
 
 
@@ -5216,10 +4551,7 @@ def phase_sp(root: str) -> dict:
     (f) each rank's launches: 12 2D forwards (the 3D model: 8 3D and 4
         2D), as one process's.
     (d), the 3D kernel at the sharded call's shapes, runs with phase 2
-    (``phase_sp_kernels``). Each rank's forward ms (the two share the card,
-    and their collectives are staged through the host) and peak GiB beside
-    the one-process forward's: numbers, not a claim. Video-Swin-B's halo:
-    ``sp_halos``."""
+    (``phase_sp_kernels``). Video-Swin-B's halo: ``sp_halos``."""
     import dataclasses
 
     import torch
@@ -5229,7 +4561,6 @@ def phase_sp(root: str) -> dict:
     from tce_rvos_tpu_torch.parallel.mesh import init_distributed, shard_time_axis
 
     label = "[sp]"
-    t_phase = time.perf_counter()
     res = {"dryrun": dryrun_on_card()}
     spec = {"models": {}}
     weights, clips = {}, {}
@@ -5246,10 +4577,8 @@ def phase_sp(root: str) -> dict:
                                 "weights": weights[key], "inputs": clips[frames],
                                 "valid_indices": valid}
     want = sp_runs(spec, lambda x: (x, None))  # one process, the whole clip
-    t0 = time.perf_counter()
     ranks = dryrun.run_processes(2, sp_rank, (spec,), device="cuda", backend="gloo",
                                  timeout=900)
-    res["wall_s"] = time.perf_counter() - t0
     # (e) NCCL at world 1, f32
     nccl = {}
     with nccl_world_one():
@@ -5260,7 +4589,7 @@ def phase_sp(root: str) -> dict:
             local, shard = shard_time_axis(dryrun.sp_model_inputs(case))
             if shard is None or (shard.world, shard.count) != (1, SP_CASES[name][2]):
                 raise AssertionError(f"{label} NCCL world 1 {name}: shard {shard}")
-            nccl[name] = sp_timed(model, local, shard)
+            nccl[name] = sp_forward(model, local, shard)
             del model
             torch.cuda.empty_cache()
     for name, got in nccl.items():
@@ -5270,8 +4599,7 @@ def phase_sp(root: str) -> dict:
                                      "forward's")
         if got["launches"] != SP_LAUNCHES[name]:
             raise AssertionError(f"{label} NCCL world 1 {name}: launches {got['launches']}")
-    res["nccl_world1"] = {name: {"ms": g["ms"], "peak_gib": g["peak_gib"],
-                                 "launches": g["launches"]} for name, g in nccl.items()}
+    res["nccl_world1"] = {name: {"launches": g["launches"]} for name, g in nccl.items()}
     res["halos_video_swin_b"] = sp_halos(SP_VSWIN_T)
     log(f"{label} Video-Swin-B at T = {SP_VSWIN_T}, 6 frames a rank: frames each rank gathers "
         f"from the other for a block (the same at every stage): {res['halos_video_swin_b']}; at "
@@ -5280,8 +4608,7 @@ def phase_sp(root: str) -> dict:
         name, dtype = tag.split("/")
         _, _, frames, valid = SP_CASES[name]
         t_out = 1 if valid else frames
-        entry = {"one_process": {"ms": w["ms"], "peak_gib": w["peak_gib"],
-                                 "launches": w["launches"]}, "ranks": []}
+        entry = {"one_process": {"launches": w["launches"]}, "ranks": []}
         if w["launches"] != SP_LAUNCHES[name]:
             raise AssertionError(f"{label} {tag} one process launched {w['launches']}")
         for k, shape in (("pred_logits", (1, t_out, 5, 1)), ("pred_boxes", (1, t_out, 5, 4)),
@@ -5302,8 +4629,7 @@ def phase_sp(root: str) -> dict:
                          for k in dryrun.SP_OUTPUTS})
             if dtype == "bfloat16":
                 gaps["decisions"] = sp_decisions(got["pred_masks"], w["pred_masks"])
-            entry["ranks"].append(dict(ms=got["ms"], peak_gib=got["peak_gib"],
-                                       launches=got["launches"], gaps=gaps))
+            entry["ranks"].append(dict(launches=got["launches"], gaps=gaps))
         res[tag] = entry
         what = (f"the annotated frame {valid[0]} of {frames}, on rank {valid[0] // (frames // 2)}"
                 if valid else f"{frames // 2} frames against one process of {frames}")
@@ -5314,11 +4640,7 @@ def phase_sp(root: str) -> dict:
                "{worst_margin:.3e}, rel RMS {rel_rms:.3e})".format(**r["gaps"]["decisions"])
                if "decisions" in r["gaps"] else "")
             for i, r in enumerate(entry["ranks"]))
-            + f"; forward ms {w['ms']:.1f} one process, "
-            + ", ".join(f"{r['ms']:.1f}" for r in entry["ranks"]) + " the ranks; peak GiB "
-            + f"{w['peak_gib']:.2f} one process, "
-            + ", ".join(f"{r['peak_gib']:.2f}" for r in entry["ranks"])
-            + f" the ranks; launches {SP_LAUNCHES[name]}")
+            + f"; launches {SP_LAUNCHES[name]}")
     res["bf16_against_f32"] = {name: sp_decisions(want[f"{name}/bfloat16"]["pred_masks"],
                                                    want[f"{name}/float32"]["pred_masks"])
                                 for name in SP_CASES}
@@ -5342,11 +4664,8 @@ def phase_sp(root: str) -> dict:
                         f"{d['flipped_share']:.3e} of pixels (limit {share}), up to "
                         f"{d['worst_margin']:.3e} of the largest |logit| from 0 (limit "
                         f"{margin})")
-    res["seconds"] = time.perf_counter() - t_phase
     log(f"{label} NCCL world 1: a shard of the whole clip gives the unsharded f32 forward "
-        f"bitwise (" + ", ".join(f"{n} {g['ms']:.1f} ms" for n, g in nccl.items())
-        + f"); two gloo ranks {res['wall_s']:.1f} s; phase 14 wall {res['seconds']:.1f} s; "
-        f"nvidia-smi: {nvidia_smi_line()}")
+        f"bitwise ({', '.join(nccl)})")
     return res
 
 
@@ -5574,7 +4893,7 @@ def main() -> int:
     done("4 parity")
     train = phase_train(sd)
     done("5 train")
-    adamw = phase_flat_adamw(sd, train)
+    adamw = phase_flat_adamw(sd)
     done("5b flat adamw")
     phase_train_parity(sd)
     done("6 train parity")
@@ -5630,25 +4949,5 @@ def main() -> int:
     return 0
 
 
-def dist_gap_main() -> int:
-    """``python3 chip_smoke.py --dist-gap``: the kernels' build, then
-    ``probe_dist_gap``; its numbers as the last line but one."""
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = nvidia_smi_line()
-    log(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
-    phase_build()
-    with tempfile.TemporaryDirectory(prefix="dist_gap_") as root:
-        out = probe_dist_gap(root)
-    print(json.dumps(out))
-    print(smi)
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(dist_gap_main() if sys.argv[1:] == ["--dist-gap"] else main())
+    sys.exit(main())

@@ -456,17 +456,13 @@ class InferenceEngine:
         self.t_bucket = t_bucket
         self._mean = torch.tensor(IMAGENET_MEAN, device=self.device)[:, None, None]
         self._std = torch.tensor(IMAGENET_STD, device=self.device)[:, None, None]
-        # a CUDA engine stages its frames through a pinned buffer of its
-        # own, and replays small trunk dispatches
-        cuda = self.device.type == "cuda"
-        self._stage = FrameStage(self.device) if cuda else None
+        # the engine stages its frames through a buffer of its own (pinned
+        # on CUDA); a CUDA engine replays small trunk dispatches
+        self._stage = FrameStage(self.device)
         self._ints = IntStage(self.device)
-        self._graphs = TrunkGraphs(self.device) if cuda else None
+        self._graphs = TrunkGraphs(self.device) if self.device.type == "cuda" else None
 
     # ------------------------------------------------------------------
-    def _tensor(self, x: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x)).to(self.device)
-
     def _inputs(self, text_ids, text_attn, size, flat: Optional[torch.Tensor] = None):
         """(token ids [E, L], attention mask [E, L], sizes [1, 2]) as int64
         views of one vector on the device (``flat``, a capture's static
@@ -492,19 +488,13 @@ class InferenceEngine:
         """Resize (short side ``size``, long side <= ``max_size``; bilinear,
         align_corners=False), normalise, pad to the ``pad_mult`` bucket.
         Returns (video [1, t, Hp, Wp, 3] f32, mask [1, t, Hp, Wp] True on
-        padding, (oh, ow)) on the engine's device. A CUDA engine uploads
-        the frames through its ``FrameStage``, the CPU stacks them."""
+        padding, (oh, ow)) on the engine's device. The frames go up
+        through the engine's ``FrameStage``."""
         t = len(frames)
         with profiling.span("tce.engine.preprocess", t):
             h, w = frames[0].shape[:2]
             oh, ow = self.model_size((h, w))
-            if self._stage is not None:
-                x = self._stage.upload(frames)
-            else:
-                with profiling.span("tce.engine.preprocess.stack", t):
-                    x = np.stack([np.asarray(f, np.float32) for f in frames])
-                with profiling.span("tce.engine.preprocess.h2d", t):
-                    x = self._tensor(x)
+            x = self._stage.upload(frames)
             with profiling.span("tce.engine.preprocess.resize", t):
                 x = x.permute(0, 3, 1, 2)  # [t, 3, h, w]
                 if (oh, ow) != (h, w):

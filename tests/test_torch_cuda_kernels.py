@@ -376,7 +376,7 @@ def test_cuda_preprocess_pinned_stage_is_bitwise_the_pageable_path():
     staging waits for it (``engine.pinned_waits``), and both come out
     right. Equal shapes allocate the buffer once."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; the CPU engine takes the stack path")
+        pytest.skip("needs a CUDA device; the CPU engine's stage is not pinned")
     cfg = ModelConfig(enc_layers=1, dec_layers=1, dim_feedforward=64, text_encoder_layers=1,
                       text_encoder_hidden=64, text_encoder_heads=4,
                       text_encoder_intermediate=128)
@@ -385,8 +385,13 @@ def test_cuda_preprocess_pinned_stage_is_bitwise_the_pageable_path():
     windows = [[rng.rand(720, 1280, 3).astype(np.float32) for _ in range(5)] for _ in range(3)]
     windows.append([rng.randint(0, 256, (720, 1280, 3)).astype(np.uint8) for _ in range(5)])
 
+    class PageableStage:  # the oracle: stack, then a pageable copy
+        def upload(self, frames):
+            return torch.as_tensor(np.stack([np.asarray(f, np.float32) for f in frames])).to(
+                engine.device)
+
     def pageable(frames):
-        stage, engine._stage = engine._stage, None
+        stage, engine._stage = engine._stage, PageableStage()
         try:
             return engine.preprocess(frames)
         finally:

@@ -528,7 +528,31 @@ def test_frame_stage_calls_from_threads_take_turns():
     assert wrong == []
 
 
+class _StackStage:
+    """A stand-in for the engine's stage: the stacked oracle, copied up."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def upload(self, frames):
+        return torch.as_tensor(_stacked(frames)).to(self.device)
+
+
 def test_cpu_engine_keeps_the_stack_path():
+    """The CPU engine stages its frames through an unpinned ``FrameStage``
+    (the one input path of every engine), and ``preprocess`` gives what it
+    gives from the stacked frames, bitwise."""
     engine = InferenceEngine(TINY, build_model(TINY, device="cpu").state_dict(), device="cpu",
                              **ENGINE_KW)
-    assert engine._stage is None
+    assert isinstance(engine._stage, infer.FrameStage) and not engine._stage.pin
+    for dtype, hw in ((np.float64, (48, 80)), (np.uint8, (64, 96))):
+        frames = _stage_frames(dtype, 3, hw=hw, seed=6)
+        got = engine.preprocess(frames)
+        assert not engine._stage.buf.is_pinned()
+        stage, engine._stage = engine._stage, _StackStage(engine.device)
+        try:
+            want = engine.preprocess(frames)
+        finally:
+            engine._stage = stage
+        assert got[2] == want[2]
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
