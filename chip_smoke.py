@@ -31,8 +31,10 @@ Phases:
                bf16 and f32; checks shapes, finiteness, boxes in [0, 1],
                12 MSDA kernel launches per trunk forward (the kernels the
                profiler saw run, a graph's replays among them, and the
-               launch counters), expression isolation (bitwise), batched
-               masks against serial run_video masks;
+               launch counters), the backbone replayed from its CUDA
+               graphs at each window against the eager backbone (bitwise),
+               expression isolation (bitwise), batched masks against serial
+               run_video masks;
   4. parity  - one window, E = 1, f32 with TF32 off, GPU (kernel) against
                the same weights on the CPU (plain MSDA);
   5. train   - the flagship at full width and depth, b = 1, 5x384x640,
@@ -76,7 +78,8 @@ Phases:
                axis, exact-integer and halfway frames;
   8. protocols - the trunk's peak memory at (E, T) points per compute
                dtype, fitted and held under ``infer._ENVELOPE_GIB``, and the
-               memory the trunk's CUDA graphs keep; on synthetic trees of
+               memory the backbone's and the trunk's CUDA graphs keep; on
+               synthetic trees of
                720x1280 JPEG frames: ytvos whole-video in bf16 (PNGs bitwise
                the threshold of run_video_batch on the same engine, 12 2D
                forward launches per trunk forward, N = 160 at the 40-frame
@@ -129,7 +132,8 @@ Phases:
                b = 1, 5x384x640, without and 3 with recomputation (12 + 12
                and 24 + 12 launches a step), every backbone parameter with
                a gradient; one bf16 forward (a 5-frame window, E = 4:
-               finite outputs, 12 launches) on Video-Swin-T and -S, Swin-L,
+               finite outputs, 12 launches, the backbone's replay bitwise
+               its captured first dispatch) on Video-Swin-T and -S, Swin-L,
                ResNet-101, ResNet-50 with DC5 and X3D-M;
  12. options - the model options at full width: the LastLayerAsToken
                flagship (``--f_token -1``) through phase 3's path in bf16 (8
@@ -1238,6 +1242,7 @@ def phase_path(dtype_name: str, sd, videos, backbone: str = "resnet50", tag: str
     log(f"{label} run_video_batch E={len(CAPTIONS)}, {n_windows} windows: outputs ok, "
         f"msda_fwd launches the device ran {launches} ({per_forward} x {trunk_forwards} trunk "
         f"forwards; launch counters {counted})")
+    backbone_replay(engine, frames, label)
 
     isolation = expression_isolation(engine, frames, label)
     bvs = batched_vs_serial(engine, videos, outs, dtype_name, label, limits)
@@ -1246,6 +1251,34 @@ def phase_path(dtype_name: str, sd, videos, backbone: str = "resnet50", tag: str
     del engine
     torch.cuda.empty_cache()
     return result, bvs["masks"]
+
+
+def backbone_replay(engine, frames, label: str) -> None:
+    """The serving path's backbone at each window of ``frames`` (shapes
+    ``run_video_batch`` has dispatched) against the same engine's eager
+    backbone, bitwise: replayed from its CUDA graphs where
+    ``infer.backbone_graph_gate`` passes the window, else eager."""
+    import torch
+
+    from tce_rvos_tpu_torch.infer import backbone_graph_gate
+
+    modes = []
+    for ext, _ in engine.windows(len(frames)):
+        video, mask, _ = engine.preprocess([frames[i] for i in ext])
+        want = engine._backbone_eager(video, mask)
+        reset_launch_counts()
+        got = engine.backbone(video, mask)
+        mode = "replays" if backbone_graph_gate(video.shape[1], tuple(video.shape[2:4]),
+                                                engine.dtype, "cuda") else "eager"
+        if _counters().get(f"engine.backbone_graph_{mode}") != 1:
+            raise AssertionError(f"{label} backbone: not one dispatch counted as {mode}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            if a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"{label} backbone ({mode}): level {i} is not bitwise the "
+                                     f"eager backbone's")
+        modes.append(mode)
+    log(f"{label} backbone at each window ({', '.join(modes)}): features bitwise the eager "
+        f"backbone's")
 
 
 def temporal_taps(engine, feats, mask, sizes, e: int = 4) -> dict:
@@ -2249,11 +2282,13 @@ def phase_envelope(sd, frames, hold: bool = True) -> dict:
     for ``infer._ENVELOPE_GIB``. ``hold``: every measured point must lie on
     or under the line of ``infer._ENVELOPE_GIB``, so that the cap it gives
     (``trunk_frame_envelope``) keeps each measured dispatch within the
-    card's memory. Then the CUDA graphs of ``infer.GRAPH_KEYS`` dispatch
-    shapes ``infer.graph_gate`` passes: the device memory an engine keeps
-    for them once each is captured and replayed (static inputs and outputs,
-    the graphs' pool), held within the share of the card the cap leaves
-    free (``graph_memory``)."""
+    card's memory. Then the CUDA graphs of ``infer.BACKBONE_GRAPH_KEYS``
+    window shapes ``infer.backbone_graph_gate`` passes and of
+    ``infer.GRAPH_KEYS`` dispatch shapes ``infer.graph_gate`` passes: the
+    device memory an engine keeps for each (static inputs and outputs, the
+    graphs' pools) once each shape is captured and replayed, held
+    together within the share of the card the cap leaves free
+    (``graph_memory``)."""
     import numpy as np
     import torch
 
@@ -2271,7 +2306,7 @@ def phase_envelope(sd, frames, hold: bool = True) -> dict:
         for e, t in points:
             video, mask, size = engine.preprocess([frames[i % len(frames)] for i in range(t)])
             sizes = size
-            feats = engine.backbone(video, mask)
+            feats = engine._backbone_eager(video, mask)  # no backbone graph kept in the line
             ids, attn = tokenize([CAPTIONS[i % len(CAPTIONS)] for i in range(e)])
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -2310,6 +2345,28 @@ GRAPH_HOLD_VARIANTS = ((FRAME_HW, 16), (FRAME_HW[::-1], 24), (FRAME_HW, 24),
                        (FRAME_HW[::-1], 16))
 
 
+# what ``graph_memory`` captures of the backbone: window lengths, frames as
+# stored (FRAME_HW) and portrait; and the families it captures: the
+# flagship's ResNet-50 and the two whose captures keep the most a shape
+# (Swin-L, Video-Swin-B; PERF.md)
+BACKBONE_HOLD_FRAMES = (5, 4, 3, 2, 1)
+BACKBONE_HOLD_FAMILIES = ("resnet50", "swin_l_p4w7", "video_swin_b_p4w7")
+
+
+def backbone_hold_keys(dtype) -> list:
+    """``infer.BACKBONE_GRAPH_KEYS`` distinct window shapes (T, frame size)
+    that ``infer.backbone_graph_gate`` passes in ``dtype``: the largest Ts
+    of BACKBONE_HOLD_FRAMES the gate passes at 384x640, each landscape,
+    then portrait."""
+    from tce_rvos_tpu_torch import infer
+
+    ts = [t for t in BACKBONE_HOLD_FRAMES
+          if infer.backbone_graph_gate(t, (384, 640), dtype, "cuda")]
+    keys = [(t, hw) for t in ts for hw in (FRAME_HW, FRAME_HW[::-1])][:infer.BACKBONE_GRAPH_KEYS]
+    assert len(set(keys)) == infer.BACKBONE_GRAPH_KEYS, keys
+    return keys
+
+
 def graph_hold_keys(dtype) -> list:
     """``infer.GRAPH_KEYS`` distinct dispatch shapes (E, T, frame size,
     caption tokens) that ``infer.graph_gate`` passes in ``dtype``: each
@@ -2328,11 +2385,17 @@ def graph_hold_keys(dtype) -> list:
 
 def graph_memory(sd, frames, name: str, hold: bool) -> dict:
     """The device memory (``torch.cuda.mem_get_info``, the allocator's
-    unused cache emptied before both readings) that an engine in compute
-    dtype ``name`` keeps after capturing and replaying the trunk at each
-    of ``graph_hold_keys``, as many shapes as it keeps; ``hold``: all of
-    them kept, within the share of the card that ``trunk_frame_envelope``
-    leaves to what is not a dispatch (1 - ``infer._MEMORY_SAFETY``)."""
+    unused cache emptied before each reading) that an engine in compute
+    dtype ``name`` keeps after capturing and replaying its backbone at
+    each of ``backbone_hold_keys``, on each of BACKBONE_HOLD_FAMILIES
+    (ResNet-50 with the flagship's weights ``sd``, the others drawn on the
+    card), and the trunk at each of ``graph_hold_keys`` on the flagship
+    (its features from the eager backbone; the other families' features
+    have fewer channels), as many shapes as an engine keeps of each;
+    ``hold``: all of them kept, the most any family's backbone keeps and
+    the trunk's together within the share of the card that
+    ``trunk_frame_envelope`` leaves to what is not a dispatch
+    (1 - ``infer._MEMORY_SAFETY``)."""
     import numpy as np
     import torch
 
@@ -2341,37 +2404,73 @@ def graph_memory(sd, frames, name: str, hold: bool) -> dict:
 
     label = f"[envelope {name}]"
     total_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
-    keys = graph_hold_keys(getattr(torch, name))
-    engine = infer.InferenceEngine(flagship_config(compute_dtype=name), sd, device="cuda")
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    free_before = torch.cuda.mem_get_info()[0]
-    buckets = []
-    for e, t, hw, tokens in keys:
+    dtype = getattr(torch, name)
+    backbone_keys, keys = backbone_hold_keys(dtype), graph_hold_keys(dtype)
+
+    def free() -> int:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.mem_get_info()[0]
+
+    def clip_of(engine, t, hw):
         clip = [frames[i % len(frames)] for i in range(t)]
         if hw != clip[0].shape[:2]:  # portrait: the frames turned
             clip = [np.ascontiguousarray(f.transpose(1, 0, 2)) for f in clip]
-        video, mask, size = engine.preprocess(clip)
+        return engine.preprocess(clip)
+
+    def backbone_kept(engine) -> tuple:
+        """(GiB kept, shapes kept) after each of backbone_keys is captured
+        and replayed."""
+        before = free()
+        for t, hw in backbone_keys:
+            video, mask, _ = clip_of(engine, t, hw)
+            for _ in range(2):  # the first dispatch captures, the second replays
+                feats = engine.backbone(video, mask)
+            del feats, video, mask
+        return (before - free()) / 2**30, len(engine._backbone_graphs.entries)
+
+    backbones = {}
+    for family in BACKBONE_HOLD_FAMILIES[1:]:
+        cfg = flagship_config(compute_dtype=name, backbone=family)
+        family_sd = device_state_dict(flagship_config(backbone=family), seed=0)
+        with torch.device("cuda"):  # the engine's model built on the card
+            engine = infer.InferenceEngine(cfg, family_sd, device="cuda")
+        del family_sd
+        backbones[family] = backbone_kept(engine)
+        del engine
+        torch.cuda.empty_cache()
+    engine = infer.InferenceEngine(flagship_config(compute_dtype=name), sd, device="cuda")
+    backbones[BACKBONE_HOLD_FAMILIES[0]] = backbone_kept(engine)
+    free_between = free()
+    buckets = []
+    for e, t, hw, tokens in keys:
+        video, mask, size = clip_of(engine, t, hw)
         buckets.append(tuple(mask.shape[2:]))
-        feats = engine.backbone(video, mask)
+        feats = engine._backbone_eager(video, mask)
         ids, attn = tokenize([CAPTIONS[i % len(CAPTIONS)] for i in range(e)], max_len=tokens)
         for _ in range(2):  # the first dispatch captures, the second replays
             out = engine.trunk(feats, mask, ids, attn, size)
         del out, feats, video, mask
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    kept = (free_before - torch.cuda.mem_get_info()[0]) / 2**30
+    kept = (free_between - free()) / 2**30
     room = (1 - infer._MEMORY_SAFETY) * total_gib
     held = len(engine._graphs.entries)
-    log(f"{label} CUDA graphs of {held} shapes (E, T, frames, tokens) {keys}, buckets "
-        f"{sorted(set(buckets))}: kept {kept:.3f} GiB of the card's {total_gib:.2f} GiB "
-        f"(room beside the cap: {room:.2f} GiB)")
+    worst = max(gib for gib, _ in backbones.values())
+    log(f"{label} backbone CUDA graphs of the window shapes (T, frames) {backbone_keys}: kept "
+        + ", ".join(f"{f} {gib:.3f} GiB ({n} shapes)" for f, (gib, n) in backbones.items())
+        + f"; trunk CUDA graphs of {held} shapes (E, T, frames, tokens) {keys}, buckets "
+        f"{sorted(set(buckets))}: kept {kept:.3f} GiB; the most a backbone keeps and the "
+        f"trunk's together {worst + kept:.3f} GiB of the card's {total_gib:.2f} GiB (room "
+        f"beside the cap: {room:.2f} GiB)")
     del engine
     torch.cuda.empty_cache()
-    if hold and not (held == infer.GRAPH_KEYS and kept <= room):
-        raise AssertionError(f"{label} CUDA graphs of {held} shapes keep {kept:.3f} GiB, "
-                             f"outside the {room:.2f} GiB beside the cap")
-    return dict(keys=keys, buckets=buckets, kept_gib=kept, room_gib=room)
+    if hold and not (all(n == len(backbone_keys) for _, n in backbones.values())
+                     and held == infer.GRAPH_KEYS and worst + kept <= room):
+        raise AssertionError(f"{label} CUDA graphs of the backbone ({backbones}: GiB, shapes) "
+                             f"and of {held} trunk shapes ({kept:.3f} GiB) outside the "
+                             f"{room:.2f} GiB beside the cap")
+    return dict(keys=keys, buckets=buckets, kept_gib=kept, room_gib=room,
+                backbone_keys=backbone_keys,
+                backbone_kept_gib={f: gib for f, (gib, _) in backbones.items()})
 
 
 PROTO_HW = (720, 1280)  # frames as stored: downscaled to 360x640 by the engine
@@ -3586,9 +3685,15 @@ def family_forward(name: str, dilation: bool, frames) -> dict:
     if bad or launches != 12:
         raise AssertionError(f"{label} outputs not finite: {bad}; MSDA launches {launches}, "
                              f"expected 12")
+    replayed = engine.backbone(video, mask)  # the first dispatch captured the shape
+    if len(engine._backbone_graphs.entries) != 1 or not all(
+            torch.equal(a, b) for a, b in zip(replayed, feats)):
+        raise AssertionError(f"{label} the backbone's replay is not bitwise its first, eager "
+                             f"dispatch")
     levels = [tuple(f.shape[-2:]) for f in feats]
     log(f"{label} one 5x384x640 window, E={len(CAPTIONS)}: outputs finite, msda_fwd launches "
-        f"{launches}; backbone levels {levels}, channels {[f.shape[1] for f in feats]}")
+        f"{launches}; backbone levels {levels}, channels {[f.shape[1] for f in feats]}; its "
+        f"replay bitwise the first dispatch")
     del engine
     torch.cuda.empty_cache()
     return dict(launches=launches, levels=[list(x) for x in levels])

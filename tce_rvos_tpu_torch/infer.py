@@ -10,8 +10,9 @@ two). ``trunk_frame_envelope`` caps the expressions x frames of one trunk
 dispatch by a peak-memory fit made on an H100. On a CUDA device a trunk
 dispatch small enough that issuing its launches takes the host longer than
 the device takes to run them (``graph_gate``) is replayed from CUDA graphs
-captured once for its shape (``TrunkGraphs``); every other dispatch, and
-every CPU one, runs eagerly. Windows are ``window``
+captured once for its shape (``TrunkGraphs``), and so is a backbone
+dispatch of a small window (``backbone_graph_gate``, ``BackboneGraphs``);
+every other dispatch, and every CPU one, runs eagerly. Windows are ``window``
 frames with ``f_extra`` context frames on both sides (clamped at the
 video's ends, their outputs dropped), or, with ``whole_video``, the whole
 video rounded up to a multiple of ``t_bucket`` frames by repeating the
@@ -250,9 +251,9 @@ class IntStage(_HostStage):
 # them in chunks of at most ``ATTN_LOGITS_CHUNK`` logits, which keeps the
 # peak linear in E x T.
 # The line is the eager forward's. What an engine keeps for the CUDA graphs
-# of its small dispatches (``TrunkGraphs``: static inputs and outputs, the
-# pool) lies outside it, in the 1 - _MEMORY_SAFETY of the card the cap
-# leaves free (chip_smoke.py's envelope phase holds it there).
+# of its small dispatches (``TrunkGraphs``, ``BackboneGraphs``: static inputs
+# and outputs, the pools) lies outside it, in the 1 - _MEMORY_SAFETY of the
+# card the cap leaves free (chip_smoke.py's envelope phase holds it there).
 # ---------------------------------------------------------------------------
 
 _ENVELOPE_GIB = {  # compute dtype -> (base, per frame at 384x640)
@@ -332,7 +333,50 @@ class _Graphed(NamedTuple):
     outputs: Dict[str, torch.Tensor]
 
 
-class TrunkGraphs:
+class _ShapeGraphs:
+    """What the trunk's and the backbone's graphs share: one capture per
+    dispatch shape in ``entries``, at most ``keys`` of them, the least
+    recently used dropped first; every graph in one memory pool of their
+    own; the captures on a side stream; ``lock`` held by each dispatch."""
+
+    keys: int
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device)  # the captures'
+        self.entries: "collections.OrderedDict[tuple, NamedTuple]" = collections.OrderedDict()
+        self.lock = threading.Lock()
+
+    def _keep(self, key: tuple, entry) -> None:
+        self.entries[key] = entry
+        if len(self.entries) > self.keys:
+            self.entries.popitem(last=False)
+
+    def _record(self, fn):
+        """(the recording's steps, ``fn()``): ``fn`` run on the side stream
+        while its work is captured into CUDA graphs cut at the model's
+        spans (``profiling.recording``)."""
+        graphs: List[torch.cuda.CUDAGraph] = []
+
+        def begin():
+            graphs.append(torch.cuda.CUDAGraph())
+            graphs[-1].capture_begin(pool=self.pool, capture_error_mode="thread_local")
+
+        def end():
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # a stretch without work is an empty graph
+                graphs[-1].capture_end()
+            return graphs[-1]
+
+        torch.cuda.synchronize(self.device)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            with profiling.recording(begin, end) as steps:
+                out = fn()
+        return steps, out
+
+
+class TrunkGraphs(_ShapeGraphs):
     """An engine's trunk dispatches replayed from CUDA graphs, one capture
     per dispatch shape (the expressions, the caption length, the clip's
     frames and padded size, the feature pyramid's shapes and dtype), at
@@ -348,12 +392,7 @@ class TrunkGraphs:
     next replay of any shape may overwrite. Counters:
     ``engine.trunk_graph_captures``, ``engine.trunk_graph_replays``."""
 
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(device)  # the captures'
-        self.entries: "collections.OrderedDict[tuple, _Graphed]" = collections.OrderedDict()
-        self.lock = threading.Lock()
+    keys = GRAPH_KEYS
 
     def run(self, engine: "InferenceEngine", feats, mask, text_ids, text_attn,
             size) -> Dict[str, torch.Tensor]:
@@ -363,9 +402,7 @@ class TrunkGraphs:
             entry = self.entries.get(key)
             if entry is None:
                 out = engine._trunk_eager(feats, mask, text_ids, text_attn, size)
-                self.entries[key] = self._capture(engine, feats, mask, np.shape(text_ids))
-                if len(self.entries) > GRAPH_KEYS:
-                    self.entries.popitem(last=False)
+                self._keep(key, self._capture(engine, feats, mask, np.shape(text_ids)))
                 profiling.count("engine.trunk_graph_captures")
                 return out
             self.entries.move_to_end(key)
@@ -383,25 +420,94 @@ class TrunkGraphs:
         static_mask = torch.zeros_like(mask)
         ints = torch.zeros(2 * int(np.prod(text_shape)) + 2, dtype=torch.int64,
                            device=self.device)
-        graphs: List[torch.cuda.CUDAGraph] = []
-
-        def begin():
-            graphs.append(torch.cuda.CUDAGraph())
-            graphs[-1].capture_begin(pool=self.pool, capture_error_mode="thread_local")
-
-        def end():
-            with warnings.catch_warnings():
-                warnings.simplefilter("ignore")  # a stretch without work is an empty graph
-                graphs[-1].capture_end()
-            return graphs[-1]
-
-        torch.cuda.synchronize(self.device)
-        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-            with profiling.recording(begin, end) as steps:
-                out = engine.model(None, static_mask, *_int_views(ints, text_shape),
-                                   precomputed_feats=static_feats)
+        steps, out = self._record(lambda: engine.model(
+            None, static_mask, *_int_views(ints, text_shape), precomputed_feats=static_feats))
         return _Graphed(static_feats, static_mask, ints, steps,
                         {k: out[k] for k in OUTPUT_KEYS})
+
+
+# ---------------------------------------------------------------------------
+# the backbone from CUDA graphs.
+#
+# A backbone dispatch issues some 500 (ResNet-50) to 1,500 (Swin-L)
+# launches; on a short window the device waits between them. Probed on an
+# H100 80GB HBM3 at 700 W at 384x640 in bf16 (PERF.md), the eager dispatch's
+# host time against its replay's device time, ms, at T = 5 / 8 / 10 / 16 /
+# 20 frames:
+#     ResNet-50:    5.2 / 7.7 / 7.5 / 10.9 / 9.1  against 3.5 / 5.3 / 6.2 / 9.7 / 11.9
+#     Swin-L:       18.5 / 17.2 / 22.0 / 19.5 / 24.4  against 14.3 / 22.0 / 26.8 / 42.5 / 52.5
+#     Video-Swin-B: 20.3 / 17.6 / 24.4 / 23.8 / 24.2  against 16.9 / 31.6 / 57.4 / 61.3 / 87.1
+# BACKBONE_GRAPH_MAX_FRAMES: the largest window, in bf16 frames at 384x640,
+# whose eager host time exceeded its replay's device time in every family:
+# 5 (ResNet-50's alone pays to 16). Past it a replay frees little, and a
+# capture keeps more: 0.23 / 0.71 / 0.74 GiB a shape at 5 frames, 0.34 /
+# 1.05 / 1.53 at 8. BACKBONE_GRAPH_KEYS: the most window shapes an engine
+# keeps captured; chip_smoke.py's envelope phase captures that many gated
+# shapes on ResNet-50, Swin-L and Video-Swin-B and holds the most any of
+# them keeps, with the trunk's eight shapes, within the share of the card
+# the memory envelope leaves free (PERF.md). One bound for every family:
+# the gate reads the window's bytes, not the backbone.
+# ---------------------------------------------------------------------------
+
+BACKBONE_GRAPH_MAX_FRAMES = 5
+BACKBONE_GRAPH_KEYS = 4
+
+
+def backbone_graph_gate(t: int, hw: Tuple[int, int], dtype: torch.dtype,
+                        device: Union[str, torch.device]) -> bool:
+    """Whether a backbone dispatch of ``t`` frames padded to ``hw``, cast to
+    ``dtype``, replays from CUDA graphs: on a CUDA device, at most
+    ``BACKBONE_GRAPH_MAX_FRAMES`` bf16 frames at 384x640 (another size in
+    proportion to its pixels, another dtype to its bytes), whatever the
+    backbone. Never on the CPU."""
+    nbytes = t * hw[0] * hw[1] * torch.empty((), dtype=dtype).element_size()
+    return (torch.device(device).type == "cuda"
+            and nbytes <= BACKBONE_GRAPH_MAX_FRAMES * 384 * 640 * 2)
+
+
+class _GraphedBackbone(NamedTuple):
+    """One window shape's capture: the static inputs (the f32 video and
+    its mask), the recording and the static feature maps."""
+
+    video: torch.Tensor
+    mask: torch.Tensor
+    steps: List[tuple]
+    feats: List[torch.Tensor]
+
+
+class BackboneGraphs(_ShapeGraphs):
+    """An engine's backbone dispatches replayed from CUDA graphs, as
+    ``TrunkGraphs`` replays the trunk's: one capture per window shape (the
+    video's and the mask's shapes; the engine's compute dtype is fixed),
+    at most ``BACKBONE_GRAPH_KEYS`` of them, in a memory pool of their
+    own. A
+    shape's first dispatch runs eagerly and is then captured, cut at the
+    model's spans; each later one copies the video and the mask into the
+    static inputs, replays the segments under their spans (the backbone's
+    and its stages' spans and the Swin token counts read as an eager
+    run's) and returns clones of the static feature maps. Counters:
+    ``engine.backbone_graph_captures``, ``engine.backbone_graph_replays``."""
+
+    keys = BACKBONE_GRAPH_KEYS
+
+    def run(self, engine: "InferenceEngine", video, mask) -> List[torch.Tensor]:
+        key = (tuple(video.shape), tuple(mask.shape))
+        with self.lock:
+            entry = self.entries.get(key)
+            if entry is None:
+                out = engine._backbone_eager(video, mask)
+                static_video, static_mask = torch.zeros_like(video), torch.zeros_like(mask)
+                steps, feats = self._record(
+                    lambda: engine._backbone_eager(static_video, static_mask))
+                self._keep(key, _GraphedBackbone(static_video, static_mask, steps, feats))
+                profiling.count("engine.backbone_graph_captures")
+                return out
+            self.entries.move_to_end(key)
+            entry.video.copy_(video)
+            entry.mask.copy_(mask)
+            profiling.replay(entry.steps, torch.cuda.CUDAGraph.replay)
+            profiling.count("engine.backbone_graph_replays")
+            return [f.clone() for f in entry.feats]
 
 
 def _int_views(flat: torch.Tensor, text_shape) -> Tuple[torch.Tensor, ...]:
@@ -457,10 +563,12 @@ class InferenceEngine:
         self._mean = torch.tensor(IMAGENET_MEAN, device=self.device)[:, None, None]
         self._std = torch.tensor(IMAGENET_STD, device=self.device)[:, None, None]
         # the engine stages its frames through a buffer of its own (pinned
-        # on CUDA); a CUDA engine replays small trunk dispatches
+        # on CUDA); a CUDA engine replays small backbone and trunk dispatches
         self._stage = FrameStage(self.device)
         self._ints = IntStage(self.device)
-        self._graphs = TrunkGraphs(self.device) if self.device.type == "cuda" else None
+        cuda = self.device.type == "cuda"
+        self._backbone_graphs = BackboneGraphs(self.device) if cuda else None
+        self._graphs = TrunkGraphs(self.device) if cuda else None
 
     # ------------------------------------------------------------------
     def _inputs(self, text_ids, text_attn, size, flat: Optional[torch.Tensor] = None):
@@ -516,9 +624,22 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def backbone(self, video, mask) -> List[torch.Tensor]:
-        """Text-independent half: the feature pyramid of one clip window."""
+        """Text-independent half: the feature pyramid of one clip window. A
+        window that ``backbone_graph_gate`` passes replays from the
+        engine's ``BackboneGraphs``; the others run eagerly
+        (``engine.backbone_graph_eager``)."""
+        t = video.shape[0] * video.shape[1]
         with profiling.span("tce.engine.backbone", video.shape[1]):
-            return self.model(video.to(self.dtype), mask, backbone_only=True)
+            if backbone_graph_gate(t, tuple(video.shape[2:4]), self.dtype, self.device):
+                return self._backbone_graphs.run(self, video, mask)
+            profiling.count("engine.backbone_graph_eager")
+            return self._backbone_eager(video, mask)
+
+    @torch.inference_mode()
+    def _backbone_eager(self, video, mask) -> List[torch.Tensor]:
+        """The backbone's dispatch run eagerly, outside its span: what a
+        replay reproduces, and what a module's forward hooks see."""
+        return self.model(video.to(self.dtype), mask, backbone_only=True)
 
     @torch.inference_mode()
     def trunk(self, feats, mask, text_ids, text_attn, size) -> Dict[str, torch.Tensor]:

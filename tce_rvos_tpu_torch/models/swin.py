@@ -16,7 +16,9 @@ rule. The backbones take and return NCHW.
     the JAX package.
   * The shifted-window mask (-100 between tokens of a window that come from
     different regions of the shifted frame) is built on the device from
-    each token's region label, per window chunk, not stored.
+    each token's region label, per window chunk, not stored; the labels
+    are uploaded once per shape and kept on the device (``region_labels``),
+    so a block waits for nothing and a CUDA graph can hold it.
   * The windows' attention runs in chunks of at most ``ATTN_LOGITS_CHUNK``
     logits (whole-video serving puts thousands of windows through one
     block); the windows are independent, so the chunks compute the same
@@ -31,7 +33,8 @@ rule. The backbones take and return NCHW.
     blocks and its output, is the span ``tce.model.backbone.stage{i}``
     (``stage_span``, units: frames); each block counts the tokens it feeds
     to window attention, padding included (``swin.window_tokens``), and the
-    tokens it returns (``swin.window_tokens_real``), under its stage's span.
+    tokens it returns (``swin.window_tokens_real``), under its stage's span;
+    each upload of region labels counts ``swin.label_uploads``.
 
 Checkpoint keys (``backbone.0.body.`` + ``patch_embed.proj``,
 ``layers.{i}.blocks.{j}.{norm1,attn.qkv,attn.proj,
@@ -128,6 +131,29 @@ def shift_region_labels(padded: Tuple[int, ...], window: Tuple[int, ...],
                                                        for w, s in zip(window, shift)])):
         img[region] = label
     return _grid_partition(img, window)
+
+
+@functools.cache
+def region_labels(padded: Tuple[int, ...], window: Tuple[int, ...], shift: Tuple[int, ...],
+                  windows: Optional[Tuple[int, ...]], device: torch.device) -> torch.Tensor:
+    """``shift_region_labels`` on ``device``: [nW, n], or with ``windows``
+    only the windows of those temporal windows (indices along the first
+    axis of ``padded``), in their order. Uploaded once per key, each miss
+    counted (``swin.label_uploads``): a copy to the device on every call
+    would wait for the stream, and no CUDA graph can hold one. Kept for the
+    life of the process, never evicted: a captured graph reads the tensor
+    at its address, so freeing it would let the graph read whatever the
+    allocator puts there next. One tensor per key, 4 bytes a token,
+    however many blocks and engines share it. Made outside
+    inference mode, so that a training forward after a served one may use
+    it; never written."""
+    grid = shift_region_labels(padded, window, shift)
+    if windows is not None:
+        n = grid.shape[-1]
+        grid = grid.reshape(padded[0] // window[0], -1, n)[list(windows)].reshape(-1, n)
+    profiling.count("swin.label_uploads")
+    with torch.inference_mode(False):
+        return torch.from_numpy(grid).to(device)
 
 
 def window_partition(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
@@ -322,8 +348,7 @@ class SwinBlock(nn.Module):
         labels = None
         if any(shift):
             x = torch.roll(x, [-s for s in shift], axes)
-            labels = torch.from_numpy(shift_region_labels(padded, window, shift))
-            labels = labels.to(x.device).repeat(b, 1)
+            labels = region_labels(padded, window, shift, None, x.device).repeat(b, 1)
         x = window_reverse(self._attention(window_partition(x, window), labels), window, b, padded)
         if any(shift):
             x = torch.roll(x, list(shift), axes)
@@ -352,10 +377,8 @@ class SwinBlock(nn.Module):
         labels = None
         if any(shift):
             x = torch.roll(x, [-shift[1], -shift[2]], (2, 3))
-            n = math.prod(window)
-            grid = shift_region_labels((plan.padded_frames, *padded[1:]), window, shift)
-            grid = grid.reshape(plan.padded_frames // window[0], -1, n)[list(plan.windows)]
-            labels = torch.from_numpy(grid.reshape(-1, n)).to(x.device).repeat(b, 1)
+            labels = region_labels((plan.padded_frames, *padded[1:]), window, shift,
+                                   plan.windows, x.device).repeat(b, 1)
         x = window_reverse(self._attention(window_partition(x, window), labels), window, b, padded)
         if any(shift):
             x = torch.roll(x, [shift[1], shift[2]], (2, 3))

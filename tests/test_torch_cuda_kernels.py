@@ -7,9 +7,9 @@ forward calls it) and the
 fused flat AdamW update (``csrc/flat_adamw.cu``: its float4 and its
 one-float path, four tiers, the clip on and off, early and late steps),
 the engine's input stage on the card (the pinned ``FrameStage``
-against the stack and pageable copy, bitwise) and the engine's trunk
-replayed from CUDA graphs against its eager trunk (bitwise, with the
-spans and counters a replay gives).
+against the stack and pageable copy, bitwise) and the engine's trunk and
+backbone replayed from CUDA graphs against their eager runs (bitwise,
+with the spans and counters a replay gives).
 
 The file imports torch, numpy, pytest and the port only, so that it runs
 on a machine with a GPU and no JAX:
@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from tce_rvos_tpu_torch.config import ModelConfig
-from tce_rvos_tpu_torch.infer import InferenceEngine
+from tce_rvos_tpu_torch.infer import InferenceEngine, backbone_graph_gate
 from tce_rvos_tpu_torch.models.build import build_model
 from tce_rvos_tpu_torch.models.text_encoder import tokenize
 from tce_rvos_tpu_torch.ops.msda import ms_deform_attn_3d_plain, ms_deform_attn_plain
@@ -542,3 +542,201 @@ def test_cuda_trunk_graph_captures_and_replays_under_the_profiler():
     assert len(engine._graphs.entries) == 1
     launches = sum(e.count for e in prof.key_averages() if "msda_fwd_kernel<" in e.key)
     assert launches == 24, launches  # the first dispatch's 12 and the replay's 12
+
+
+# ---- the backbone from CUDA graphs ----------------------------------------------------
+
+# the smallest of each backbone family the port builds (and ResNet's DC5)
+BACKBONES = (("resnet50", False), ("resnet50", True), ("swin_t_p4w7", False),
+             ("video_swin_t_p4w7", False), ("x3d_xs", False))
+SMALL_TRUNK = dict(enc_layers=1, dec_layers=1, dim_feedforward=64, text_encoder_layers=1,
+                   text_encoder_hidden=64, text_encoder_heads=4, text_encoder_intermediate=128,
+                   compute_dtype="bfloat16")
+# frames of the windows, 720x1280 frames at the engine's small size (padded
+# 192x320): 5 frames, and 9 (Video-Swin's temporal windows of 8 shifted by
+# 4), both under the gate's bytes
+BACKBONE_WINDOWS = (5, 5, 9)
+
+
+def _backbone_engine(backbone, dilation=False):
+    """A small trunk on ``backbone`` at its full width, its weights the
+    model's init plus N(0, 0.02) drawn on the card, in an engine that
+    resizes frames to at most 160x320."""
+    from tce_rvos_tpu_torch.models.referformer import ReferFormer, init_weights
+
+    cfg = ModelConfig(backbone=backbone, dilation=dilation, **SMALL_TRUNK)
+    with torch.device("cuda"):
+        model = ReferFormer(cfg)
+    gen = torch.Generator("cuda").manual_seed(0)
+    init_weights(model, gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=gen, device="cuda") * 0.02)
+    return InferenceEngine(cfg, model.state_dict(), device="cuda", size=160, max_size=320,
+                           window=5)
+
+
+def _backbone_windows(engine, seed=0):
+    rng = np.random.RandomState(seed)
+    return [engine.preprocess([rng.rand(720, 1280, 3).astype(np.float32) for _ in range(t)])[:2]
+            for t in BACKBONE_WINDOWS]
+
+
+def _features_equal(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape and a.stride() == b.stride()
+        assert torch.equal(a, b), (a.float() - b.float()).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backbone,dilation", BACKBONES,
+                         ids=[n + ("_dc5" if d else "") for n, d in BACKBONES])
+def test_cuda_backbone_graph_replay_is_bitwise_eager(backbone, dilation):
+    """Each family's backbone replayed from CUDA graphs against the same
+    engine's eager backbone, bitwise: two 5-frame windows of one shape and
+    a 9-frame window, each shape's first dispatch eager and
+    captured, the later ones replayed; features returned earlier untouched
+    by later replays; the Swin labels uploaded only in the first dispatch
+    of a shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU engine never replays")
+    engine = _backbone_engine(backbone, dilation)
+    windows = _backbone_windows(engine)
+    for video, mask in windows:
+        assert tuple(video.shape[2:4]) == (192, 320)
+        assert backbone_graph_gate(video.shape[1], (192, 320), engine.dtype, "cuda")
+    want = [engine._backbone_eager(*w) for w in windows]  # the references
+    assert engine._backbone_graphs.entries == {}
+
+    with profiling.tracing():
+        first = engine.backbone(*windows[0])
+    got = profiling.collect()["counters"]
+    assert got["engine.backbone_graph_captures"] == 1
+    assert "engine.backbone_graph_replays" not in got and "swin.label_uploads" not in got
+    _features_equal(first, want[0])
+
+    with profiling.tracing():
+        replayed = engine.backbone(*windows[0])
+        other = engine.backbone(*windows[1])
+    got = profiling.collect()["counters"]
+    assert got["engine.backbone_graph_replays"] == 2
+    assert "engine.backbone_graph_captures" not in got and "swin.label_uploads" not in got
+    _features_equal(replayed, want[0])
+    _features_equal(other, want[1])
+    _features_equal(engine.backbone(*windows[2]), want[2])  # another shape: eager, captured
+    _features_equal(engine.backbone(*windows[2]), want[2])  # its replay
+    _features_equal(engine.backbone(*windows[1]), want[1])
+    _features_equal(replayed, want[0])  # clones: no later replay wrote them
+    _features_equal(other, want[1])
+    assert len(engine._backbone_graphs.entries) == 2
+
+
+@pytest.mark.cuda
+def test_cuda_backbone_replay_reads_kept_labels_after_many_other_keys(monkeypatch):
+    """A captured Swin-T window shape, then 80 other keys through
+    ``swin.region_labels`` and the device memory refilled with random
+    labels of each captured label tensor's size (what an evicted tensor's
+    blocks would hold): the captured shape's labels still lie where the
+    capture read them and its replay is still bitwise the eager backbone.
+    The test keeps the labels' addresses, not the tensors, so that only
+    the cache keeps them alive."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU engine never replays")
+    from tce_rvos_tpu_torch.models import swin
+
+    engine = _backbone_engine("swin_t_p4w7")
+    video, mask = _backbone_windows(engine, seed=2)[0]
+    kept = {}
+    fetch = swin.region_labels
+
+    def region_labels(*key):
+        got = fetch(*key)
+        kept[key] = (got.data_ptr(), got.shape, got.dtype)
+        return got
+
+    monkeypatch.setattr(swin, "region_labels", region_labels)
+    want = engine._backbone_eager(video, mask)
+    _features_equal(engine.backbone(video, mask), want)  # eager, then captured
+    monkeypatch.setattr(swin, "region_labels", fetch)
+    assert kept
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    for k in range(2, 82):
+        fetch((7 * k, 7 * k + 7), (7, 7), (3, 3), None, cuda)
+    gen = torch.Generator("cuda").manual_seed(0)
+    refill = [torch.randint(0, 64, shape, generator=gen, dtype=dtype, device="cuda")
+              for _, shape, dtype in kept.values() for _ in range(8)]
+    for key, (ptr, _, _) in kept.items():
+        assert fetch(*key).data_ptr() == ptr, key
+    with profiling.tracing():
+        replayed = engine.backbone(video, mask)
+    assert profiling.collect()["counters"]["engine.backbone_graph_replays"] == 1
+    _features_equal(replayed, want)
+    del refill
+
+
+def _kernel_counts(prof) -> dict:
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backbone", ["swin_t_p4w7", "video_swin_t_p4w7"])
+def test_cuda_backbone_replay_spans_and_counts_are_an_eager_runs(backbone):
+    """A replay's spans (names, units, parents; finite CUDA-event times),
+    counters and counters by span under ``profiling.tracing()`` equal an
+    eager run's under the engine's span, the graph counter aside; under
+    the profiler, a shape's first dispatch (captured there) and a replay
+    give bitwise the eager features, twice the eager run's spans as the
+    profiler's ranges and at least twice each of its kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU engine never replays")
+    from torch.profiler import ProfilerActivity, profile
+
+    engine = _backbone_engine(backbone)
+    video, mask = _backbone_windows(engine, seed=1)[0]
+    t = video.shape[1]
+    want = engine._backbone_eager(video, mask)  # keeps the labels
+
+    def tree(records):
+        by_id = {s["id"]: s for s in records["spans"]}
+        for s in records["spans"]:
+            assert np.isfinite(s["device_ms"]) and s["device_ms"] >= 0, s
+        return sorted((s["name"], s["units"], by_id[s["parent"]]["name"] if s["parent"] else None)
+                      for s in records["spans"])
+
+    with profiling.tracing():
+        with profiling.span("tce.engine.backbone", t):
+            engine._backbone_eager(video, mask)
+    eager = profiling.collect()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as eager_prof:
+        engine._backbone_eager(video, mask)
+        torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        first = engine.backbone(video, mask)
+        replayed = engine.backbone(video, mask)
+        torch.cuda.synchronize()
+    _features_equal(first, want)
+    _features_equal(replayed, want)
+    with profiling.tracing():
+        _features_equal(engine.backbone(video, mask), want)
+    got = profiling.collect()
+
+    assert tree(got) == tree(eager)
+    names = [s["name"] for s in eager["spans"]]
+    assert names.count("tce.model.backbone") == 1
+    assert {f"tce.model.backbone.stage{i}" for i in range(4)} <= set(names)
+    assert got["counters"].pop("engine.backbone_graph_replays") == 1
+    got["counters_by_span"]["tce.engine.backbone"].pop("engine.backbone_graph_replays")
+    got["counters_by_span"] = {k: v for k, v in got["counters_by_span"].items() if v}
+    assert got["counters"] == eager["counters"] and "swin.window_tokens" in got["counters"]
+    assert got["counters_by_span"] == eager["counters_by_span"]
+
+    ranges = {e.key: e.count for e in prof.key_averages()}
+    for name in set(names) - {"tce.engine.backbone"}:
+        assert ranges.get(name) == 2 * names.count(name), (name, ranges.get(name))
+    kernels, eager_kernels = _kernel_counts(prof), _kernel_counts(eager_prof)
+    assert eager_kernels
+    for k, n in eager_kernels.items():
+        assert kernels.get(k, 0) >= 2 * n, (k, kernels.get(k, 0), n)

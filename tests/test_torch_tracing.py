@@ -193,15 +193,16 @@ def test_engine_spans_and_padding_counters():
     assert _children(got, "tce.model.encoder") == ["tce.model.ftf"] * TINY.enc_layers
     assert {s["root"] for s in got["spans"]} == {
         s["id"] for s in got["spans"] if s["name"] == "tce.engine.request"}
-    # the engine counts under its request, the gate's choice under the trunk,
-    # the input stage (unpinned on the CPU) under its stack; no MSDA kernel
-    # launches on the CPU
+    # the engine counts under its request, the gates' choices under the
+    # backbone and the trunk, the input stage (unpinned on the CPU) under
+    # its stack; no MSDA kernel launches on the CPU
     stage = {"engine.pinned_frames": 16, "engine.pinned_allocs": 1}
-    request = {k: v for k, v in got["counters"].items()
-               if k != "engine.trunk_graph_eager" and k not in stage}
+    gates = ("engine.backbone_graph_eager", "engine.trunk_graph_eager")
+    request = {k: v for k, v in got["counters"].items() if k not in gates and k not in stage}
     assert got["counters_by_span"] == {"tce.engine.request": request,
                                        "tce.engine.preprocess.stack": stage,
-                                       "tce.engine.trunk": {"engine.trunk_graph_eager": 1}}
+                                       "tce.engine.backbone": {gates[0]: 1},
+                                       "tce.engine.trunk": {gates[1]: 1}}
 
     # windows of 2 frames over T = 5 (3 windows), E = 3 in chunks of 2 and 1:
     # 6 dispatches, the last window's padded frame and the lone chunk's
@@ -212,6 +213,7 @@ def test_engine_spans_and_padding_counters():
     names = _names(got)
     # the stage's buffer, sized by the whole video, is reused: no allocation
     assert got["counters"] == {"engine.trunk_dispatches": 6, "engine.trunk_graph_eager": 6,
+                               "engine.backbone_graph_eager": 3,
                                "engine.trunk_expframes": 3 * (2 * 2 + 1 * 2),
                                "engine.trunk_expframes_real": 5 * 3,
                                "engine.pinned_frames": 3 * 2}
